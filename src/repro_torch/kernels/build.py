@@ -1,0 +1,136 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` exports plain C entry points.  It is compiled
+with ``nvcc`` for ``sm_90a`` into its own shared library under
+``build/kernels/`` at the repository root (listed in ``.gitignore``) the
+first time a wrapper launches it, and loaded with ``ctypes``.  The file
+name carries a digest of the source and the flags, so an edited source
+builds anew and an unchanged one is reused.  :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them.
+
+Importing this module runs nothing: no compiler, no CUDA call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Iterable, Optional, Sequence
+
+__all__ = ["CudaKernel", "build_all", "check_operand", "BUILD_DIR", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+            "built from source at first use")
+    return str(path)
+
+
+class CudaKernel:
+    """One C entry point of one ``csrc/*.cu`` source.
+
+    ``launch(*args)`` calls the entry point, raises if it returns a CUDA
+    error, and only then adds one to ``launches`` — the count a run reads
+    to show that its main path went through this kernel.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+        self._lib = None
+
+    @property
+    def name(self) -> str:
+        return self.symbol
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start ``nvcc`` for this source unless its library exists."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        proc.tmp_path = tmp            # renamed into place by finish_build
+        return proc
+
+    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        if proc is None:
+            return
+        self.build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {self.source.name} "
+                f"(exit {proc.returncode}):\n{self.build_log}")
+        os.replace(proc.tmp_path, self.library_path())
+
+    def _entry(self):
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err_str = lib.repro_cuda_error_string
+            err_str.argtypes = [ctypes.c_int]
+            err_str.restype = ctypes.c_char_p
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        err = self._entry()(*args)
+        if err != 0:
+            msg = self._lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> float:
+    """Build every kernel's library in parallel (one ``nvcc`` per
+    source, all started together); return the wall seconds taken."""
+    t0 = time.perf_counter()
+    started = [(k, k.start_build()) for k in kernels]
+    for k, proc in started:
+        k.finish_build(proc)
+    return time.perf_counter() - t0
+
+
+def check_operand(name: str, t, dtype, ndim: int, device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-d ``dtype`` tensor on
+    ``device`` — what a kernel's raw pointer arithmetic assumes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,158 @@
+"""Attention blocks on the paged KV pool: the main-path subset of
+``repro.models.attention``.
+
+Both blocks compute directly on the pool layout ``(N, page, Hkv, D)``
+of one layer: the new tokens' K/V is scattered into its page-table
+mapped frames, then attention reads the pool through the page table —
+the hand-written CUDA kernels on the card, their plain PyTorch versions
+on the CPU (:mod:`repro_torch.kernels.ops`).
+
+In-place pool updates: the JAX package writes ``kp.at[frame, row].set``
+into a donated pool; here ``index_put_`` writes into the layer's view of
+the pool, so the caller's ``(L, N, page, Hkv, D)`` tensor changes in
+place and no block returns a new pool.  Frame ``N - 1`` is the trash
+frame: it takes the writes of empty decode slots, of padded chunk tokens
+and of positions past the slot's capacity.  Only the trash frame ever
+receives the same (frame, row) twice in one ``index_put_``, whose order
+on CUDA is unspecified — harmless, since the trash frame is never read
+unmasked.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import NEG_INF, one_token_attention
+from repro_torch.kernels.flash_attention import chunked_attention
+from repro_torch.models.layers import dense, rms_norm, rope
+
+__all__ = ["init_paged_kv_cache", "paged_decode_attention_block",
+           "paged_prefill_block", "one_token_attention", "chunked_attention",
+           "NEG_INF"]
+
+Params = Dict[str, torch.Tensor]
+
+
+def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = dense(p["q"], x, compute_dtype).reshape(B, S, cfg.num_heads, hd)
+    k = dense(p["k"], x, compute_dtype).reshape(B, S, cfg.num_kv_heads, hd)
+    v = dense(p["v"], x, compute_dtype).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def _position_encode(cfg: ModelConfig, q, k, positions):
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE is not ported yet")
+    return rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                     cfg.rope_theta)
+
+
+def init_paged_kv_cache(cfg: ModelConfig, n_frames: int, page_size: int,
+                        batch: int, max_len: int, *, device,
+                        n_layers: Optional[int] = None,
+                        dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """KV cache in the device-pool layout: ``k_pages``/``v_pages`` of
+    shape (L, n_frames, page, Hkv, D) — one frame holds a page's K or V
+    for every layer — and the per-slot ``page_table`` (batch,
+    pages_per_seq) int32, initialised to the trash frame ``n_frames - 1``.
+    The per-sequence capacity must be a multiple of ``page_size``."""
+    L = n_layers if n_layers is not None else cfg.num_layers
+    slots = min(max_len, cfg.window) if cfg.attention == "swa" else max_len
+    if slots % page_size:
+        raise ValueError(
+            f"page_size {page_size} must divide the per-sequence token "
+            f"capacity {slots} for the paged decode layout")
+    shape = (L, n_frames, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k_pages": torch.zeros(shape, dtype=dtype, device=device),
+        "v_pages": torch.zeros(shape, dtype=dtype, device=device),
+        "page_table": torch.full((batch, slots // page_size), n_frames - 1,
+                                 dtype=torch.int32, device=device),
+    }
+
+
+def paged_decode_attention_block(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, 1, d)
+    layer_pages: Tuple[torch.Tensor, torch.Tensor],  # k,v (N, page, Hkv, D)
+    page_table: torch.Tensor,            # (B, pages_per_seq) int32 frame ids
+    pos: torch.Tensor,                   # (B,) int32: per-sequence position
+    *,
+    compute_dtype,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One-token attention on the paged layout: scatter the new token's
+    K/V into its mapped frame (in place), attend through the page table,
+    project out.  Returns the block output (B, 1, d)."""
+    B = x.shape[0]
+    kp, vp = layer_pages
+    page = kp.shape[1]
+    slots = page_table.shape[1] * page           # token capacity per sequence
+    q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
+    q, k_new = _position_encode(cfg, q, k_new, pos[:, None])
+    slot = (pos % slots if cfg.attention == "swa"
+            else torch.clamp(pos, max=slots - 1)).long()
+    frame = page_table[torch.arange(B, device=x.device), slot // page].long()
+    row = slot % page
+    kp.index_put_((frame, row), k_new[:, 0].to(kp.dtype))
+    vp.index_put_((frame, row), v_new[:, 0].to(vp.dtype))
+    valid = torch.clamp(pos + 1, max=slots)       # (B,) int32
+    out = ops.paged_decode_attention(q[:, 0], kp, vp, page_table, valid,
+                                     impl=impl)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim).to(compute_dtype)
+    return dense(p["o"], out, compute_dtype)
+
+
+def paged_prefill_block(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (C, T, d) pre-normed chunk hidden
+    layer_pages: Tuple[torch.Tensor, torch.Tensor],  # k,v (N, page, Hkv, D)
+    page_rows: torch.Tensor,             # (C, pages_per_seq) int32 frame ids
+    offset: torch.Tensor,                # (C,) absolute position of x[:, 0]
+    length: torch.Tensor,                # (C,) valid tokens in this chunk
+    positions: torch.Tensor,             # (C, T) absolute positions
+    *,
+    compute_dtype,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One prompt chunk per row on the paged layout: scatter the chunk's
+    K/V into its mapped frames (in place; padding and out-of-capacity
+    tokens go to the trash frame), flash-attend the row's pool-resident
+    prefix plus the chunk with the causal wedge shifted by ``offset``,
+    project out.  Returns (C, T, d); rows at/past ``length`` are
+    don't-care."""
+    C, T, _ = x.shape
+    kp, vp = layer_pages
+    page = kp.shape[1]
+    pages_per_seq = page_rows.shape[1]
+    slots = pages_per_seq * page
+    trash = kp.shape[0] - 1
+    q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
+    q, k_new = _position_encode(cfg, q, k_new, positions)
+
+    t = torch.arange(T, dtype=torch.int32, device=x.device)
+    abs_pos = offset[:, None] + t[None, :]                   # (C, T)
+    ok = (t[None, :] < length[:, None]) & (abs_pos < slots)
+    page_idx = torch.clamp(abs_pos // page, 0, pages_per_seq - 1)
+    frame = torch.where(ok, torch.gather(page_rows, 1, page_idx.long()),
+                        trash).long()
+    row = (abs_pos % page).long()
+    kp.index_put_((frame, row), k_new.to(kp.dtype))
+    vp.index_put_((frame, row), v_new.to(vp.dtype))
+
+    out = ops.paged_prefill_attention(
+        q, kp, vp, page_rows, offset, length,
+        window=cfg.window if cfg.attention == "swa" else 0, impl=impl)
+    out = out.reshape(C, T, cfg.num_heads * cfg.head_dim).to(compute_dtype)
+    return dense(p["o"], out, compute_dtype)

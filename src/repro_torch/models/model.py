@@ -1,0 +1,200 @@
+"""Dense decoder on the paged KV pool: the serving subset of
+``repro.models.model``.
+
+Parameters are a nested dict of tensors with the JAX package's path
+names, the layer stack stacked on axis 0 (``params["layers"]["attn"]
+["q"]["w"]`` is (L, d, H * D)), so :func:`repro_torch.bridge.
+params_from_numpy` moves JAX weights over by name.  The layer loop is a
+Python loop that hands each layer its ``(N, page, Hkv, D)`` view of the
+stacked pool; the attention blocks update those views in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (init_paged_kv_cache,
+                                          paged_decode_attention_block,
+                                          paged_prefill_block)
+from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
+
+Params = Dict[str, Any]
+
+__all__ = ["init_params", "cast_params", "PagedCache", "init_paged_cache",
+           "decode_step", "prefill_chunk", "torch_dtype"]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} (experts={cfg.num_experts}) is not "
+            "ported yet; the port serves dense decoders")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random parameters with the JAX ``init_params`` shapes and scales
+    (dense weights ~ N(0, 1/d_in), embeddings ~ N(0, 0.02²), norm scales
+    1), drawn from ``generator`` on ``device`` in ``cfg.param_dtype``."""
+    _check_family(cfg)
+    dtype = torch_dtype(cfg.param_dtype)
+    L, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    H, Hkv, V = cfg.num_heads, cfg.num_kv_heads, cfg.padded_vocab
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device)
+        return x.mul_(scale)
+
+    def w(d_in, d_out):
+        return {"w": normal((L, d_in, d_out), d_in ** -0.5)}
+
+    def ones(*shape):
+        return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+
+    attn = {"q": w(d, H * hd), "k": w(d, Hkv * hd), "v": w(d, Hkv * hd),
+            "o": w(H * hd, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = ones(L, hd)
+        attn["k_norm"] = ones(L, hd)
+    params: Params = {
+        "embed": {"table": normal((V, d), 0.02)},
+        "final_norm": ones(d),
+        "layers": {
+            "attn_norm": ones(L, d),
+            "attn": attn,
+            "mlp_norm": ones(L, d),
+            "mlp": {"gate": w(d, ff), "up": w(d, ff), "down": w(ff, d)},
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"table": normal((V, d), 0.02)}
+    return params
+
+
+def cast_params(params: Params, compute_dtype: torch.dtype,
+                device) -> Params:
+    """Move ``params`` to ``device`` and cast the matrix weights (dense
+    ``w``/``b``, embedding tables) to ``compute_dtype`` — the cast the JAX
+    package repeats inside every ``dense`` call, done once.  Norm scales
+    keep their dtype (the norms read them in f32).  Tensors already in
+    place are returned as they are, not copied."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out[name] = cast_params(leaf, compute_dtype, device)
+        elif name in ("w", "b", "table"):
+            out[name] = leaf.to(device=device, dtype=compute_dtype)
+        else:
+            out[name] = leaf.to(device=device)
+    return out
+
+
+def _layer(tree: Params, l: int) -> Params:
+    """Layer ``l``'s view of the stacked layer params."""
+    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
+
+
+class PagedCache(NamedTuple):
+    """Decode-time state with the attention KV in the paged pool layout:
+    ``kv`` holds ``k_pages``/``v_pages`` (L, n_frames, page, Hkv, D) and
+    the per-slot ``page_table`` (B, pages_per_seq) int32; ``pos`` (B,)
+    int32 is each slot's next absolute position."""
+
+    kv: Dict[str, torch.Tensor]
+    pos: torch.Tensor
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     n_frames: int, page_size: int, *, device) -> PagedCache:
+    """Frame ``n_frames - 1`` is the trash frame: unmapped page-table
+    entries (and every entry of an empty decode slot) point there."""
+    _check_family(cfg)
+    kv = init_paged_kv_cache(cfg, n_frames, page_size, batch, max_len,
+                             device=device)
+    return PagedCache(kv=kv, pos=torch.zeros((batch,), dtype=torch.int32,
+                                             device=device))
+
+
+def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: PagedCache, attn: Callable, cdt) -> torch.Tensor:
+    """The dense layer stack shared by one-token decode and chunked
+    prefill; ``attn(p, h, k_layer, v_layer)`` runs one attention block on
+    the pre-normed hidden ``h`` against that layer's pool view."""
+    kp, vp = cache.kv["k_pages"], cache.kv["v_pages"]
+    layers = params["layers"]
+    for l in range(cfg.num_layers):
+        lp = _layer(layers, l)
+        x = x + attn(lp["attn"], rms_norm(lp["attn_norm"], x, cfg.norm_eps),
+                     kp[l], vp[l])
+        h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + swiglu(lp["mlp"], h, cdt)
+    return x
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, cdt):
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    table = params["embed"]["table"] if cfg.tie_embeddings else \
+        params["lm_head"]["table"]
+    logits = unembed({"table": table}, x, logit_scale=cfg.logit_scale,
+                     compute_dtype=cdt)[:, 0]
+    return logits.float()
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: PagedCache,
+                tokens: torch.Tensor, *, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, PagedCache]:
+    """One-token decode.  tokens: (B, 1) int.  Writes each slot's new K/V
+    into the pool in place and returns (logits (B, V) f32, cache with
+    ``pos + 1``)."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    pos = cache.pos
+    pt = cache.kv["page_table"]
+    x = embed(params["embed"], tokens, cdt)
+
+    def attn(p, h, kl, vl):
+        return paged_decode_attention_block(p, cfg, h, (kl, vl), pt, pos,
+                                            compute_dtype=cdt, impl=impl)
+
+    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    return _logits(params, cfg, x, cdt), cache._replace(pos=pos + 1)
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
+                  chunk: Dict[str, torch.Tensor], *, impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, PagedCache]:
+    """Run one prompt chunk for up to C admitting slots on the pool layout.
+
+    ``chunk`` keys (C rows, T token capacity), all int32 tensors on the
+    cache's device: ``tokens`` (C, T), ``offset``/``length`` (C,) and
+    ``page_rows`` (C, pages_per_seq) — as in the JAX package (a
+    ``length == 0`` row is inert: its K/V lands in the trash frame).
+    Returns (logits (C, V) f32 at each row's last valid token, cache);
+    the pool frames are updated in place.
+    """
+    cdt = torch_dtype(cfg.compute_dtype)
+    toks = chunk["tokens"]
+    C, T = toks.shape
+    offset, length = chunk["offset"], chunk["length"]
+    page_rows = chunk["page_rows"]
+    x = embed(params["embed"], toks, cdt)
+    positions = offset[:, None] + torch.arange(T, dtype=torch.int32,
+                                               device=toks.device)[None, :]
+
+    def attn(p, h, kl, vl):
+        return paged_prefill_block(p, cfg, h, (kl, vl), page_rows, offset,
+                                   length, positions, compute_dtype=cdt,
+                                   impl=impl)
+
+    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    idx = torch.clamp(length - 1, 0, T - 1).long()
+    x_last = x[torch.arange(C, device=x.device), idx][:, None]
+    return _logits(params, cfg, x_last, cdt), cache

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels on the card (marked ``cuda``; they skip where
+no CUDA device is present, as on a CPU-only machine).
+
+Run on a machine with an NVIDIA GPU and ``nvcc``:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Each kernel is held against its plain PyTorch version on the same bf16
+inputs, over ragged lengths, page edges and GQA group sizes: every
+element within atol 4e-3 + rtol 1e-2 (one bf16 step at any magnitude),
+every output row of D values within a relative L2 error of 1e-2 (a
+skipped or repeated page exceeds it).  The engine test serves a reduced
+dense config through the kernels.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import decode_attention, flash_attention, ops
+from repro_torch.models.model import init_params
+from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
+                                      PagingConfig)
+from repro_torch.serve.engine import Engine
+
+pytestmark = pytest.mark.cuda
+ATOL, RTOL, ROW_TOL = 4e-3, 1e-2, 1e-2
+
+
+def _assert_agree(out, ref):
+    o, r = out.float(), ref.float()
+    torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
+    row = (o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+    assert torch.all(row <= ROW_TOL), row.max()
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+def _table(rng, rows_len, page, pps, n_frames):
+    table = np.full((len(rows_len), pps), n_frames - 1, np.int32)
+    perm = rng.permutation(n_frames - 1)
+    at = 0
+    for r, n in enumerate(rows_len):
+        used = -(-n // page)
+        table[r, :used] = perm[at:at + used]
+        at += used
+    return table
+
+
+@pytest.mark.parametrize("groups,head_dim,page", [(3, 128, 16), (1, 64, 8),
+                                                  (8, 128, 16), (2, 64, 16)])
+def test_decode_kernel_matches_plain(dev, groups, head_dim, page):
+    rng = np.random.default_rng(0)
+    hkv = 4
+    lengths = np.array([1, page, page + 1, 63, 64, 65, 200], np.int32)
+    pps = 256 // page
+    n_frames = len(lengths) * pps + 1
+    pt = torch.from_numpy(_table(rng, lengths, page, pps, n_frames)).to(dev)
+    kp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    vp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    q = torch.randn(len(lengths), hkv * groups, head_dim,
+                    device=dev).bfloat16()
+    ln = torch.from_numpy(lengths).to(dev)
+    before = decode_attention.KERNEL.launches
+    out = ops.paged_decode_attention(q, kp, vp, pt, ln)
+    ref = ops.paged_decode_attention(q, kp, vp, pt, ln, impl="torch")
+    assert decode_attention.KERNEL.launches == before + 1
+    _assert_agree(out, ref)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_prefill_kernel_matches_plain(dev, window, head_dim):
+    rng = np.random.default_rng(1)
+    hkv, groups, page, T = 2, 3, 16, 100
+    offset = np.array([0, 48, 131, 0], np.int32)
+    length = np.array([100, 71, 9, 0], np.int32)
+    pps = 512 // page
+    n_frames = len(offset) * pps + 1
+    rows = torch.from_numpy(_table(rng, offset + length, page, pps,
+                                   n_frames)).to(dev)
+    kp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    vp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    q = torch.randn(len(offset), T, hkv * groups, head_dim,
+                    device=dev).bfloat16()
+    off = torch.from_numpy(offset).to(dev)
+    ln = torch.from_numpy(length).to(dev)
+    before = flash_attention.KERNEL.launches
+    out = ops.paged_prefill_attention(q, kp, vp, rows, off, ln, window=window)
+    ref = ops.paged_prefill_attention(q, kp, vp, rows, off, ln,
+                                      window=window, impl="torch")
+    assert flash_attention.KERNEL.launches == before + 1
+    for c, n in enumerate(length):
+        _assert_agree(out[c, :n], ref[c, :n])
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(2, 6, 16, device=dev, dtype=torch.bfloat16)
+    pool = torch.zeros(5, 4, 2, 16, device=dev, dtype=torch.bfloat16)
+    pt = torch.full((2, 2), 4, dtype=torch.int32, device=dev)
+    ln = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode_attention(q, pool, pool, pt, ln)
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q.float(), pool, pool, pt, ln)
+
+
+def test_engine_serves_through_the_kernels(dev):
+    """A reduced dense config with 128-wide heads (the kernels' width),
+    an oversubscribed pool, every request finished, both kernels used."""
+    cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), head_dim=128)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    counts = [k.launches for k in ops.KERNELS]
+    eng = Engine(cfg, params, EngineConfig(
+        max_batch=3, max_len=64, device="cuda",
+        paging=PagingConfig(page_size=4, device_pages=10),
+        chunking=ChunkingConfig(chunk_tokens=8, chunk_slots=2)))
+    rng = np.random.default_rng(2)
+    for n in (13, 6, 17, 9, 20, 5):
+        eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=7)
+    out = eng.run()
+    assert sorted(len(v) for v in out.values()) == [7] * 6
+    assert eng.stats["preemptions"] > 0
+    assert all(k.launches > c for k, c in zip(ops.KERNELS, counts))
