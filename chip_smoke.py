@@ -4,20 +4,24 @@
 
 Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 
-1. builds both CUDA kernels of the serving path from ``src/repro_torch/
-   kernels/csrc`` with ``nvcc`` for ``sm_90a``, one compiler per source,
-   started together;
+1. builds the three CUDA kernels of the serving path (paged decode,
+   paged prefill, paged verify) from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a``, one compiler per source, started
+   together;
 2. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16, bf16 pool):
    decode at B=8 with ragged lengths 1..2048, prefill at C=2, T=256 with
-   ragged offsets and lengths.  Every element must agree within
+   ragged offsets and lengths, verify at B=8, S=5 (K=4) with per-row
+   lengths 1..2048 that straddle pages.  Every element must agree within
    atol 4e-3 + rtol 1e-2 (one bf16 step at any magnitude, four times the
    largest error measured on an H100), and every output row of D values
    within a relative L2 error of 1e-2, which a skipped or repeated page
    of even the longest row exceeds several times.
    It times kernel, plain version and ``scaled_dot_product_attention``
    on the gathered view (a yardstick only) with CUDA events, and
-   computes each kernel's bound from these inputs;
+   computes each kernel's bound from these inputs.  Verify row s is also
+   held against the decode kernel at ``lengths[:, s]`` (both are one
+   template): the largest difference is printed, and whether it is 0;
 3. serves 12 requests (prompts of 512-1536 tokens, 32 new tokens each)
    on ``phi4-mini-3.8b`` at full width with random weights from a seeded
    generator, through the port's ``Engine``: FUSED role, paging and
@@ -25,21 +29,38 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    under half of ``max_batch * pages_per_seq``, so the pager parks and
    resumes pages.
    It asserts that every request finishes with its token count, that
-   both kernels launched in that run, and that the pager preempted and
-   resumed; it prints throughput, TTFT, memory, and the share of tokens
-   equal to a run whose pool needs no preemption;
-4. checks one prefill chunk and one decode step at full width: kernels
-   against plain versions on the same cache, finite logits of the right
-   shape within a relative error.
+   the decode and prefill kernels launched in that run, that the pager
+   preempted and resumed, and that a run whose pool needs no preemption
+   gives the same tokens; it prints throughput, TTFT and memory;
+4. serves the same requests twice more with speculative verify-K decode
+   (K=4) on the same pool: (a) with an oracle proposer that drafts the
+   run of phase 3's own tokens, (b) with a proposer whose drafts never
+   match, so every verify step rolls back.  Each run must finish every
+   request with its token count, balance its speculation counters,
+   pass ``check_invariants`` and launch the verify kernel; (b) must
+   accept nothing.  It prints throughput, TTFT, step counts, and the
+   share of tokens equal to phase 3's (for (a), the oracle drafts that
+   were rejected mark where verify and decode logits chose another
+   argmax); then it serves phase 3's configuration once more, warm, for
+   a throughput free of the process's warm-up;
+5. checks one prefill chunk, one decode step and one verify step at full
+   width over 8 rows (the engine's batch): kernels against plain
+   versions on the same cache, finite logits of the right shape within
+   a relative error; verify row s against the s-th of five sequential
+   decode steps (relative error, and the same argmax wherever the
+   decode step's top-2 margin exceeds twice their largest difference);
+   and, for the pieces of a layer, the largest difference between 40
+   rows and 8 rows of the same input.
 
 It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Without a CUDA device it exits non-zero before any result.
 
-``--profile-out PATH`` adds one more engine run of phase 3 under
-``torch.profiler`` and prints where its device time went (attention
-kernels, matrix products, copies, the rest) and the device's busy share
-of the profiled wall time; the per-kernel table goes to PATH.
+``--profile-out PATH`` adds one more engine run of phase 3 and one of
+phase 4's oracle run under ``torch.profiler`` and prints where their
+device time went (attention kernels, matrix products, copies, the rest)
+and the device's busy share of the profiled wall time; the per-kernel
+tables go to PATH and to PATH with ``-spec`` added to its stem.
 """
 
 from __future__ import annotations
@@ -62,11 +83,14 @@ from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as pre_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.models.layers import (dense, rms_norm, swiglu,  # noqa: E402
+                                       unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
                                       init_paged_cache, init_params,
-                                      prefill_chunk)
+                                      prefill_chunk, verify_step)
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E402
-                                      PagingConfig, SchedulerConfig)
+                                      PagingConfig, SchedulerConfig,
+                                      SpeculationConfig)
 from repro_torch.serve.engine import Engine  # noqa: E402
 
 H, HKV, D, PAGE = 24, 8, 128, 16
@@ -82,6 +106,7 @@ ARCH = "phi4-mini-3.8b"
 ENGINE = dict(max_batch=8, max_len=2048, page_size=16, device_pages=448,
               chunk_tokens=256, chunk_slots=2)
 N_REQUESTS, PROMPT_RANGE, NEW_TOKENS = 12, (512, 1536), 32
+SPECULATE_K = 4
 SEED = 0
 
 
@@ -238,7 +263,89 @@ def check_prefill(dev, rng):
     }
 
 
-def engine_config(device, device_pages, clock=None) -> EngineConfig:
+def check_verify(dev, rng):
+    """The verify kernel at K=4: against its plain version, and row s
+    against the decode kernel at ``lengths[:, s]``."""
+    S = SPECULATE_K + 1
+    starts = np.array([1, 12, 16, 255, 640, 1000, 1537, 2044], np.int32)
+    lengths = np.minimum(starts[:, None] + np.arange(S)[None, :],
+                         2048).astype(np.int32)    # 1..5, 16, 17, .., 2048
+    B, pps = len(starts), 2048 // PAGE
+    longest = lengths.max(axis=1)
+    n_frames = B * pps + 1
+    table = np.full((B, pps), n_frames - 1, np.int32)
+    for b, fr in enumerate(random_frames(rng, n_frames - 1,
+                                         [-(-n // PAGE) for n in longest])):
+        table[b, :len(fr)] = fr
+    kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+    vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+    q = torch.randn(B, S, H, D, device=dev).bfloat16()
+    pt = torch.from_numpy(table).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    args = (q, kp, vp, pt, ln)
+    out = ops.paged_verify_attention(*args, impl="cuda")
+    ref = ops.paged_verify_attention(*args, impl="torch")
+    err, row_err = agree("verify kernel", out, ref)
+    vs_decode = max(
+        float((out[:, s].float() - ops.paged_decode_attention(
+            q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous(),
+            impl="cuda").float()).abs().max()) for s in range(S))
+    print(f"[kernel] verify row s vs decode kernel at lengths[:, s]: max "
+          f"diff {vs_decode:.3e} "
+          f"({'bitwise' if vs_decode == 0 else 'not bitwise'})")
+    kg, vg = gathered(kp, pt), gathered(vp, pt)
+    mask = (torch.arange(pps * PAGE, device=dev)[None, None, :]
+            < ln[:, :, None])[:, None]                 # (B, 1, S, L)
+    qs = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K/V rows up to each sequence's longest row, read once
+    nbytes = (q.numel() * 2 * 2 + pt.numel() * 4 + ln.numel() * 4
+              + 2 * int(longest.sum()) * HKV * D * 2)
+    flops = 4 * int(lengths.sum()) * H * D
+    b_ms, b_by = bound(nbytes, flops)
+    return {
+        "name": "paged_verify_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:395",
+        "launches": None, "max_abs_err": err, "row_err": row_err,
+        "ms": time_ms(lambda: ops.paged_verify_attention(*args,
+                                                         impl="cuda")),
+        "plain_ms": time_ms(lambda: ops.paged_verify_attention(
+            *args, impl="torch")),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
+    }
+
+
+class OracleProposer:
+    """Drafts the continuation a plain run emitted: right wherever the
+    verify step's argmax equals the decode step's."""
+
+    def __init__(self, refs, prompt_lens, k):
+        self.refs, self.prompt_lens, self.k = refs, prompt_lens, k
+
+    def propose(self, rid, history):
+        n = len(history) - self.prompt_lens[rid]
+        return list(self.refs[rid][n:n + self.k])
+
+    def drop(self, rid):
+        pass
+
+
+class WrongProposer(OracleProposer):
+    """The plain run's tokens plus one: rejected at row 0 on every
+    verify step that follows the plain stream."""
+
+    def __init__(self, refs, prompt_lens, k, vocab):
+        super().__init__(refs, prompt_lens, k)
+        self.vocab = vocab
+
+    def propose(self, rid, history):
+        return [(t + 1) % self.vocab for t in super().propose(rid, history)]
+
+
+def engine_config(device, device_pages, clock=None,
+                  proposer_factory=None) -> EngineConfig:
     e = ENGINE
     return EngineConfig(
         max_batch=e["max_batch"], max_len=e["max_len"], device=device,
@@ -246,7 +353,10 @@ def engine_config(device, device_pages, clock=None) -> EngineConfig:
                             device_pages=device_pages),
         chunking=ChunkingConfig(chunk_tokens=e["chunk_tokens"],
                                 chunk_slots=e["chunk_slots"]),
-        scheduler=SchedulerConfig(policy="watermark", clock=clock))
+        scheduler=SchedulerConfig(policy="watermark", clock=clock),
+        speculation=SpeculationConfig(
+            speculate_k=SPECULATE_K if proposer_factory else 0,
+            proposer_factory=proposer_factory))
 
 
 def prompts(vocab: int):
@@ -256,9 +366,11 @@ def prompts(vocab: int):
             for _ in range(N_REQUESTS)]
 
 
-def serve(cfg, params, device, device_pages, clock=None):
+def serve(cfg, params, device, device_pages, clock=None,
+          proposer_factory=None):
     """Serve the smoke requests; returns (engine, outputs, wall seconds)."""
-    eng = Engine(cfg, params, engine_config(device, device_pages, clock))
+    eng = Engine(cfg, params, engine_config(device, device_pages, clock,
+                                            proposer_factory))
     for p in prompts(cfg.vocab_size):
         eng.submit(p, max_new_tokens=NEW_TOKENS)
     t0 = time.perf_counter()
@@ -269,31 +381,46 @@ def serve(cfg, params, device, device_pages, clock=None):
 
 
 def check_steps(cfg, params, dev):
-    """One prefill chunk and one decode step at full width, kernels vs
-    plain versions on identical fresh caches."""
+    """One prefill chunk of the engine's batch of rows, then one decode
+    step and one verify step over the pool it filled, at full width:
+    kernels vs plain versions on identical fresh caches; then verify row
+    s vs the s-th of S sequential decode steps, through the kernels."""
     rng = np.random.default_rng(SEED + 1)
-    T, n_frames = 256, 2 * 32 + 1
+    B, T, S = ENGINE["max_batch"], 256, SPECULATE_K + 1
+    per_row = -(-(T + S) // PAGE)            # pages for the chunk + S tokens
+    n_frames = B * per_row + 1
     toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)).to(dev)
-    # pages for the chunk and for the decode token after it
-    rows = torch.full((2, 32), n_frames - 1, dtype=torch.int32, device=dev)
-    rows[0, :17] = torch.arange(17)
-    rows[1, :14] = torch.arange(17, 31)
+        rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)).to(dev)
+    vtoks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    rows = torch.full((B, 32), n_frames - 1, dtype=torch.int32, device=dev)
+    rows[:, :per_row] = torch.arange(B * per_row, dtype=torch.int32,
+                                     device=dev).reshape(B, per_row)
     chunk = {"tokens": toks, "page_rows": rows,
-             "offset": torch.zeros(2, dtype=torch.int32, device=dev),
-             "length": torch.tensor([256, 217], dtype=torch.int32,
-                                    device=dev)}
-    res = {}
-    for impl in ("cuda", "torch"):
-        cache = init_paged_cache(cfg, 2, 512, n_frames, PAGE, device=dev)
+             "offset": torch.zeros(B, dtype=torch.int32, device=dev),
+             "length": torch.tensor([256, 217, 256, 100, 1, 256, 180, 33],
+                                    dtype=torch.int32, device=dev)}
+
+    def prefilled(impl):
+        cache = init_paged_cache(cfg, B, 512, n_frames, PAGE, device=dev)
         cl, cache = prefill_chunk(params, cfg, cache, chunk, impl=impl)
         cache.kv["page_table"].copy_(rows)
-        cache = cache._replace(pos=chunk["length"].clone())
+        return cl, cache._replace(pos=chunk["length"].clone())
+
+    res = {}
+    for impl in ("cuda", "torch"):
+        cl, cache = prefilled(impl)
+        kv = {k: t.clone() for k, t in cache.kv.items()}
         dl, _ = decode_step(params, cfg, cache, toks[:, -1:], impl=impl)
-        res[impl] = (cl.float(), dl.float())
-    for i, name in enumerate(("chunk", "decode")):
+        vl, _ = verify_step(params, cfg, cache._replace(kv=kv), vtoks, full,
+                            impl=impl)
+        res[impl] = (cl.float(), dl.float(), vl.float())
+    shapes = ((B, cfg.padded_vocab), (B, cfg.padded_vocab),
+              (B, S, cfg.padded_vocab))
+    for i, name in enumerate(("chunk", "decode", "verify")):
         a, b = res["cuda"][i], res["torch"][i]
-        require(a.shape == (2, cfg.padded_vocab), f"{name}: {a.shape}")
+        require(a.shape == shapes[i], f"{name}: {a.shape}")
         require(torch.isfinite(a).all(), f"{name} logits: non-finite")
         rel = float((a - b).norm() / b.norm())
         same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -301,9 +428,48 @@ def check_steps(cfg, params, dev):
               f"argmax agreement {same:.2f}")
         require(rel < 0.05, f"{name} logits rel err {rel}")
 
+    vl = res["cuda"][2]
+    _, cache = prefilled("cuda")
+    for s in range(S):
+        dl, cache = decode_step(params, cfg, cache, vtoks[:, s:s + 1],
+                                impl="cuda")
+        dl = dl.float()
+        diff = (vl[:, s] - dl).abs().max(-1).values          # (B,)
+        rel = float((vl[:, s] - dl).norm() / dl.norm())
+        # rows whose top-2 margin no perturbation within diff can close
+        top2 = dl.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        agree_rows = vl[:, s].argmax(-1) == dl.argmax(-1)
+        print(f"[steps] verify row {s} vs sequential decode step {s}: rel "
+              f"err {rel:.3e}, max abs diff {float(diff.max()):.3e}, argmax "
+              f"agreement {float(agree_rows.float().mean()):.2f} "
+              f"({int(decided.sum())} of {B} rows decided by the margin)")
+        require(rel < 0.05, f"verify row {s} vs decode: rel err {rel}")
+        require(bool(agree_rows[decided].all()),
+                f"verify row {s} chose another argmax than decode where "
+                "the top-2 margin exceeds their difference")
+
+    # where the rows part: each piece of a layer on B * S rows vs B rows
+    layers = params["layers"]
+    mlp = {k: {"w": v["w"][0]} for k, v in layers["mlp"].items()}
+    q_proj = {"w": layers["attn"]["q"]["w"][0]}
+    norm = {"scale": layers["attn_norm"]["scale"][0]}
+    x = torch.randn(B, S, cfg.d_model, device=dev).bfloat16()
+    pieces = {
+        "rms_norm": lambda h: rms_norm(norm, h, cfg.norm_eps),
+        "q projection": lambda h: dense(q_proj, h, torch.bfloat16),
+        "swiglu mlp": lambda h: swiglu(mlp, h, torch.bfloat16),
+        "unembed": lambda h: unembed(params["embed"], h,
+                                     compute_dtype=torch.bfloat16)}
+    for name, fn in pieces.items():
+        d = float((fn(x)[:, :1].float() - fn(x[:, :1].contiguous()).float())
+                  .abs().max())
+        print(f"[steps] {name} on {B * S} rows vs {B} rows: max diff "
+              f"{d:.3e}{' (bitwise)' if d == 0 else ''}")
+
 
 def _kind(name: str) -> str:
-    if "paged_decode_kernel" in name or "paged_prefill_kernel" in name:
+    if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
         return "attention kernels"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products"
@@ -312,30 +478,37 @@ def _kind(name: str) -> str:
     return "other kernels"
 
 
-def profile_engine(cfg, params, path: str) -> None:
-    """One more (warm) phase-3 run under ``torch.profiler``: device time
-    by kind of kernel, and the device's busy share of the wall time."""
+def profile_engine(cfg, params, path: str, spec_factory) -> None:
+    """One more (warm) run of phase 3 and of phase 4's oracle run under
+    ``torch.profiler``: device time by kind of kernel, and the device's
+    busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, out, wall = serve(cfg, params, "cuda", ENGINE["device_pages"])
-    kinds = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            k = _kind(ev.name)
-            kinds[k] = kinds.get(k, 0.0) + ev.time_range.elapsed_us() / 1e3
-    busy = sum(kinds.values())
-    print(f"[profile] profiled run: {wall:.3f}s wall, device busy "
-          f"{busy / 1e3:.3f}s ({busy / (wall * 1e3):.3f} of wall)")
-    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of device "
-              f"time)" if busy else f"[profile] {k}: 0")
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(prof.key_averages().table(
-        sort_by="self_cuda_time_total", row_limit=60))
-    print(f"[profile] per-kernel table written to {path}")
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for tag, factory, table in (
+            ("plain", None, out),
+            ("spec:oracle", spec_factory,
+             out.with_name(f"{out.stem}-spec{out.suffix}"))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
+                               proposer_factory=factory)
+        kinds = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                k = _kind(ev.name)
+                kinds[k] = kinds.get(k, 0.0) + ev.time_range.elapsed_us() / 1e3
+        busy = sum(kinds.values())
+        print(f"[profile:{tag}] profiled run: {wall:.3f}s wall, device busy "
+              f"{busy / 1e3:.3f}s ({busy / (wall * 1e3):.3f} of wall)")
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+            print(f"[profile:{tag}] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of "
+                  f"device time)" if busy else f"[profile:{tag}] {k}: 0")
+        table.write_text(prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=60))
+        print(f"[profile:{tag}] per-kernel table written to {table}")
 
 
 def main(argv=None) -> int:
@@ -368,7 +541,8 @@ def main(argv=None) -> int:
 
     # 2. kernels vs plain versions
     rng = np.random.default_rng(SEED)
-    rows = [check_decode(dev, rng), check_prefill(dev, rng)]
+    rows = [check_decode(dev, rng), check_prefill(dev, rng),
+            check_verify(dev, rng)]
     for r in rows:
         print(f"[kernel] {r['name']}: kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} library_ms "
@@ -406,8 +580,9 @@ def main(argv=None) -> int:
     require(all(len(v) == NEW_TOKENS for v in out.values()), "token counts")
     require(all(0 <= t < cfg.padded_vocab for v in out.values() for t in v),
             "token ids out of the vocabulary")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL):
+        require(launches[k.name] > 0,
+                f"kernel {k.name} never launched on the main path")
     require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
             "the pool never preempted/resumed")
     pps = ENGINE["max_len"] // ENGINE["page_size"]
@@ -418,15 +593,70 @@ def main(argv=None) -> int:
           f"steps {roomy.stats['steps']}, {n_tok / r_wall:.1f} tok/s; "
           f"tokens equal to the preempting run: {same}/{n_tok} "
           f"({same / n_tok:.3f})")
+    require(same == n_tok, "the roomy pool's tokens differ from the "
+            "preempting run's")
     del eng, roomy
 
-    # 4. full-width step check against the plain versions
+    # 4. speculative verify-K decode on the same pool
+    lens = {i: len(p) for i, p in enumerate(prompts(cfg.vocab_size))}
+    oracle = lambda n, k: OracleProposer(out, lens, k)  # noqa: E731
+    spec_launches = {}
+    for tag, factory in (
+            ("oracle", oracle),
+            ("wrong", lambda n, k: WrongProposer(out, lens, k,
+                                                 cfg.padded_vocab))):
+        for k in ops.KERNELS:
+            k.launches = 0
+        seng, sout, s_wall = serve(cfg, params, "cuda",
+                                   ENGINE["device_pages"],
+                                   clock=time.perf_counter,
+                                   proposer_factory=factory)
+        spec_launches[tag] = {k.name: k.launches for k in ops.KERNELS}
+        st = seng.stats
+        s_tok = sum(len(v) for v in sout.values())
+        same = sum(a == b for r in out for a, b in zip(out[r], sout[r]))
+        print(f"[spec:{tag}] {len(sout)} requests, {s_tok} tokens in "
+              f"{s_wall:.2f}s ({s_tok / s_wall:.1f} tok/s), mean TTFT "
+              f"{np.mean([r.ttft for r in seng.finished.values()]):.3f}s, "
+              f"steps {st['steps']} (spec {st['spec_steps']}, mixed "
+              f"{st['mixed_steps']}), preemptions {st['preemptions']} "
+              f"resumes {st['resumes']}")
+        print(f"[spec:{tag}] drafted {st['drafted']} accepted "
+              f"{st['accepted']} rejected {st['rejected']}; tokens equal "
+              f"to the plain run: {same}/{n_tok} ({same / n_tok:.3f}); "
+              f"kernel launches {spec_launches[tag]}")
+        require(len(sout) == N_REQUESTS,
+                f"spec {tag}: {len(sout)} of {N_REQUESTS} finished")
+        require(all(len(v) == NEW_TOKENS for v in sout.values()),
+                f"spec {tag}: token counts")
+        require(st["accepted"] + st["rejected"] == st["drafted"],
+                f"spec {tag}: counters do not balance")
+        seng.check_invariants()
+        require(st["spec_steps"] > 0, f"spec {tag}: no verify step ran")
+        require(spec_launches[tag][dec_mod.VERIFY_KERNEL.name] > 0,
+                f"spec {tag}: the verify kernel never launched")
+        if tag == "wrong":
+            require(st["accepted"] == 0 and st["rejected"] == st["drafted"],
+                    "spec wrong: a never-matching draft was accepted")
+        del seng
+    # the first engine run of the process also pays the warm-up: run the
+    # plain configuration once more for a like-for-like throughput
+    warm, wout, w_wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
+                               clock=time.perf_counter)
+    print(f"[engine] plain run again, warm: {n_tok / w_wall:.1f} tok/s, "
+          f"mean TTFT {np.mean([r.ttft for r in warm.finished.values()]):.3f}s"
+          f", steps {warm.stats['steps']}")
+    require(wout == out, "the warm plain run's tokens differ")
+    del warm
+
+    # 5. full-width step check against the plain versions
     check_steps(cfg, params, dev)
     if args.profile_out:
-        profile_engine(cfg, params, args.profile_out)
+        profile_engine(cfg, params, args.profile_out, oracle)
 
     rows[0]["launches"] = launches[dec_mod.KERNEL.name]
     rows[1]["launches"] = launches[pre_mod.KERNEL.name]
+    rows[2]["launches"] = spec_launches["oracle"][dec_mod.VERIFY_KERNEL.name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

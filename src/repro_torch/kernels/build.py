@@ -4,8 +4,9 @@ Each source in ``csrc/`` exports plain C entry points.  It is compiled
 with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) the
 first time a wrapper launches it, and loaded with ``ctypes``.  The file
-name carries a digest of the source and the flags, so an edited source
-builds anew and an unchanged one is reused.  :func:`build_all` starts one
+name carries a digest of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header builds anew and an
+unchanged one is reused.  :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 Importing this module runs nothing: no compiler, no CUDA call.
@@ -65,8 +66,11 @@ class CudaKernel:
         return self.symbol
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()
         return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:

@@ -1,15 +1,26 @@
-"""Paged one-token decode attention: the CUDA kernel and its plain version.
+"""Paged decode and verify attention: the CUDA kernels and their plain
+versions.
 
-The CUDA kernel (``csrc/paged_decode.cu``) replaces the TPU kernel
-``paged_decode_attention`` of ``src/repro/kernels/decode_attention.py``
-(``_paged_decode_kernel``, its ``pallas_call`` at line 254).  It is bound
-by the bytes of K/V it reads; its design notes are in the source.
+Two CUDA kernels, instances of one template (``csrc/paged_attention.cuh``,
+design notes there), both bound by the bytes of K/V they read:
 
-:func:`paged_decode_attention_torch` is the plain PyTorch version of the
-same function: gather the page-table view of the pool, then run
-:func:`one_token_attention` — the expressions of the JAX package's XLA
-path (``kernels/ops.py:98-112``).  The CPU tests run it, and
-``chip_smoke.py`` holds the kernel against it on the card.
+  * ``csrc/paged_decode.cu`` replaces the TPU kernel
+    ``paged_decode_attention`` of ``src/repro/kernels/decode_attention.py``
+    (``_paged_decode_kernel``, its ``pallas_call`` at line 254): one query
+    row per sequence;
+  * ``csrc/paged_verify.cu`` replaces ``paged_verify_attention`` of the
+    same file (``_paged_verify_kernel``, its ``pallas_call`` at line 395):
+    S = K + 1 query rows per sequence for speculative verify-K, each
+    masked by its own length; row s is bitwise the decode kernel at
+    ``lengths[:, s]``.
+
+:func:`paged_decode_attention_torch` and
+:func:`paged_verify_attention_torch` are the plain PyTorch versions:
+gather the page-table view of the pool, then run
+:func:`one_token_attention` / :func:`multi_token_attention` — the
+expressions of the JAX package's XLA paths (``kernels/ops.py:98-112`` and
+``:131-147``).  The CPU tests run them, and ``chip_smoke.py`` holds the
+kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -21,14 +32,19 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel, check_operand
 
-__all__ = ["NEG_INF", "one_token_attention", "paged_decode_attention_torch",
-           "paged_decode_attention_cuda", "KERNEL"]
+__all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
+           "paged_decode_attention_torch", "paged_decode_attention_cuda",
+           "paged_verify_attention_torch", "paged_verify_attention_cuda",
+           "KERNEL", "VERIFY_KERNEL"]
 
 NEG_INF = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("paged_decode.cu", "paged_decode_attention_bf16",
                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+VERIFY_KERNEL = CudaKernel("paged_verify.cu", "paged_verify_attention_bf16",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _P])
 _GROUPS = (1, 2, 3, 4, 6, 8)
 _HEAD_DIMS = (64, 128)
 
@@ -54,43 +70,103 @@ def one_token_attention(q, kc, vc, valid, num_kv_heads: int):
     return out.reshape(B, 1, H * hd)
 
 
+def multi_token_attention(q, kc, vc, valid, num_kv_heads: int):
+    """S-query-row attention over a dense (B, Skv, Hkv, D) cache: the
+    counterpart of the JAX package's ``models/attention.py::
+    multi_token_attention``, the plain version of speculative verify.
+
+    ``q``: (B, S, H, D); ``valid``: (B, S) masks KV positions at/past it
+    independently per row.  Returns f32 (B, S, H * D).
+
+    Row ``s`` is computed by :func:`one_token_attention` itself on
+    ``q[:, s]`` and ``valid[:, s]``, so it is bitwise the one-token
+    result by construction, on any device — the property speculative
+    token-exactness rests on.  (One batched einsum over the S axis gave
+    the same bits on the CPU, but nothing guarantees that a BLAS picks
+    the same blocking for both shapes, and the JAX package's batched
+    form does lose it on its toolchain.)
+    """
+    return torch.cat([one_token_attention(q[:, s], kc, vc, valid[:, s],
+                                          num_kv_heads)
+                      for s in range(q.shape[1])], dim=1)
+
+
+def _gather_pages(pool, page_table):
+    """(B, pages_per_seq * page, Hkv, D) dense view of ``pool``."""
+    _, page, hkv, d = pool.shape
+    return pool[page_table.long()].reshape(page_table.shape[0], -1, hkv, d)
+
+
 def paged_decode_attention_torch(q, k_pages, v_pages, page_table, lengths):
     """Plain version: q (B, H, D); k/v_pages (N, page, Hkv, D);
     page_table (B, pages_per_seq) frame ids; lengths (B,) valid KV."""
     B, H, D = q.shape
-    _, page, Hkv, _ = k_pages.shape
-    idx = page_table.long()
-    k = k_pages[idx].reshape(B, -1, Hkv, D)        # (B, pps * page, Hkv, D)
-    v = v_pages[idx].reshape(B, -1, Hkv, D)
-    out = one_token_attention(q, k, v, lengths, Hkv)
+    Hkv = k_pages.shape[2]
+    out = one_token_attention(q, _gather_pages(k_pages, page_table),
+                              _gather_pages(v_pages, page_table), lengths,
+                              Hkv)
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths):
-    """Launch the CUDA kernel (bf16 q and pool, int32 table and lengths)."""
+def paged_verify_attention_torch(q, k_pages, v_pages, page_table, lengths):
+    """Plain version: q (B, S, H, D); k/v_pages (N, page, Hkv, D);
+    page_table (B, pages_per_seq) frame ids; lengths (B, S) valid KV per
+    row.  A row with ``lengths == 0`` returns the uniform average of the
+    gathered values (the kernel returns zeros); callers never read it."""
+    B, S, H, D = q.shape
+    Hkv = k_pages.shape[2]
+    out = multi_token_attention(q, _gather_pages(k_pages, page_table),
+                                _gather_pages(v_pages, page_table), lengths,
+                                Hkv)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _launch(kernel, name, q, k_pages, v_pages, page_table, lengths, *,
+            verify: bool):
+    """Check the operands of the decode / verify kernel (bf16 q and pool,
+    int32 table and lengths; q (B, H, D) and lengths (B,) for decode,
+    q (B, S, H, D) and lengths (B, S) for verify), allocate the output,
+    launch."""
     if not q.is_cuda:
-        raise ValueError("paged_decode_attention_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     dev = q.device
-    check_operand("q", q, torch.bfloat16, 3, dev)
+    ndim = 4 if verify else 3
+    check_operand("q", q, torch.bfloat16, ndim, dev)
     check_operand("k_pages", k_pages, torch.bfloat16, 4, dev)
     check_operand("v_pages", v_pages, torch.bfloat16, 4, dev)
     check_operand("page_table", page_table, torch.int32, 2, dev)
-    check_operand("lengths", lengths, torch.int32, 1, dev)
-    B, H, D = q.shape
+    check_operand("lengths", lengths, torch.int32, ndim - 2, dev)
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     N, page, Hkv, Dk = k_pages.shape
     if v_pages.shape != k_pages.shape or Dk != D:
         raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
-    if page_table.shape[0] != B or lengths.shape[0] != B:
-        raise ValueError("page_table / lengths batch does not match q")
+    if page_table.shape[0] != B or lengths.shape != q.shape[:-2]:
+        raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match q "
+                         f"{tuple(q.shape)}")
     if H % Hkv or H // Hkv not in _GROUPS or D not in _HEAD_DIMS:
         raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
                          f"(groups {_GROUPS}, head_dim {_HEAD_DIMS})")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = (q.shape[1],) if verify else ()
     with torch.cuda.device(dev):
-        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), B, H, Hkv, D, page,
+                      out.data_ptr(), B, *rows, H, Hkv, D, page,
                       page_table.shape[1], 1.0 / math.sqrt(D), stream)
     return out
+
+
+def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths):
+    """Launch the decode kernel: q (B, H, D) bf16, lengths (B,) int32."""
+    return _launch(KERNEL, "paged_decode_attention_cuda", q, k_pages,
+                   v_pages, page_table, lengths, verify=False)
+
+
+def paged_verify_attention_cuda(q, k_pages, v_pages, page_table, lengths):
+    """Launch the verify kernel: q (B, S, H, D) bf16, lengths (B, S)
+    int32."""
+    return _launch(VERIFY_KERNEL, "paged_verify_attention_cuda", q, k_pages,
+                   v_pages, page_table, lengths, verify=True)

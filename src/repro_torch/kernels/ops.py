@@ -15,13 +15,13 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 
-__all__ = ["paged_decode_attention", "paged_prefill_attention",
-           "resolve_impl", "KERNELS", "IMPLS"]
+__all__ = ["paged_decode_attention", "paged_verify_attention",
+           "paged_prefill_attention", "resolve_impl", "KERNELS", "IMPLS"]
 
 IMPLS = ("auto", "torch", "cuda")
 
 #: every CUDA kernel on the serving path (build, launch counts)
-KERNELS = (_decode.KERNEL, _flash.KERNEL)
+KERNELS = (_decode.KERNEL, _flash.KERNEL, _decode.VERIFY_KERNEL)
 
 
 def resolve_impl(impl: str, x) -> str:
@@ -48,6 +48,22 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return _decode.paged_decode_attention_torch(
             q, k_pages, v_pages, page_table, lengths)
     return _decode.paged_decode_attention_cuda(
+        q, k_pages, v_pages, page_table, lengths)
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           impl: str = "auto", k_scales=None, v_scales=None):
+    """Speculative verify-K attention: q (B, S, H, D) — S = K + 1 verify
+    rows per sequence; k/v_pages (N, page, Hkv, D) pool layout;
+    page_table (B, pages_per_seq) frame ids; lengths (B, S) valid KV per
+    row.  Returns (B, S, H, D) in q's dtype.  Rows with ``lengths == 0``
+    are don't-care (zeros from the kernel, a uniform average from the
+    plain version)."""
+    _no_scales(k_scales, v_scales)
+    if resolve_impl(impl, q) == "torch":
+        return _decode.paged_verify_attention_torch(
+            q, k_pages, v_pages, page_table, lengths)
+    return _decode.paged_verify_attention_cuda(
         q, k_pages, v_pages, page_table, lengths)
 
 

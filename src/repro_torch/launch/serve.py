@@ -9,8 +9,9 @@ Every engine flag is auto-generated from the
 per knob, help text included), including ``--device {cuda,cpu}``
 (default ``cuda``).  The weights
 are random, drawn from ``--seed`` on the device; ``--smoke`` picks the
-architecture's reduced config.  Options the port does not serve yet
-(other roles, prefix cache, speculation, quantized pool) raise
+architecture's reduced config.  ``--speculate-k K`` turns on
+self-speculative verify-K decode.  Options the port does not serve yet
+(other roles, prefix cache, quantized pool) raise
 ``NotImplementedError`` from the engine.
 """
 
@@ -46,6 +47,14 @@ def _report(eng, econf, out, wall) -> None:
     print(f"[serve] chunked prefill: {eng.stats['chunks']} chunks of "
           f"<= {eng.chunk_tokens} tok across "
           f"{eng.stats['mixed_steps']} mixed steps")
+    if eng.speculating:
+        s = eng.stats
+        mean_k = s["accepted"] / max(1, s["spec_steps"])
+        rate = s["accepted"] / max(1, s["drafted"])
+        print(f"[serve] speculation k={eng.speculate_k}: "
+              f"{s['spec_steps']} verify steps, "
+              f"{s['drafted']} drafted / {s['accepted']} accepted "
+              f"({rate:.0%}), mean accepted-K {mean_k:.2f}")
 
 
 def main(argv=None):

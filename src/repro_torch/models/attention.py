@@ -1,21 +1,21 @@
-"""Attention blocks on the paged KV pool: the main-path subset of
+"""Attention blocks on the paged KV pool: the serving subset of
 ``repro.models.attention``.
 
-Both blocks compute directly on the pool layout ``(N, page, Hkv, D)``
-of one layer: the new tokens' K/V is scattered into its page-table
-mapped frames, then attention reads the pool through the page table —
-the hand-written CUDA kernels on the card, their plain PyTorch versions
-on the CPU (:mod:`repro_torch.kernels.ops`).
+The decode, verify and prefill blocks compute directly on the pool
+layout ``(N, page, Hkv, D)`` of one layer: the new tokens' K/V is
+scattered into its page-table mapped frames, then attention reads the
+pool through the page table — the hand-written CUDA kernels on the
+card, their plain PyTorch versions on the CPU (:mod:`repro_torch.kernels.ops`).
 
 In-place pool updates: the JAX package writes ``kp.at[frame, row].set``
 into a donated pool; here ``index_put_`` writes into the layer's view of
 the pool, so the caller's ``(L, N, page, Hkv, D)`` tensor changes in
 place and no block returns a new pool.  Frame ``N - 1`` is the trash
-frame: it takes the writes of empty decode slots, of padded chunk tokens
-and of positions past the slot's capacity.  Only the trash frame ever
-receives the same (frame, row) twice in one ``index_put_``, whose order
-on CUDA is unspecified — harmless, since the trash frame is never read
-unmasked.
+frame: it takes the writes of empty decode slots, of padded chunk tokens,
+of verify rows past a slot's draft and of positions past the slot's
+capacity.  Only the trash frame ever receives the same (frame, row)
+twice in one ``index_put_``, whose order on CUDA is unspecified —
+harmless, since the trash frame is never read unmasked.
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from repro_torch.kernels.flash_attention import chunked_attention
 from repro_torch.models.layers import dense, rms_norm, rope
 
 __all__ = ["init_paged_kv_cache", "paged_decode_attention_block",
-           "paged_prefill_block", "one_token_attention", "chunked_attention",
-           "NEG_INF"]
+           "paged_verify_block", "paged_prefill_block", "one_token_attention",
+           "chunked_attention", "NEG_INF"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -110,6 +110,55 @@ def paged_decode_attention_block(
     out = ops.paged_decode_attention(q[:, 0], kp, vp, page_table, valid,
                                      impl=impl)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim).to(compute_dtype)
+    return dense(p["o"], out, compute_dtype)
+
+
+def paged_verify_block(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, S, d)
+    layer_pages: Tuple[torch.Tensor, torch.Tensor],  # k,v (N, page, Hkv, D)
+    page_table: torch.Tensor,            # (B, pages_per_seq) int32 frame ids
+    pos: torch.Tensor,                   # (B,) int32: position of x[:, 0]
+    length: torch.Tensor,                # (B,) int32 valid rows (0 = inert)
+    *,
+    compute_dtype,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Verify-K attention for self-speculative decode on the paged pool:
+    :func:`paged_decode_attention_block` with ``S = K + 1`` query rows per
+    slot (row 0 the last committed token, rows 1..K the drafts).
+
+    Row ``s`` of slot ``b`` lands at position ``pos[b] + s``, RoPE'd
+    there; rows at/past ``length`` (and positions past the slot's
+    capacity) scatter to the trash frame, so a capped draft or an empty
+    slot never dirties a real frame.  Attention reads the pool with a
+    per-row valid length ``min(pos + s + 1, slots)``: row ``s`` sees
+    itself and every draft row before it, the view the s-th sequential
+    decode step would have.  No SWA ring semantics (speculation is gated
+    off for SWA).  Returns (B, S, d)."""
+    B, S, _ = x.shape
+    kp, vp = layer_pages
+    page = kp.shape[1]
+    pages_per_seq = page_table.shape[1]
+    slots = pages_per_seq * page
+    trash = kp.shape[0] - 1
+    q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
+    s_idx = torch.arange(S, dtype=torch.int32, device=x.device)
+    abs_pos = pos[:, None] + s_idx[None, :]                  # (B, S)
+    q, k_new = _position_encode(cfg, q, k_new, abs_pos)
+
+    ok = (s_idx[None, :] < length[:, None]) & (abs_pos < slots)
+    page_idx = torch.clamp(abs_pos // page, 0, pages_per_seq - 1)
+    frame = torch.where(ok, torch.gather(page_table, 1, page_idx.long()),
+                        trash).long()
+    row = (abs_pos % page).long()
+    kp.index_put_((frame, row), k_new.to(kp.dtype))
+    vp.index_put_((frame, row), v_new.to(vp.dtype))
+    valid = torch.clamp(abs_pos + 1, max=slots)              # (B, S)
+
+    out = ops.paged_verify_attention(q, kp, vp, page_table, valid, impl=impl)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(compute_dtype)
     return dense(p["o"], out, compute_dtype)
 
 

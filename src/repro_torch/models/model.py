@@ -18,13 +18,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (init_paged_kv_cache,
                                           paged_decode_attention_block,
-                                          paged_prefill_block)
+                                          paged_prefill_block,
+                                          paged_verify_block)
 from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
 
 Params = Dict[str, Any]
 
 __all__ = ["init_params", "cast_params", "PagedCache", "init_paged_cache",
-           "decode_step", "prefill_chunk", "torch_dtype"]
+           "decode_step", "verify_step", "prefill_chunk", "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -126,9 +127,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: PagedCache, attn: Callable, cdt) -> torch.Tensor:
-    """The dense layer stack shared by one-token decode and chunked
-    prefill; ``attn(p, h, k_layer, v_layer)`` runs one attention block on
-    the pre-normed hidden ``h`` against that layer's pool view."""
+    """The dense layer stack shared by one-token decode, speculative
+    verify and chunked prefill; ``attn(p, h, k_layer, v_layer)`` runs
+    one attention block on the pre-normed hidden ``h`` against that
+    layer's pool view."""
     kp, vp = cache.kv["k_pages"], cache.kv["v_pages"]
     layers = params["layers"]
     for l in range(cfg.num_layers):
@@ -141,11 +143,12 @@ def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, cdt):
+    """(B, S, V) f32 logits of the hidden rows ``x`` (B, S, d)."""
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"]["table"] if cfg.tie_embeddings else \
         params["lm_head"]["table"]
     logits = unembed({"table": table}, x, logit_scale=cfg.logit_scale,
-                     compute_dtype=cdt)[:, 0]
+                     compute_dtype=cdt)
     return logits.float()
 
 
@@ -165,7 +168,38 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PagedCache,
                                             compute_dtype=cdt, impl=impl)
 
     x = _decode_families(params, cfg, x, cache, attn, cdt)
-    return _logits(params, cfg, x, cdt), cache._replace(pos=pos + 1)
+    return _logits(params, cfg, x, cdt)[:, 0], cache._replace(pos=pos + 1)
+
+
+def verify_step(params: Params, cfg: ModelConfig, cache: PagedCache,
+                tokens: torch.Tensor, length: torch.Tensor, *,
+                impl: str = "auto") -> Tuple[torch.Tensor, PagedCache]:
+    """Speculative verify-K decode: score S = K + 1 tokens per slot in
+    one step.  tokens: (B, S) int — row 0 the last committed token, rows
+    1..K the drafted continuation; length: (B,) int32 valid rows per
+    slot (0 marks an inert slot, whose K/V all scatter to the trash
+    frame).  Returns (logits (B, S, V) f32, cache).
+
+    Logits row ``s`` predicts the token at position ``pos + s + 1``.
+    ``cache.pos`` is NOT advanced: how many rows commit is decided on the
+    host after the argmax comparison, and the engine writes the rewound
+    positions back.  Paged cache, dense family, no SWA only."""
+    if not isinstance(cache, PagedCache):
+        raise ValueError("verify_step requires a PagedCache")
+    _check_family(cfg)
+    if cfg.attention == "swa":
+        raise ValueError("speculative verify has no SWA ring semantics")
+    cdt = torch_dtype(cfg.compute_dtype)
+    pos = cache.pos
+    pt = cache.kv["page_table"]
+    x = embed(params["embed"], tokens, cdt)
+
+    def attn(p, h, kl, vl):
+        return paged_verify_block(p, cfg, h, (kl, vl), pt, pos, length,
+                                  compute_dtype=cdt, impl=impl)
+
+    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    return _logits(params, cfg, x, cdt), cache
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
@@ -197,4 +231,4 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
     x = _decode_families(params, cfg, x, cache, attn, cdt)
     idx = torch.clamp(length - 1, 0, T - 1).long()
     x_last = x[torch.arange(C, device=x.device), idx][:, None]
-    return _logits(params, cfg, x_last, cdt), cache
+    return _logits(params, cfg, x_last, cdt)[:, 0], cache

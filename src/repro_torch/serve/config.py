@@ -157,11 +157,11 @@ class SpeculationConfig:
 
     With ``speculate_k > 0`` the paged engine drafts up to K tokens per
     slot from the slot's own committed history
-    (:class:`~repro.serve.speculate.NgramProposer`) and scores them all
-    in one jitted verify step; greedy acceptance keeps the emitted
-    stream token-exact with single-step decode, so this is purely a
-    throughput knob.  Requires the paged dense/moe global-attention
-    engine (same gate as prefix sharing)."""
+    (:class:`~repro_torch.serve.speculate.NgramProposer`) and scores them
+    all in one verify step through the multi-row paged kernel; greedy
+    acceptance keeps the emitted stream token-exact with single-step
+    decode, so this is purely a throughput knob.  Global attention only
+    (no SWA)."""
 
     speculate_k: int = _f(
         0, "speculative decode: max drafted tokens per slot per step "

@@ -1,7 +1,8 @@
 """The decode-loop role component: the step and the finish path.
 
-:class:`DecodeMixin` owns chunk-vs-decode work selection, the mixed /
-decode step dispatch, prefill graduation, greedy sampling and the
+:class:`DecodeMixin` owns chunk-vs-decode work selection, draft
+proposal, the mixed / decode / verify step dispatch, speculative
+acceptance and rollback, prefill graduation, greedy sampling and the
 request finish path — the FUSED-role part of the JAX package's
 ``serve/decode.py``.  Greedy sampling takes ``torch.argmax`` on the
 device and copies back only the token ids; like ``np.argmax`` it picks
@@ -129,19 +130,66 @@ class DecodeMixin:
                 {"ttft_s": req.first_token_t - req.arrival_t})
         self._finish_if_done(req)
 
+    def _propose_drafts(self) -> Dict[int, int]:
+        """Ask the proposer for a draft per active slot (speculation on).
+
+        Returns rid -> draft length; the drafted tokens themselves land
+        in ``self._draft_toks``.  Drafts are capped to the slot's token
+        head-room and the request's remaining budget (a draft past the
+        budget could never commit — the bonus token uses the last unit),
+        and trimmed at the first drafted EOS.  An empty dict means this
+        step runs the plain single-token path."""
+        drafts: Dict[int, int] = {}
+        self._draft_toks: Dict[int, List[int]] = {}
+        pos_np = self.cache.pos.cpu().numpy()
+        if any(int(pos_np[slot]) + 1 > self.slot_tokens
+               for slot in self.active):
+            # a slot at full capacity writes its token at the clamped
+            # last row in decode_step but would scatter to the trash
+            # frame in verify_step — plain path for the whole batch
+            return drafts
+        for slot, req in self.active.items():
+            pos = int(pos_np[slot])
+            room = self.slot_tokens - pos - 1
+            budget = req.max_new_tokens - len(req.generated) - 1
+            cap = min(self.speculate_k, room, budget)
+            if cap <= 0:
+                continue
+            history = req.prompt.tolist() + req.generated
+            draft = list(self.proposer.propose(req.rid, history))[:cap]
+            if req.eos_id is not None and req.eos_id in draft:
+                draft = draft[:draft.index(req.eos_id) + 1]
+            if draft:
+                drafts[req.rid] = len(draft)
+                self._draft_toks[req.rid] = draft
+        return drafts
+
     def _step(self) -> None:
-        self._ensure_growth()
+        drafts = self._propose_drafts() \
+            if self.speculating and self.active else {}
+        # draft-aware growth: a speculating slot pins frames for its
+        # whole write window [pos, pos + 1 + draft); entries clamp in
+        # place when the pool cannot cover the full draft
+        self._ensure_growth(drafts or None)
         picks = self._select_chunks()
         if not picks and not self.active and self.prefilling \
                 and not self._resuming:
             picks = self._force_chunk()
         if not self.active and not picks:
             return
+        if drafts:
+            # growth/chunk allocation may have preempted a drafting slot
+            # (its draft dies with the park) or clamped a draft to zero
+            live = {req.rid for req in self.active.values()}
+            drafts = {r: n for r, n in drafts.items() if r in live and n > 0}
         if self._pt_dirty:
             # refresh the device page-table rows from the host mirror
             # (skipped on steady-state steps with no scheduling events)
             self.cache.kv["page_table"].copy_(torch.from_numpy(self._pt_np))
             self._pt_dirty = False
+        if drafts:
+            self._spec_step(drafts, picks)
+            return
         toks = np.zeros((self.max_batch, 1), np.int32)
         for slot, req in self.active.items():
             toks[slot, 0] = req.generated[-1]
@@ -169,9 +217,103 @@ class DecodeMixin:
             self._finish_chunks(
                 picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy())
 
+    def _spec_step(self, drafts: Dict[int, int], picks: List) -> None:
+        """One speculative verify-K step: score every slot's draft in one
+        step (fused with a prompt chunk when ``picks``), then accept and
+        roll back on the host.
+
+        Greedy acceptance: the longest draft prefix that matches the
+        verify logits' argmax commits, plus one *bonus* token from the
+        first non-matching row — so a fully rejected draft still commits
+        the plain step's token, and the stream equals single-step greedy
+        decode as long as verify row s computes what the s-th sequential
+        decode step would.  Rollback is host-only: the verify step never
+        advances ``pos``; the engine writes ``pos + appended`` back (one
+        upload for the batch) and :meth:`~repro_torch.paging.PageTable.
+        rewind_tokens` drops any page left holding only the rejected
+        tail, whose K/V past the new ``pos`` is dead — masked by every
+        later read, overwritten by later appends, and outside a later
+        park's freshness tag, which derives from ``pos``."""
+        S = self.speculate_k + 1
+        toks = np.zeros((self.max_batch, S), np.int32)
+        length = np.zeros((self.max_batch,), np.int32)
+        per_slot: Dict[int, List[int]] = {}
+        for slot, req in self.active.items():
+            d = self._draft_toks.get(req.rid, [])[:drafts.get(req.rid, 0)]
+            per_slot[slot] = d
+            toks[slot, 0] = req.generated[-1]
+            toks[slot, 1:1 + len(d)] = d
+            length[slot] = 1 + len(d)
+        toks = torch.from_numpy(toks).to(self.device)
+        length = torch.from_numpy(length).to(self.device)
+        if picks:
+            logits, chunk_logits, self.cache = self._mixed_verify(
+                self.params, self.cache, toks, length,
+                self._build_chunk(picks))
+            self.stats["mixed_steps"] += 1
+            self.stats["chunks"] += len(picks)
+        else:
+            logits, self.cache = self._verify(self.params, self.cache, toks,
+                                              length)
+        self.stats["steps"] += 1
+        self.stats["spec_steps"] += 1
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()     # (B, S)
+        pos_np = self.cache.pos.cpu().numpy().copy()
+        t_now = self.clock()
+        tr = self.tracer
+        step_drafted = step_accepted = 0
+        for slot, req in list(self.active.items()):
+            d = per_slot[slot]
+            m = len(d)
+            start = int(pos_np[slot])
+            acc = 0
+            while acc < m and d[acc] == int(greedy[slot, acc]):
+                acc += 1
+            appended = 0
+            for t in d[:acc] + [int(greedy[slot, acc])]:
+                req.generated.append(int(t))
+                req.token_ts.append(t_now)
+                appended += 1
+                if tr.enabled:
+                    tr.instant("requests", f"req{req.rid}", "token",
+                               {"n": len(req.generated)})
+                if req.done:
+                    break
+            step_drafted += m
+            step_accepted += min(acc, appended)   # drafts actually appended
+            # positions are host-owned across a verify step: advance by
+            # what committed, and drop pages holding only rejected tail
+            pos_np[slot] = start + appended
+            if self.page_table.rewind_tokens(req.rid, start + appended):
+                keep = self.page_table.n_pages(req.rid)
+                self._pt_np[slot, keep:] = self.trash_frame
+                self._pt_dirty = True
+        # write the positions back BEFORE finishing slots and graduating
+        # chunks: both read or write ``cache.pos``
+        self.cache = self.cache._replace(
+            pos=torch.from_numpy(pos_np).to(self.device))
+        for req in list(self.active.values()):
+            self._finish_if_done(req)
+        self.stats["drafted"] += step_drafted
+        self.stats["accepted"] += step_accepted
+        self.stats["rejected"] += step_drafted - step_accepted
+        if tr.enabled:
+            tr.instant("engine", "spec", "verify",
+                       {"drafted": step_drafted,
+                        "accepted": step_accepted,
+                        "rejected": step_drafted - step_accepted})
+            tr.counter("engine", "spec_drafted", self.stats["drafted"])
+            tr.counter("engine", "spec_accepted", self.stats["accepted"])
+            tr.counter("engine", "spec_rejected", self.stats["rejected"])
+        if picks:
+            self._finish_chunks(
+                picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy())
+
     def _finish_if_done(self, req: Request) -> None:
         if not req.done:
             return
+        if self.speculating:
+            self.proposer.drop(req.rid)
         slot = req.slot
         if slot is not None and slot in self.active:
             del self.active[slot]

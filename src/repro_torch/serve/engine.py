@@ -22,8 +22,12 @@ Compute runs directly on the paged layout: the device cache is a
 pool's frames, and every tick runs one mixed step
 (:func:`~repro_torch.steps.make_mixed_step`: a decode token for every
 running slot, then a prompt chunk for up to ``chunk_slots`` admitting
-slots) or a plain decode step.  Attention reads the pool through the
-page tables with the hand-written CUDA kernels on the card.
+slots) or a plain decode step.  With ``speculate_k > 0`` an n-gram
+proposer drafts up to K tokens per slot and the decode half becomes a
+verify-K step that scores all drafts at once; greedy acceptance and a
+page-table rewind keep the stream token-exact with plain decode.
+Attention reads the pool through the page tables with the hand-written
+CUDA kernels on the card.
 
 The host logic (pool, page table, pager, far tier, virtual clock,
 scheduling policy) is a copy of the JAX package's, so on the same
@@ -53,6 +57,7 @@ from repro_torch.serve.decode import DecodeMixin
 from repro_torch.serve.kv_cache import SlotPool
 from repro_torch.serve.policy import SCHEDULERS as _SCHEDULERS
 from repro_torch.serve.request import Request
+from repro_torch.serve.speculate import NgramProposer
 from repro_torch.serve.transfer import TransferMixin
 from repro_torch.steps import make_mixed_step, make_serve_step
 
@@ -68,7 +73,6 @@ def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
     unported = {
         "role != 'fused'": ec.role != EngineRole.FUSED.value,
         "prefix_cache": ck.prefix_cache,
-        "speculate_k > 0": ec.speculation.speculate_k > 0,
         "kv_quant != 'none'": pg.kv_quant != "none",
         "paging.enabled=False (the dense per-slot cache)":
             pg.enabled is False,
@@ -193,6 +197,30 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.chunk_slots = max(1, int(ck.chunk_slots))
         self.prefilling: Dict[int, Request] = {}     # slot -> admitting req
 
+        # -- draft-free self-speculative decode (verify-K) ------------------
+        # an n-gram prompt-lookup proposer drafts up to K tokens per slot
+        # from the slot's own committed history; one verify step scores
+        # all drafts through the multi-row paged kernel.  Append-only KV
+        # and absolute RoPE only: an SWA ring would rewrite rolled-back
+        # pages
+        sp = ec.speculation
+        self.speculate_k = int(sp.speculate_k or 0)
+        self.speculating = self.speculate_k > 0
+        self.proposer = None
+        if self.speculating:
+            if cfg.attention == "swa":
+                raise PagingError(
+                    "speculative decode supports global attention only; "
+                    f"got attention={cfg.attention!r}")
+            if sp.proposer_factory is not None:
+                self.proposer = sp.proposer_factory(sp.speculate_ngram,
+                                                    self.speculate_k)
+            else:
+                self.proposer = NgramProposer(n=sp.speculate_ngram,
+                                              k=self.speculate_k)
+            self._verify = make_serve_step(cfg, self.speculate_k)
+            self._mixed_verify = make_mixed_step(cfg, self.speculate_k)
+
         self.events = EventLoop(metrics=self.metrics)
         self.events.on(EventKind.TICK, self._on_tick)
         self.events.on(EventKind.PAGE_ARRIVED, self._on_page_arrived)
@@ -207,6 +235,11 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                    "prefix_far_hits": 0, "deadline_misses": 0,
                    "slo_attained": 0, "slo_missed": 0,
                    "shed_admissions": 0}
+        if self.speculating:
+            # seeded only when speculating, so non-speculative counters
+            # stay equal to the JAX engine's
+            initial.update({"spec_steps": 0, "drafted": 0,
+                            "accepted": 0, "rejected": 0})
         self.stats = self.metrics.counters("engine", initial=initial)
 
     # -- public API ----------------------------------------------------------
@@ -377,10 +410,25 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
 
     def check_invariants(self) -> None:
         """Cross-layer conservation checks over the telemetry counters:
-        preemptions == resumes + requests currently parked; ADMIT events
-        == admissions + resumes; the pager's per-QoS window accounting
-        balances (see :meth:`Pager.check_invariants`)."""
+        speculating, accepted + rejected == drafted (every drafted token
+        is adjudicated once) and no active slot's valid tokens exceed its
+        mapped frames; preemptions == resumes + requests currently
+        parked; ADMIT events == admissions + resumes; the pager's per-QoS
+        window accounting balances (see :meth:`Pager.check_invariants`)."""
         s = self.stats
+        if self.speculating:
+            if s["accepted"] + s["rejected"] != s["drafted"]:
+                raise PagingError(
+                    f"speculation imbalance: {s['accepted']} accepted + "
+                    f"{s['rejected']} rejected != {s['drafted']} drafted")
+            pos_np = self.cache.pos.cpu().numpy()
+            for slot, req in self.active.items():
+                covered = self.page_table.n_pages(req.rid) * self.page_size
+                if int(pos_np[slot]) > covered:
+                    raise PagingError(
+                        f"rid {req.rid}: valid tokens {int(pos_np[slot])} "
+                        f"exceed scattered frames ({covered} positions "
+                        "mapped)")
         pending = sum(
             1 for r in itertools.chain(self.queue, self._resuming.values())
             if r.parked and r.n_preempts > 0)

@@ -254,10 +254,20 @@ class TransferMixin:
                 self._pt_np[req.slot, logical] = pte.phys
                 self._pt_dirty = True
 
-    def _ensure_growth(self) -> None:
+    def _ensure_growth(self, drafts: Optional[Dict[int, int]] = None
+                       ) -> None:
         """Before a decode step: every active sequence about to cross a
         page boundary gets a pinned frame, evicting/preempting under the
-        watermark policy when the pool is short."""
+        watermark policy when the pool is short.
+
+        ``drafts`` (rid -> drafted tokens) widens a speculating slot's
+        write window from one position to ``1 + drafts[rid]`` — the
+        verify step scatters K/V at ``[pos, pos + 1 + drafts[rid])``,
+        possibly straddling a page boundary, so enough frames are pinned
+        up front.  The speculative extra degrades instead of failing:
+        when the pool cannot cover the full draft the entry is clamped in
+        place (down to 0 = plain decode) and only the base ``pos + 1``
+        growth must succeed."""
         pos_np = self.cache.pos.cpu().numpy()   # one device sync per step
         for req in list(self.active.values()):
             if req.slot is None or req.slot not in self.active:
@@ -265,11 +275,20 @@ class TransferMixin:
             pos = int(pos_np[req.slot])
             if pos >= self.slot_tokens:
                 continue                    # SWA ring wrapped: no growth
-            need = self.page_table.pages_needed(req.rid, pos + 1)
-            if not need:
-                continue
-            if not self._make_room(need, frozenset({req.rid})):
-                raise PagingError(
-                    f"cannot grow request {req.rid}: pool of "
-                    f"{self.page_pool.n_pages} pages exhausted")
-            self._alloc_pinned(req, pos + 1)
+            extra = drafts.get(req.rid, 0) if drafts else 0
+            if extra and pos + 1 + extra > self.slot_tokens:
+                extra = max(0, self.slot_tokens - pos - 1)
+            while True:
+                target = pos + 1 + extra
+                need = self.page_table.pages_needed(req.rid, target)
+                if not need or self._make_room(need, frozenset({req.rid})):
+                    break
+                if extra == 0:
+                    raise PagingError(
+                        f"cannot grow request {req.rid}: pool of "
+                        f"{self.page_pool.n_pages} pages exhausted")
+                extra -= 1              # shed draft positions, not the slot
+            if drafts is not None and req.rid in drafts:
+                drafts[req.rid] = extra
+            if need:
+                self._alloc_pinned(req, target)

@@ -23,7 +23,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.kernels import decode_attention, flash_attention, ops
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
-                                      PagingConfig)
+                                      PagingConfig, SpeculationConfig)
 from repro_torch.serve.engine import Engine
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +102,37 @@ def test_prefill_kernel_matches_plain(dev, window, head_dim):
         _assert_agree(out[c, :n], ref[c, :n])
 
 
+@pytest.mark.parametrize("groups,head_dim,page,rows", [
+    (3, 128, 16, 5), (1, 64, 8, 3), (8, 128, 16, 5), (2, 64, 16, 2),
+    (3, 128, 16, 8)])
+def test_verify_kernel_matches_plain_and_decode_kernel(dev, groups, head_dim,
+                                                       page, rows):
+    """Every row against the plain version, and row s against the decode
+    kernel at ``lengths[:, s]``: the same template, so the same bits.
+    ``rows`` = 8 at G = 3 spans two row groups of the grid."""
+    rng = np.random.default_rng(3)
+    hkv = 4
+    base = np.array([0, page - 1, page, 63, 64, 150], np.int32)
+    lengths = (base[:, None] + np.arange(rows)[None, :] + 1).astype(np.int32)
+    B, pps = len(base), 256 // page
+    n_frames = B * pps + 1
+    pt = torch.from_numpy(_table(rng, lengths[:, -1], page, pps,
+                                 n_frames)).to(dev)
+    kp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    vp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    q = torch.randn(B, rows, hkv * groups, head_dim, device=dev).bfloat16()
+    ln = torch.from_numpy(lengths).to(dev)
+    before = decode_attention.VERIFY_KERNEL.launches
+    out = ops.paged_verify_attention(q, kp, vp, pt, ln)
+    ref = ops.paged_verify_attention(q, kp, vp, pt, ln, impl="torch")
+    assert decode_attention.VERIFY_KERNEL.launches == before + 1
+    _assert_agree(out, ref)
+    for s in range(rows):
+        one = ops.paged_decode_attention(q[:, s].contiguous(), kp, vp, pt,
+                                         ln[:, s].contiguous())
+        assert torch.equal(out[:, s], one), s
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(2, 6, 16, device=dev, dtype=torch.bfloat16)
     pool = torch.zeros(5, 4, 2, 16, device=dev, dtype=torch.bfloat16)
@@ -111,22 +142,44 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         ops.paged_decode_attention(q, pool, pool, pt, ln)
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q.float(), pool, pool, pt, ln)
+    with pytest.raises(ValueError, match="lengths"):
+        ops.paged_verify_attention(q[:, None], pool, pool, pt, ln)
 
 
-def test_engine_serves_through_the_kernels(dev):
+class _RepeatLast:
+    """Drafts the last token k times: a draft on every step."""
+
+    def __init__(self, n, k):
+        self.k = k
+
+    def propose(self, rid, history):
+        return [history[-1]] * self.k
+
+    def drop(self, rid):
+        pass
+
+
+@pytest.mark.parametrize("speculate_k", [0, 4])
+def test_engine_serves_through_the_kernels(dev, speculate_k):
     """A reduced dense config with 128-wide heads (the kernels' width),
-    an oversubscribed pool, every request finished, both kernels used."""
+    an oversubscribed pool, every request finished, the kernels of the
+    path used (with speculation, the verify kernel too)."""
     cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), head_dim=128)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    counts = [k.launches for k in ops.KERNELS]
+    kernels = [decode_attention.KERNEL, flash_attention.KERNEL]
+    if speculate_k:
+        kernels.append(decode_attention.VERIFY_KERNEL)
+    counts = [k.launches for k in kernels]
     eng = Engine(cfg, params, EngineConfig(
         max_batch=3, max_len=64, device="cuda",
         paging=PagingConfig(page_size=4, device_pages=10),
-        chunking=ChunkingConfig(chunk_tokens=8, chunk_slots=2)))
+        chunking=ChunkingConfig(chunk_tokens=8, chunk_slots=2),
+        speculation=SpeculationConfig(speculate_k=speculate_k,
+                                      proposer_factory=_RepeatLast)))
     rng = np.random.default_rng(2)
     for n in (13, 6, 17, 9, 20, 5):
         eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=7)
     out = eng.run()
     assert sorted(len(v) for v in out.values()) == [7] * 6
     assert eng.stats["preemptions"] > 0
-    assert all(k.launches > c for k, c in zip(ops.KERNELS, counts))
+    assert all(k.launches > c for k, c in zip(kernels, counts))
