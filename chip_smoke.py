@@ -5,23 +5,28 @@
 Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 
 1. builds the three CUDA kernels of the serving path (paged decode,
-   paged prefill, paged verify) from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a``, one compiler per source, started
-   together;
-2. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes (H=24, Hkv=8, D=128, page 16, bf16 pool):
-   decode at B=8 with ragged lengths 1..2048, prefill at C=2, T=256 with
-   ragged offsets and lengths, verify at B=8, S=5 (K=4) with per-row
-   lengths 1..2048 that straddle pages.  Every element must agree within
-   atol 4e-3 + rtol 1e-2 (one bf16 step at any magnitude, four times the
-   largest error measured on an H100), and every output row of D values
-   within a relative L2 error of 1e-2, which a skipped or repeated page
-   of even the longest row exceeds several times.
-   It times kernel, plain version and ``scaled_dot_product_attention``
-   on the gathered view (a yardstick only) with CUDA events, and
-   computes each kernel's bound from these inputs.  Verify row s is also
-   held against the decode kernel at ``lengths[:, s]`` (both are one
-   template): the largest difference is printed, and whether it is 0;
+   paged prefill, paged verify), each with its three entry points (bf16
+   pool, int8 and fp8 frames of the quantized pool), from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
+   compiler per source, started together, and prints each source's
+   registers and spills per element type (``-Xptxas -v``);
+2. holds each instance against its plain PyTorch version on the card at
+   the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
+   int8 and fp8 pools quantized from the same kind of normal draw with
+   per-(frame, KV head) absmax scales): decode at B=8 with ragged lengths
+   1..2048, prefill at C=2, T=256 with ragged offsets and lengths, verify
+   at B=8, S=5 (K=4) with per-row lengths 1..2048 that straddle pages.
+   Every element must agree within atol 4e-3 + rtol 1e-2 (one bf16 step
+   at any magnitude, four times the largest error measured on an H100),
+   and every output row of D values within a relative L2 error of 1e-2,
+   which a skipped or repeated page of even the longest row exceeds
+   several times.  It times kernel and plain version with CUDA events
+   (and, for bf16, ``scaled_dot_product_attention`` on the gathered view,
+   a yardstick only; no single library call takes a quantized pool with
+   its scales), and computes each instance's bound from these inputs
+   (1-byte K/V and the scales read for a quantized pool).  Verify row s
+   must be bitwise the decode kernel of the same element type at
+   ``lengths[:, s]`` (both are one template);
 3. serves 12 requests (prompts of 512-1536 tokens, 32 new tokens each)
    on ``phi4-mini-3.8b`` at full width with random weights from a seeded
    generator, through the port's ``Engine``: FUSED role, paging and
@@ -31,7 +36,18 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    It asserts that every request finishes with its token count, that
    the decode and prefill kernels launched in that run, that the pager
    preempted and resumed, and that a run whose pool needs no preemption
-   gives the same tokens; it prints throughput, TTFT and memory;
+   gives the same tokens; it prints throughput, TTFT, memory and a
+   sha256 of the tokens;
+3q. serves the same requests with the quantized pool (``kv_quant`` int8,
+   then fp8) on the same 448 frames: every request finishes with its
+   token count, the decode and prefill instances of the pool's element
+   type launched, the pager preempted and resumed, and the bytes it
+   parked are the frames it wrote back times the quantized frame's
+   bytes; an int8 run on a roomy pool must give the preempting int8
+   run's tokens.  It prints throughput, TTFT, peak memory, pool bytes and
+   the share of tokens equal to phase 3's, and runs int8 once more on
+   the frames that the bf16 pool's bytes buy (894), printing its
+   preemptions beside phase 3's;
 4. serves the same requests twice more with speculative verify-K decode
    (K=4) on the same pool: (a) with an oracle proposer that drafts the
    run of phase 3's own tokens, (b) with a proposer whose drafts never
@@ -43,6 +59,9 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    were rejected mark where verify and decode logits chose another
    argmax); then it serves phase 3's configuration once more, warm, for
    a throughput free of the process's warm-up;
+4q. serves the never-matching drafts on the int8 and the fp8 pool: the
+   counters balance, the pool's verify instance launched, the pager
+   preempted and resumed;
 5. checks one prefill chunk, one decode step and one verify step at full
    width over 8 rows (the engine's batch): kernels against plain
    versions on the same cache, finite logits of the right shape within
@@ -56,17 +75,22 @@ It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Without a CUDA device it exits non-zero before any result.
 
-``--profile-out PATH`` adds one more engine run of phase 3 and one of
-phase 4's oracle run under ``torch.profiler`` and prints where their
-device time went (attention kernels, matrix products, copies, the rest)
-and the device's busy share of the profiled wall time; the per-kernel
-tables go to PATH and to PATH with ``-spec`` added to its stem.
+``--profile-out PATH`` adds one more engine run of phase 3, one of
+phase 4's oracle run and one of phase 3q's int8 run under
+``torch.profiler`` and prints where their device time went (attention
+kernels, matrix products, copies, the rest) and the device's busy share
+of the profiled wall time; the per-kernel tables go to PATH and to PATH
+with ``-spec`` and ``-int8`` added to its stem, sorted by device time
+and then by host time.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -83,6 +107,7 @@ from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as pre_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
 from repro_torch.models.layers import (dense, rms_norm, swiglu,  # noqa: E402
                                        unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
@@ -108,6 +133,9 @@ ENGINE = dict(max_batch=8, max_len=2048, page_size=16, device_pages=448,
 N_REQUESTS, PROMPT_RANGE, NEW_TOKENS = 12, (512, 1536), 32
 SPECULATE_K = 4
 SEED = 0
+#: pool element types: bf16 ("none") and the quantized pool's frames
+MODES = ("none", "int8", "fp8")
+QUANT_MODES = ("int8", "fp8")
 
 
 def require(ok, msg: str) -> None:
@@ -115,6 +143,22 @@ def require(ok, msg: str) -> None:
     this survives ``python -O``)."""
     if not ok:
         raise RuntimeError(msg)
+
+
+def tokens_digest(out) -> str:
+    """sha256 of an engine run's tokens, ``{rid: [token, ...]}``: phase
+    3 prints it, so the bf16 path of two trees can be compared."""
+    flat = json.dumps({str(r): [int(t) for t in v]
+                       for r, v in sorted(out.items())})
+    return hashlib.sha256(flat.encode()).hexdigest()
+
+
+def reset_peak() -> None:
+    """Start a peak-memory reading: engines hold reference cycles, so
+    collect the ones already dropped before the allocator's peak is
+    reset to what is live."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -172,7 +216,48 @@ def gathered(pool, table):
     return x.repeat_interleave(H // HKV, dim=2).transpose(1, 2)
 
 
-def check_decode(dev, rng):
+def make_pools(n_frames, mode, dev):
+    """Random K and V pools of ``n_frames`` frames: bf16, or int8 / fp8
+    frames quantized from the same normal draw with per-(frame, KV head)
+    absmax scales.  Returns (k_pages, v_pages, scale keywords)."""
+    if mode == "none":
+        kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+        vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+        return kp, vp, {}
+    qcfg = KVQuantConfig(mode)
+    pools, scales = [], []
+    for _ in range(2):
+        x = torch.randn(n_frames, PAGE, HKV, D, device=dev)
+        s = x.abs().amax(dim=(1, 3)) * qcfg.inv_qmax           # (N, Hkv)
+        pools.append(quantize(x, s[:, None, :, None], qcfg))
+        scales.append(s.contiguous())
+    return pools[0], pools[1], {"k_scales": scales[0],
+                                "v_scales": scales[1]}
+
+
+def kv_bytes(positions: int, frames: int, mode: str) -> int:
+    """Bytes of K and V that ``positions`` pool rows of every KV head in
+    ``frames`` distinct frames take: 2-byte elements for bf16, 1-byte
+    ones and a scale pair per (frame, KV head) for a quantized pool."""
+    if mode == "none":
+        return 2 * positions * HKV * D * 2
+    return 2 * positions * HKV * D + 2 * frames * HKV * 4
+
+
+def kernel_row(kind: str, mode: str, **fields):
+    """One entry of the ``{"kernels": [...]}`` line; bf16 instances keep
+    the names of earlier slices."""
+    src = {"decode": ("paged_decode", "decode_attention.py:254"),
+           "prefill": ("paged_prefill", "flash_attention.py:279"),
+           "verify": ("paged_verify", "decode_attention.py:395")}[kind]
+    name = f"{src[0]}_attention" + ("" if mode == "none" else f"_{mode}")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src[0]}.cu",
+            "replaces": f"src/repro/kernels/{src[1]}", "launches": None,
+            **fields}
+
+
+def check_decode(dev, rng, mode="none"):
     lengths = np.array([1, 16, 17, 255, 640, 1000, 1537, 2048], np.int32)
     B, pps = len(lengths), 2048 // PAGE
     n_frames = B * pps + 1
@@ -180,40 +265,38 @@ def check_decode(dev, rng):
     for b, fr in enumerate(random_frames(rng, n_frames - 1,
                                          [-(-n // PAGE) for n in lengths])):
         table[b, :len(fr)] = fr
-    kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
-    vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+    kp, vp, kw = make_pools(n_frames, mode, dev)
     q = torch.randn(B, H, D, device=dev).bfloat16()
     pt = torch.from_numpy(table).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
     args = (q, kp, vp, pt, ln)
-    out = ops.paged_decode_attention(*args, impl="cuda")
-    ref = ops.paged_decode_attention(*args, impl="torch")
-    err, row_err = agree("decode kernel", out, ref)
-    kg, vg = gathered(kp, pt), gathered(vp, pt)
-    mask = (torch.arange(pps * PAGE, device=dev)[None, :]
-            < ln[:, None])[:, None, None, :]
-    qs = q[:, :, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = ops.paged_decode_attention(*args, impl="cuda", **kw)
+    ref = ops.paged_decode_attention(*args, impl="torch", **kw)
+    err, row_err = agree(f"decode kernel ({mode})", out, ref)
     total = int(lengths.sum())
+    frames = sum(-(-int(n) // PAGE) for n in lengths)
     nbytes = (q.numel() * 2 * 2 + pt.numel() * 4 + ln.numel() * 4
-              + 2 * total * HKV * D * 2)
+              + kv_bytes(total, frames, mode))
     flops = 4 * total * H * D
     b_ms, b_by = bound(nbytes, flops)
-    return {
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:254",
-        "launches": None, "max_abs_err": err, "row_err": row_err,
-        "ms": time_ms(lambda: ops.paged_decode_attention(*args,
-                                                         impl="cuda")),
-        "plain_ms": time_ms(lambda: ops.paged_decode_attention(
-            *args, impl="torch")),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
-    }
+    lib_ms = None
+    if mode == "none":      # SDPA takes no quantized pool with scales
+        kg, vg = gathered(kp, pt), gathered(vp, pt)
+        mask = (torch.arange(pps * PAGE, device=dev)[None, :]
+                < ln[:, None])[:, None, None, :]
+        qs = q[:, :, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+    return kernel_row(
+        "decode", mode, max_abs_err=err, row_err=row_err,
+        ms=time_ms(lambda: ops.paged_decode_attention(*args, impl="cuda",
+                                                      **kw)),
+        plain_ms=time_ms(lambda: ops.paged_decode_attention(
+            *args, impl="torch", **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def check_prefill(dev, rng):
+def check_prefill(dev, rng, mode="none"):
     offset = np.array([512, 1283], np.int32)
     length = np.array([256, 131], np.int32)
     C, T, pps = 2, 256, 2048 // PAGE
@@ -223,49 +306,47 @@ def check_prefill(dev, rng):
     for c, fr in enumerate(random_frames(rng, n_frames - 1,
                                          [-(-v // PAGE) for v in valid])):
         rows[c, :len(fr)] = fr
-    kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
-    vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+    kp, vp, kw = make_pools(n_frames, mode, dev)
     q = torch.randn(C, T, H, D, device=dev).bfloat16()
     pr = torch.from_numpy(rows).to(dev)
     off = torch.from_numpy(offset).to(dev)
     ln = torch.from_numpy(length).to(dev)
     args = (q, kp, vp, pr, off, ln)
-    out = ops.paged_prefill_attention(*args, impl="cuda")
-    ref = ops.paged_prefill_attention(*args, impl="torch")
-    errs = [agree("prefill kernel", out[c, :length[c]], ref[c, :length[c]])
-            for c in range(C)]
-    kg, vg = gathered(kp, pr), gathered(vp, pr)
-    q_pos = off[:, None] + torch.arange(T, device=dev)[None, :]
-    kv_pos = torch.arange(pps * PAGE, device=dev)
-    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-    qs = q.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = ops.paged_prefill_attention(*args, impl="cuda", **kw)
+    ref = ops.paged_prefill_attention(*args, impl="torch", **kw)
+    errs = [agree(f"prefill kernel ({mode})", out[c, :length[c]],
+                  ref[c, :length[c]]) for c in range(C)]
     # work of the valid query rows: query t sees offset + t + 1 keys
     attended = sum(int(length[c]) * int(offset[c])
                    + int(length[c]) * (int(length[c]) + 1) // 2
                    for c in range(C))
     nbytes = (2 * 2 * int(length.sum()) * H * D + rows.size * 4 + 2 * C * 4
-              + 2 * int(valid.sum()) * HKV * D * 2)
+              + kv_bytes(int(valid.sum()), n_frames - 1, mode))
     flops = 4 * attended * H * D
     b_ms, b_by = bound(nbytes, flops)
-    return {
-        "name": "paged_prefill_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:279",
-        "launches": None, "max_abs_err": max(e for e, _ in errs),
-        "row_err": max(r for _, r in errs),
-        "ms": time_ms(lambda: ops.paged_prefill_attention(*args,
-                                                          impl="cuda")),
-        "plain_ms": time_ms(lambda: ops.paged_prefill_attention(
-            *args, impl="torch")),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
-    }
+    lib_ms = None
+    if mode == "none":
+        kg, vg = gathered(kp, pr), gathered(vp, pr)
+        q_pos = off[:, None] + torch.arange(T, device=dev)[None, :]
+        kv_pos = torch.arange(pps * PAGE, device=dev)
+        mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+        qs = q.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+    return kernel_row(
+        "prefill", mode, max_abs_err=max(e for e, _ in errs),
+        row_err=max(r for _, r in errs),
+        ms=time_ms(lambda: ops.paged_prefill_attention(*args, impl="cuda",
+                                                       **kw)),
+        plain_ms=time_ms(lambda: ops.paged_prefill_attention(
+            *args, impl="torch", **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def check_verify(dev, rng):
+def check_verify(dev, rng, mode="none"):
     """The verify kernel at K=4: against its plain version, and row s
-    against the decode kernel at ``lengths[:, s]``."""
+    against the decode kernel of the same element type at
+    ``lengths[:, s]``, bitwise."""
     S = SPECULATE_K + 1
     starts = np.array([1, 12, 16, 255, 640, 1000, 1537, 2044], np.int32)
     lengths = np.minimum(starts[:, None] + np.arange(S)[None, :],
@@ -277,44 +358,44 @@ def check_verify(dev, rng):
     for b, fr in enumerate(random_frames(rng, n_frames - 1,
                                          [-(-n // PAGE) for n in longest])):
         table[b, :len(fr)] = fr
-    kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
-    vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+    kp, vp, kw = make_pools(n_frames, mode, dev)
     q = torch.randn(B, S, H, D, device=dev).bfloat16()
     pt = torch.from_numpy(table).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
     args = (q, kp, vp, pt, ln)
-    out = ops.paged_verify_attention(*args, impl="cuda")
-    ref = ops.paged_verify_attention(*args, impl="torch")
-    err, row_err = agree("verify kernel", out, ref)
+    out = ops.paged_verify_attention(*args, impl="cuda", **kw)
+    ref = ops.paged_verify_attention(*args, impl="torch", **kw)
+    err, row_err = agree(f"verify kernel ({mode})", out, ref)
     vs_decode = max(
         float((out[:, s].float() - ops.paged_decode_attention(
             q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous(),
-            impl="cuda").float()).abs().max()) for s in range(S))
-    print(f"[kernel] verify row s vs decode kernel at lengths[:, s]: max "
-          f"diff {vs_decode:.3e} "
+            impl="cuda", **kw).float()).abs().max()) for s in range(S))
+    print(f"[kernel] verify ({mode}) row s vs decode kernel at "
+          f"lengths[:, s]: max diff {vs_decode:.3e} "
           f"({'bitwise' if vs_decode == 0 else 'not bitwise'})")
-    kg, vg = gathered(kp, pt), gathered(vp, pt)
-    mask = (torch.arange(pps * PAGE, device=dev)[None, None, :]
-            < ln[:, :, None])[:, None]                 # (B, 1, S, L)
-    qs = q.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    require(vs_decode == 0, f"verify ({mode}) row s is not bitwise the "
+            "decode kernel at lengths[:, s]")
     # K/V rows up to each sequence's longest row, read once
+    frames = sum(-(-int(n) // PAGE) for n in longest)
     nbytes = (q.numel() * 2 * 2 + pt.numel() * 4 + ln.numel() * 4
-              + 2 * int(longest.sum()) * HKV * D * 2)
+              + kv_bytes(int(longest.sum()), frames, mode))
     flops = 4 * int(lengths.sum()) * H * D
     b_ms, b_by = bound(nbytes, flops)
-    return {
-        "name": "paged_verify_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:395",
-        "launches": None, "max_abs_err": err, "row_err": row_err,
-        "ms": time_ms(lambda: ops.paged_verify_attention(*args,
-                                                         impl="cuda")),
-        "plain_ms": time_ms(lambda: ops.paged_verify_attention(
-            *args, impl="torch")),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
-    }
+    lib_ms = None
+    if mode == "none":
+        kg, vg = gathered(kp, pt), gathered(vp, pt)
+        mask = (torch.arange(pps * PAGE, device=dev)[None, None, :]
+                < ln[:, :, None])[:, None]             # (B, 1, S, L)
+        qs = q.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+    return kernel_row(
+        "verify", mode, max_abs_err=err, row_err=row_err,
+        ms=time_ms(lambda: ops.paged_verify_attention(*args, impl="cuda",
+                                                      **kw)),
+        plain_ms=time_ms(lambda: ops.paged_verify_attention(
+            *args, impl="torch", **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 class OracleProposer:
@@ -345,12 +426,12 @@ class WrongProposer(OracleProposer):
 
 
 def engine_config(device, device_pages, clock=None,
-                  proposer_factory=None) -> EngineConfig:
+                  proposer_factory=None, kv_quant="none") -> EngineConfig:
     e = ENGINE
     return EngineConfig(
         max_batch=e["max_batch"], max_len=e["max_len"], device=device,
         paging=PagingConfig(page_size=e["page_size"],
-                            device_pages=device_pages),
+                            device_pages=device_pages, kv_quant=kv_quant),
         chunking=ChunkingConfig(chunk_tokens=e["chunk_tokens"],
                                 chunk_slots=e["chunk_slots"]),
         scheduler=SchedulerConfig(policy="watermark", clock=clock),
@@ -367,10 +448,10 @@ def prompts(vocab: int):
 
 
 def serve(cfg, params, device, device_pages, clock=None,
-          proposer_factory=None):
+          proposer_factory=None, kv_quant="none"):
     """Serve the smoke requests; returns (engine, outputs, wall seconds)."""
     eng = Engine(cfg, params, engine_config(device, device_pages, clock,
-                                            proposer_factory))
+                                            proposer_factory, kv_quant))
     for p in prompts(cfg.vocab_size):
         eng.submit(p, max_new_tokens=NEW_TOKENS)
     t0 = time.perf_counter()
@@ -468,6 +549,37 @@ def check_steps(cfg, params, dev):
               f"{d:.3e}{' (bitwise)' if d == 0 else ''}")
 
 
+_ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a)L")
+_ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
+              "a": "int8"}
+
+
+def ptxas_summary(log: str):
+    """Per element type of one library's ``nvcc -Xptxas -v`` log:
+    (instantiations, fewest and most registers, largest spill store in
+    bytes, instantiations that spill)."""
+    out, elem = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            found = _ELEM.search(m.group(1))
+            elem = _ELEM_NAME[found.group(1)] if found else "?"
+            out.setdefault(elem, {"n": 0, "regs": [], "spill": []})
+            out[elem]["n"] += 1
+            continue
+        if elem is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[elem]["spill"].append(int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[elem]["regs"].append(int(m.group(1)))
+    return {e: (v["n"], min(v["regs"], default=0), max(v["regs"], default=0),
+                max(v["spill"], default=0), sum(x > 0 for x in v["spill"]))
+            for e, v in out.items()}
+
+
 def _kind(name: str) -> str:
     if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
         return "attention kernels"
@@ -479,22 +591,24 @@ def _kind(name: str) -> str:
 
 
 def profile_engine(cfg, params, path: str, spec_factory) -> None:
-    """One more (warm) run of phase 3 and of phase 4's oracle run under
-    ``torch.profiler``: device time by kind of kernel, and the device's
-    busy share of the wall time."""
+    """One more (warm) run of phase 3, of phase 4's oracle run and of
+    phase 3q's int8 run under ``torch.profiler``: device time by kind of
+    kernel, and the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
-    for tag, factory, table in (
-            ("plain", None, out),
-            ("spec:oracle", spec_factory,
-             out.with_name(f"{out.stem}-spec{out.suffix}"))):
+    for tag, factory, kv_quant, table in (
+            ("plain", None, "none", out),
+            ("spec:oracle", spec_factory, "none",
+             out.with_name(f"{out.stem}-spec{out.suffix}")),
+            ("quant:int8", None, "int8",
+             out.with_name(f"{out.stem}-int8{out.suffix}"))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
-                               proposer_factory=factory)
+                               proposer_factory=factory, kv_quant=kv_quant)
         kinds = {}
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
@@ -506,8 +620,11 @@ def profile_engine(cfg, params, path: str, spec_factory) -> None:
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
             print(f"[profile:{tag}] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of "
                   f"device time)" if busy else f"[profile:{tag}] {k}: 0")
-        table.write_text(prof.key_averages().table(
-            sort_by="self_cuda_time_total", row_limit=60))
+        avg = prof.key_averages()
+        table.write_text(avg.table(sort_by="self_cuda_time_total",
+                                   row_limit=60) + "\n\n"
+                         + avg.table(sort_by="self_cpu_time_total",
+                                     row_limit=40))
         print(f"[profile:{tag}] per-kernel table written to {table}")
 
 
@@ -533,21 +650,27 @@ def main(argv=None) -> int:
 
     # 1. build
     secs = build_all(ops.KERNELS)
-    print(f"[build] {len(ops.KERNELS)} kernels in {secs:.1f}s")
-    for k in ops.KERNELS:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {k.source.name}: {line.strip()}")
+    sources = {k.source.name: k.build_log for k in ops.KERNELS}
+    print(f"[build] {len(ops.KERNELS)} entry points from {len(sources)} "
+          f"sources in {secs:.1f}s")
+    for name, log in sources.items():
+        for elem, (n, lo, hi, spill, n_spill) in ptxas_summary(log).items():
+            print(f"[build] {name} {elem}: {n} instantiations, registers "
+                  f"{lo}-{hi}, largest spill store {spill} B "
+                  f"({n_spill} spilling)")
 
-    # 2. kernels vs plain versions
+    # 2. kernels vs plain versions, every element type of the pool
     rng = np.random.default_rng(SEED)
-    rows = [check_decode(dev, rng), check_prefill(dev, rng),
-            check_verify(dev, rng)]
+    rows = []
+    for mode in MODES:
+        rows += [check_decode(dev, rng, mode), check_prefill(dev, rng, mode),
+                 check_verify(dev, rng, mode)]
     for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[kernel] {r['name']}: kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} library_ms "
-              f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) max_abs_err {r['max_abs_err']:.3e} "
+              f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"max_abs_err {r['max_abs_err']:.3e} "
               f"row_err {r.pop('row_err'):.3e}")
 
     # 3. the engine at full width
@@ -558,7 +681,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[engine] {ARCH} params ready in {time.perf_counter() - t0:.3f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in ops.KERNELS:
         k.launches = 0
     eng, out, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
@@ -567,10 +690,12 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_tok = sum(len(v) for v in out.values())
     ttft = [r.ttft for r in eng.finished.values()]
+    pool = sum(t.numel() * t.element_size() for key, t in eng.cache.kv.items()
+               if key != "page_table")
     print(f"[engine] {len(out)} requests, {n_tok} tokens in {wall:.2f}s "
           f"({n_tok / wall:.1f} tok/s), mean TTFT {np.mean(ttft):.3f}s, "
           f"steps {eng.stats['steps']} (mixed {eng.stats['mixed_steps']}), "
-          f"peak memory {peak:.2f} GiB")
+          f"peak memory {peak:.2f} GiB, pool {pool / 2**30:.3f} GiB")
     print(f"[engine] preemptions {eng.stats['preemptions']} resumes "
           f"{eng.stats['resumes']} prefill_preempts "
           f"{eng.stats['prefill_preempts']} chunks {eng.stats['chunks']}; "
@@ -585,6 +710,7 @@ def main(argv=None) -> int:
                 f"kernel {k.name} never launched on the main path")
     require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
             "the pool never preempted/resumed")
+    print(f"[engine] tokens digest {tokens_digest(out)}")
     pps = ENGINE["max_len"] // ENGINE["page_size"]
     roomy, rout, r_wall = serve(cfg, params, "cuda",
                                 ENGINE["max_batch"] * pps)
@@ -595,7 +721,88 @@ def main(argv=None) -> int:
           f"({same / n_tok:.3f})")
     require(same == n_tok, "the roomy pool's tokens differ from the "
             "preempting run's")
+    bf16_preempts = eng.stats["preemptions"]
     del eng, roomy
+
+    # 3q. the quantized pool: int8, then fp8 frames, same requests, pool
+    #     of 448 frames and policy; then int8 with a roomy pool and with
+    #     the bf16 pool's byte budget
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    bf16_frame = 2 * L * PAGE * hkv * hd * 2
+    quant_frame = 2 * L * PAGE * hkv * hd + 2 * L * hkv * 4
+    print(f"[quant] frame bytes: bf16 {bf16_frame}, int8/fp8 {quant_frame} "
+          f"(pool of {ENGINE['device_pages']} frames: "
+          f"{ENGINE['device_pages'] * bf16_frame / 2**30:.3f} GiB bf16, "
+          f"{ENGINE['device_pages'] * quant_frame / 2**30:.3f} GiB quantized)")
+    qruns = {}
+    for mode in QUANT_MODES:
+        dt = KVQuantConfig(mode).dtype
+        reset_peak()
+        for k in ops.KERNELS:
+            k.launches = 0
+        qeng, qout, q_wall = serve(cfg, params, "cuda",
+                                   ENGINE["device_pages"],
+                                   clock=time.perf_counter, kv_quant=mode)
+        qlaunch = {k.name: k.launches for k in ops.KERNELS}
+        qpeak = torch.cuda.max_memory_allocated() / 2**30
+        kv = qeng.cache.kv
+        pool = sum(t.numel() * t.element_size() for key, t in kv.items()
+                   if key != "page_table")
+        st, ps = qeng.stats, qeng.pager.stats
+        q_tok = sum(len(v) for v in qout.values())
+        same = sum(a == b for r in out for a, b in zip(out[r], qout[r]))
+        print(f"[quant:{mode}] {len(qout)} requests, {q_tok} tokens in "
+              f"{q_wall:.2f}s ({q_tok / q_wall:.1f} tok/s), mean TTFT "
+              f"{np.mean([r.ttft for r in qeng.finished.values()]):.3f}s, "
+              f"steps {st['steps']} (mixed {st['mixed_steps']}), peak memory "
+              f"{qpeak:.2f} GiB, pool {pool / 2**30:.3f} GiB "
+              f"({kv['k_pages'].dtype})")
+        print(f"[quant:{mode}] preemptions {st['preemptions']} resumes "
+              f"{st['resumes']}; pager {dict(ps)}; tokens equal to the bf16 "
+              f"run: {same}/{n_tok} ({same / n_tok:.3f}); kernel launches "
+              f"{qlaunch}")
+        require(len(qout) == N_REQUESTS,
+                f"{mode}: {len(qout)} of {N_REQUESTS} finished")
+        require(all(len(v) == NEW_TOKENS for v in qout.values()),
+                f"{mode}: token counts")
+        require(all(0 <= t < cfg.padded_vocab for v in qout.values()
+                    for t in v), f"{mode}: token ids out of the vocabulary")
+        require(kv["k_pages"].dtype == dt, f"{mode}: pool dtype")
+        for k in (dec_mod.KERNELS[dt], pre_mod.KERNELS[dt]):
+            require(qlaunch[k.name] > 0,
+                    f"kernel {k.name} never launched on the {mode} path")
+        require(st["preemptions"] > 0 and st["resumes"] > 0,
+                f"{mode}: the pool never preempted/resumed")
+        require(qeng.pager.page_nbytes == quant_frame,
+                f"{mode}: page_nbytes {qeng.pager.page_nbytes}")
+        require(ps["writeback"] > 0 and ps["bytes_moved_bulk"]
+                == ps["writeback"] * quant_frame,
+                f"{mode}: bytes parked {ps['bytes_moved_bulk']} != "
+                f"{ps['writeback']} frames x {quant_frame}")
+        qruns[mode] = {"out": qout, "plain": qlaunch}
+        del qeng, kv          # the pool too, before the next peak reading
+    roomy, rout, r_wall = serve(cfg, params, "cuda",
+                                ENGINE["max_batch"] * pps, kv_quant="int8")
+    qout = qruns["int8"]["out"]
+    same = sum(a == b for r in qout for a, b in zip(qout[r], rout[r]))
+    print(f"[quant:int8] roomy pool: preemptions "
+          f"{roomy.stats['preemptions']}, {n_tok / r_wall:.1f} tok/s; tokens "
+          f"equal to the preempting int8 run: {same}/{n_tok}")
+    require(same == n_tok, "the roomy int8 pool's tokens differ from the "
+            "preempting int8 run's")
+    del roomy
+    budget = ENGINE["device_pages"] * bf16_frame // quant_frame
+    beng, bout, b_wall = serve(cfg, params, "cuda", budget,
+                               clock=time.perf_counter, kv_quant="int8")
+    print(f"[quant:int8] at the bf16 pool's byte budget ({budget} frames): "
+          f"{n_tok / b_wall:.1f} tok/s, mean TTFT "
+          f"{np.mean([r.ttft for r in beng.finished.values()]):.3f}s, "
+          f"steps {beng.stats['steps']}, preemptions "
+          f"{beng.stats['preemptions']} (bf16 at {ENGINE['device_pages']} "
+          f"frames: {bf16_preempts})")
+    require(all(len(v) == NEW_TOKENS for v in bout.values())
+            and len(bout) == N_REQUESTS, "int8 at the byte budget: tokens")
+    del beng
 
     # 4. speculative verify-K decode on the same pool
     lens = {i: len(p) for i, p in enumerate(prompts(cfg.vocab_size))}
@@ -649,14 +856,54 @@ def main(argv=None) -> int:
     require(wout == out, "the warm plain run's tokens differ")
     del warm
 
+    # 4q. never-matching drafts on the quantized pools: every verify step
+    #     rolls back, scales stay where the rejected drafts raised them
+    for mode in QUANT_MODES:
+        dt = KVQuantConfig(mode).dtype
+        for k in ops.KERNELS:
+            k.launches = 0
+        seng, sout, s_wall = serve(
+            cfg, params, "cuda", ENGINE["device_pages"],
+            clock=time.perf_counter, kv_quant=mode,
+            proposer_factory=lambda n, k, r=qruns[mode]["out"]: WrongProposer(
+                r, lens, k, cfg.padded_vocab))
+        slaunch = {k.name: k.launches for k in ops.KERNELS}
+        st = seng.stats
+        s_tok = sum(len(v) for v in sout.values())
+        print(f"[quant:{mode}:spec:wrong] {s_tok} tokens in {s_wall:.2f}s "
+              f"({s_tok / s_wall:.1f} tok/s), steps {st['steps']} (spec "
+              f"{st['spec_steps']}), drafted {st['drafted']} accepted "
+              f"{st['accepted']} rejected {st['rejected']}, preemptions "
+              f"{st['preemptions']} resumes {st['resumes']}; kernel "
+              f"launches {slaunch}")
+        require(len(sout) == N_REQUESTS
+                and all(len(v) == NEW_TOKENS for v in sout.values()),
+                f"{mode} spec wrong: token counts")
+        require(st["accepted"] + st["rejected"] == st["drafted"],
+                f"{mode} spec wrong: counters do not balance")
+        seng.check_invariants()
+        require(slaunch[dec_mod.VERIFY_KERNELS[dt].name] > 0,
+                f"{mode} spec wrong: the {mode} verify kernel never launched")
+        require(st["preemptions"] > 0 and st["resumes"] > 0,
+                f"{mode} spec wrong: the pool never preempted/resumed")
+        qruns[mode]["spec"] = slaunch
+        del seng
+
     # 5. full-width step check against the plain versions
     check_steps(cfg, params, dev)
     if args.profile_out:
         profile_engine(cfg, params, args.profile_out, oracle)
 
-    rows[0]["launches"] = launches[dec_mod.KERNEL.name]
-    rows[1]["launches"] = launches[pre_mod.KERNEL.name]
-    rows[2]["launches"] = spec_launches["oracle"][dec_mod.VERIFY_KERNEL.name]
+    # launches of each instance in the run that drives its path: decode
+    # and prefill from the plain runs, verify from a speculative run
+    for i, mode in enumerate(MODES):
+        dt = KVQuantConfig(mode).dtype
+        plain = launches if mode == "none" else qruns[mode]["plain"]
+        spec = spec_launches["oracle"] if mode == "none" \
+            else qruns[mode]["spec"]
+        rows[3 * i]["launches"] = plain[dec_mod.KERNELS[dt].name]
+        rows[3 * i + 1]["launches"] = plain[pre_mod.KERNELS[dt].name]
+        rows[3 * i + 2]["launches"] = spec[dec_mod.VERIFY_KERNELS[dt].name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ with ``nvcc`` for ``sm_90a`` into its own shared library under
 first time a wrapper launches it, and loaded with ``ctypes``.  The file
 name carries a digest of the source, the shared headers (``csrc/*.cuh``)
 and the flags, so an edited source or header builds anew and an
-unchanged one is reused.  :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+unchanged one is reused.  A source may export several entry points (one
+per pool element type), each its own :class:`CudaKernel` over the one
+library.  :func:`build_all` starts one ``nvcc`` per source at once and
+waits for all of them.
 
 Importing this module runs nothing: no compiler, no CUDA call.
 """
@@ -21,9 +23,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
-__all__ = ["CudaKernel", "build_all", "check_operand", "BUILD_DIR", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["CudaKernel", "build_all", "check_operand", "kernel_per_dtype",
+           "scale_pointers", "BUILD_DIR", "NVCC_FLAGS", "POOL_DTYPES"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -119,12 +124,51 @@ class CudaKernel:
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:
     """Build every kernel's library in parallel (one ``nvcc`` per
-    source, all started together); return the wall seconds taken."""
+    source, all started together; entry points of one source share its
+    build and its log); return the wall seconds taken."""
     t0 = time.perf_counter()
-    started = [(k, k.start_build()) for k in kernels]
-    for k, proc in started:
+    kernels = list(kernels)
+    started: Dict[Path, Tuple[CudaKernel, Optional[subprocess.Popen]]] = {}
+    for k in kernels:
+        path = k.library_path()
+        if path not in started:
+            started[path] = (k, k.start_build())
+    for k, proc in started.values():
         k.finish_build(proc)
+    for k in kernels:
+        k.build_log = started[k.library_path()][0].build_log
     return time.perf_counter() - t0
+
+
+#: pool element types with an entry point: bf16, and the int8 / fp8
+#: (e4m3) frames of a quantized pool
+POOL_DTYPES = (torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+_SUFFIX = {torch.bfloat16: "bf16", torch.int8: "int8",
+           torch.float8_e4m3fn: "fp8"}
+
+
+def kernel_per_dtype(source: str, stem: str,
+                     argtypes: Sequence) -> Dict[torch.dtype, CudaKernel]:
+    """One :class:`CudaKernel` per pool dtype over ``source``'s entry
+    points ``{stem}_bf16``, ``_int8`` and ``_fp8``.  ``argtypes`` are the
+    bf16 entry point's; the quantized ones take two more pointers,
+    ``k_scales`` and ``v_scales``, after the first three (q, k_pages,
+    v_pages)."""
+    p = ctypes.c_void_p
+    scaled = list(argtypes[:3]) + [p, p] + list(argtypes[3:])
+    return {dt: CudaKernel(source, f"{stem}_{sfx}",
+                           argtypes if dt == torch.bfloat16 else scaled)
+            for dt, sfx in _SUFFIX.items()}
+
+
+def scale_pointers(k_scales, v_scales, device) -> tuple:
+    """The pointers of the (N, Hkv) f32 scale operands of a quantized
+    pool, checked as :func:`check_operand` does; () for a bf16 pool."""
+    if k_scales is None:
+        return ()
+    check_operand("k_scales", k_scales, torch.float32, 2, device)
+    check_operand("v_scales", v_scales, torch.float32, 2, device)
+    return k_scales.data_ptr(), v_scales.data_ptr()
 
 
 def check_operand(name: str, t, dtype, ndim: int, device) -> None:

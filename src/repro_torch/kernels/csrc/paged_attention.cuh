@@ -6,14 +6,26 @@
 // Function: for each sequence b, query row s and query head h,
 // softmax(q . K^T / sqrt(D)) . V over the first lengths[b, s] KV
 // positions, where position p lives in pool frame page_table[b, p / page]
-// at row p % page.  Online softmax in f32, bf16 loads, bf16 store.  A row
+// at row p % page.  Online softmax in f32, bf16 q, bf16 store.  A row
 // with lengths[b, s] == 0 stores zeros.
 //
 // Layout: q and out (B, S, H, D) (S = 1 for decode: (B, H, D)); k_pages /
 // v_pages (N, page, Hkv, D), so one pool row of one KV head is D
-// contiguous bf16 (256 bytes at D = 128) and rows are Hkv * D apart;
-// page_table (B, pages_per_seq) int32; lengths (B, S) int32.  H = G * Hkv,
-// query head h reads KV head h / G.
+// contiguous elements (256 bytes of bf16 at D = 128, 128 bytes of int8 or
+// fp8) and rows are Hkv * D apart; page_table (B, pages_per_seq) int32;
+// lengths (B, S) int32.  H = G * Hkv, query head h reads KV head h / G.
+//
+// Element type T (kv_types.cuh): bf16, or the int8 / fp8 (e4m3) frames of
+// a quantized pool with k_scales / v_scales (N, Hkv) f32.  The scale is
+// per frame and a 64-position tile is not (at page 16 it straddles four
+// frames), so each K or V row takes the scale of the frame it was read
+// from, looked up beside the row, k_scales[frame * Hkv + kv head], and
+// multiplies each of its elements as it is widened to f32 (the JAX
+// package's dequant of the gathered view, element by element).  Decode
+// and verify share that code, so verify row s stays bitwise the decode
+// kernel at lengths[:, s] for every element type.  No scale is read for
+// a position at or past the longest row length, so the trash frame's junk
+// scale is never touched.
 //
 // Design: one block of 128 threads per (KV head, sequence, group of SB
 // query rows).  The block stages its R = SB * G query rows (SB rows s of
@@ -38,8 +50,10 @@
 // position at or past the largest row length is read.
 //
 // Bound on the card: bytes.  A step reads every valid K and V row once
-// (2 * len * D * 2 bytes per sequence and KV head) and does 4 * R * D
-// flops per position, far below the ~295 flop/byte ridge of an H100.
+// (2 * len * D * sizeof(T) bytes per sequence and KV head, plus a scale
+// pair per frame when quantized) and does 4 * R * D flops per position,
+// far below the ~295 flop/byte ridge of an H100.  A 1-byte pool halves
+// the bytes, and with them the bound; this version is not near it.
 // What limits this simple version is parallelism: B * Hkv blocks (64 at
 // B = 8, Hkv = 8) leave most of the 132 SMs idle, and each block walks its
 // tiles one after another.  Splitting the KV axis across blocks with a
@@ -50,33 +64,27 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kv_types.cuh"
+
 namespace repro_paged {
+
+using repro_kv::load8_dequant;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
 // Grid (Hkv, B, ceil(S / SB)); block z covers query rows s0 .. s0 + SB - 1.
-template <int G, int D, int SB>
+template <typename T, int G, int D, int SB>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_table,
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ page_table,
     const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
     int num_kv_heads, int S, int page, int pages_per_seq, float scale) {
   constexpr int R = SB * G;                            // query rows per block
-  constexpr int kLanesPerRow = D / 8;                  // 16 bytes per lane
+  constexpr int kLanesPerRow = D / 8;                  // 8 elements per lane
   constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   constexpr int kRowGroups = kThreads / kLanesPerRow;  // P.V position split
   static_assert(kTile % (kWarps * kRowsPerWarp) == 0, "tile rows");
@@ -142,7 +150,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         const long base = (static_cast<long>(frame) * page + pos % page) * row_stride
                           + head_off + sub * 8;
         float kf[8];
-        load8(k_pages + base, kf);
+        load8_dequant(k_pages + base, k_scales,
+                      static_cast<long>(frame) * num_kv_heads + kvh, kf);
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -202,7 +211,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const long base = (static_cast<long>(frame) * page + pos % page) * row_stride
                         + head_off + sub * 8;
       float vf[8];
-      load8(v_pages + base, vf);
+      load8_dequant(v_pages + base, v_scales,
+                    static_cast<long>(frame) * num_kv_heads + kvh, vf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = p_s[r][c];
@@ -233,15 +243,28 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
+// The operands of one launch, element type T for the pool.
+template <typename T>
+struct Args {
+  const __nv_bfloat16* q;
+  const T* k;
+  const T* v;
+  const float* ks;   // null for bf16
+  const float* vs;
+  const int* pt;
+  const int* len;
+  __nv_bfloat16* out;
+  int batch, S, num_kv_heads, page, pps;
+  float scale;
+};
+
 // Launch one instance; returns the launch's CUDA error.
-template <int G, int D, int SB>
-cudaError_t launch_gd(int batch, int num_kv_heads, int S, cudaStream_t stream,
-                      const __nv_bfloat16* q, const __nv_bfloat16* k,
-                      const __nv_bfloat16* v, const int* pt, const int* len,
-                      __nv_bfloat16* out, int page, int pps, float scale) {
-  const dim3 grid(num_kv_heads, batch, (S + SB - 1) / SB);
-  paged_attention_kernel<G, D, SB><<<grid, kThreads, 0, stream>>>(
-      q, k, v, pt, len, out, num_kv_heads, S, page, pps, scale);
+template <typename T, int G, int D, int SB>
+cudaError_t launch_gd(const Args<T>& a, cudaStream_t stream) {
+  const dim3 grid(a.num_kv_heads, a.batch, (a.S + SB - 1) / SB);
+  paged_attention_kernel<T, G, D, SB><<<grid, kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.pt, a.len, a.out, a.num_kv_heads, a.S,
+      a.page, a.pps, a.scale);
   return cudaGetLastError();
 }
 
@@ -252,17 +275,11 @@ constexpr int rows_per_block() {
   return kVerify ? (16 / G > 0 ? 16 / G : 1) : 1;
 }
 
-template <bool kVerify, int D>
-cudaError_t launch_d(int groups, int batch, int num_kv_heads, int S,
-                     cudaStream_t stream, const __nv_bfloat16* q,
-                     const __nv_bfloat16* k, const __nv_bfloat16* v,
-                     const int* pt, const int* len, __nv_bfloat16* out,
-                     int page, int pps, float scale) {
+template <bool kVerify, typename T, int D>
+cudaError_t launch_d(int groups, const Args<T>& a, cudaStream_t stream) {
 #define REPRO_PAGED_CASE(GG)                                                  \
   case GG:                                                                    \
-    return launch_gd<GG, D, rows_per_block<kVerify, GG>()>(                   \
-        batch, num_kv_heads, S, stream, q, k, v, pt, len, out, page, pps,     \
-        scale);
+    return launch_gd<T, GG, D, rows_per_block<kVerify, GG>()>(a, stream);
   switch (groups) {
     REPRO_PAGED_CASE(1)
     REPRO_PAGED_CASE(2)
@@ -276,28 +293,34 @@ cudaError_t launch_d(int groups, int batch, int num_kv_heads, int S,
 #undef REPRO_PAGED_CASE
 }
 
-template <bool kVerify>
+// One entry point's body: element type T of the pool; k_scales /
+// v_scales are null for bf16.
+template <bool kVerify, typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* page_table, const void* lengths, void* out, int batch,
-           int S, int num_heads, int num_kv_heads, int head_dim, int page,
-           int pages_per_seq, float scale, void* stream) {
+           const void* k_scales, const void* v_scales, const void* page_table,
+           const void* lengths, void* out, int batch, int S, int num_heads,
+           int num_kv_heads, int head_dim, int page, int pages_per_seq,
+           float scale, void* stream) {
   if (num_kv_heads <= 0 || num_heads % num_kv_heads || S <= 0)
     return cudaErrorInvalidValue;
+  if (repro_kv::Elem<T>::kScaled && (k_scales == nullptr || v_scales == nullptr))
+    return cudaErrorInvalidValue;
   const int groups = num_heads / num_kv_heads;
-  auto qq = static_cast<const __nv_bfloat16*>(q);
-  auto kk = static_cast<const __nv_bfloat16*>(k_pages);
-  auto vv = static_cast<const __nv_bfloat16*>(v_pages);
-  auto pt = static_cast<const int*>(page_table);
-  auto ln = static_cast<const int*>(lengths);
-  auto oo = static_cast<__nv_bfloat16*>(out);
+  const Args<T> a{static_cast<const __nv_bfloat16*>(q),
+                  static_cast<const T*>(k_pages),
+                  static_cast<const T*>(v_pages),
+                  static_cast<const float*>(k_scales),
+                  static_cast<const float*>(v_scales),
+                  static_cast<const int*>(page_table),
+                  static_cast<const int*>(lengths),
+                  static_cast<__nv_bfloat16*>(out),
+                  batch, S, num_kv_heads, page, pages_per_seq, scale};
   auto s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_d<kVerify, 64>(groups, batch, num_kv_heads, S, s, qq, kk,
-                                   vv, pt, ln, oo, page, pages_per_seq, scale);
+      return launch_d<kVerify, T, 64>(groups, a, s);
     case 128:
-      return launch_d<kVerify, 128>(groups, batch, num_kv_heads, S, s, qq, kk,
-                                    vv, pt, ln, oo, page, pages_per_seq, scale);
+      return launch_d<kVerify, T, 128>(groups, a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,12 +7,22 @@
 // offset[c] + t and attends, causally, to the KV positions below
 // kv_valid = offset[c] + lengths[c] that the row's page table maps
 // (position p lives in frame page_rows[c, p / page] at row p % page),
-// optionally inside a sliding window.  Online softmax in f32, bf16 loads,
-// bf16 store.  Query rows t >= lengths[c] are don't-care, as on the TPU.
+// optionally inside a sliding window.  Online softmax in f32, bf16 q and
+// store.  Query rows t >= lengths[c] are don't-care, as on the TPU.
 //
 // Layout: q and out (C, T, H, D), the model layout; k_pages / v_pages
 // (N, page, Hkv, D); page_rows (C, pages_per_seq) int32; offset and
 // lengths (C,) int32.  H = G * Hkv, query head h reads KV head h / G.
+//
+// Entry points: paged_prefill_attention_bf16 for a bf16 pool, and _int8 /
+// _fp8 for the frames of a quantized pool (element types in
+// kv_types.cuh), which take k_scales / v_scales (N, Hkv) f32: the TPU
+// kernel's quantized instance (its scale BlockSpecs at line 257).  Each
+// staged K or V row is multiplied, element by element, by the scale of
+// the frame it was read from (a 32-position tile straddles two frames at
+// page 16), as the plain version dequantizes its gathered view.  No
+// position at or past the tile's last visible one is read, scale
+// included.
 //
 // Design: one block of 256 threads per (64-query tile, query head, chunk
 // row).  Four threads share a query row, each holding a quarter of q and
@@ -36,7 +46,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kv_types.cuh"
+
 namespace {
+
+using repro_kv::load8_dequant;
 
 constexpr int kThreads = 256;
 constexpr int kThreadsPerRow = 4;
@@ -44,31 +58,22 @@ constexpr int kBlockQ = kThreads / kThreadsPerRow;   // 64 query rows
 constexpr int kBlockK = 32;                          // KV positions per tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <int D>
+// KV: the pool's element type (T is the chunk length here).
+template <typename KV, int D>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_rows,
+    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ page_rows,
     const int* __restrict__ offsets, const int* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, int T, int num_heads, int num_kv_heads,
     int page, int pages_per_seq, int window, float scale) {
   constexpr int kChunks = D / 4;                  // float4 chunks per row
   constexpr int kMine = kChunks / kThreadsPerRow; // chunks per thread
-  constexpr int kVecs = D / 8;                    // 16-byte loads per row
+  constexpr int kVecs = D / 8;                    // 8-element loads per row
   __shared__ float4 k_s[kBlockK][kChunks];
   __shared__ float4 v_s[kBlockK][kChunks];
 
@@ -125,8 +130,9 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         const int frame = rows[min(pos / page, pages_per_seq - 1)];
         const long base = (static_cast<long>(frame) * page + pos % page) * row_stride
                           + static_cast<long>(kvh) * D + vec * 8;
-        load8(k_pages + base, kf);
-        load8(v_pages + base, vf);
+        const long si = static_cast<long>(frame) * num_kv_heads + kvh;
+        load8_dequant(k_pages + base, k_scales, si, kf);
+        load8_dequant(v_pages + base, v_scales, si, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
@@ -192,18 +198,24 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int paged_prefill_attention_bf16(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* page_rows, const void* offsets, const void* lengths, void* out,
-    int chunk_rows, int T, int num_heads, int num_kv_heads, int head_dim,
-    int page, int pages_per_seq, int window, float scale, void* stream) {
+// One entry point's body: element type KV of the pool; k_scales /
+// v_scales are null for bf16.
+template <typename KV>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scales, const void* v_scales, const void* page_rows,
+           const void* offsets, const void* lengths, void* out,
+           int chunk_rows, int T_len, int num_heads, int num_kv_heads,
+           int head_dim, int page, int pages_per_seq, int window, float scale,
+           void* stream) {
   if (num_kv_heads <= 0 || num_heads % num_kv_heads) return cudaErrorInvalidValue;
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ, num_heads, chunk_rows);
+  if (repro_kv::Elem<KV>::kScaled && (k_scales == nullptr || v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((T_len + kBlockQ - 1) / kBlockQ, num_heads, chunk_rows);
   auto qq = static_cast<const __nv_bfloat16*>(q);
-  auto kk = static_cast<const __nv_bfloat16*>(k_pages);
-  auto vv = static_cast<const __nv_bfloat16*>(v_pages);
+  auto kk = static_cast<const KV*>(k_pages);
+  auto vv = static_cast<const KV*>(v_pages);
+  auto ks = static_cast<const float*>(k_scales);
+  auto vs = static_cast<const float*>(v_scales);
   auto pr = static_cast<const int*>(page_rows);
   auto of = static_cast<const int*>(offsets);
   auto ln = static_cast<const int*>(lengths);
@@ -211,20 +223,51 @@ extern "C" int paged_prefill_attention_bf16(
   auto s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      paged_prefill_kernel<64><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, pr, of, ln, oo, T, num_heads, num_kv_heads, page,
-          pages_per_seq, window, scale);
+      paged_prefill_kernel<KV, 64><<<grid, kThreads, 0, s>>>(
+          qq, kk, vv, ks, vs, pr, of, ln, oo, T_len, num_heads, num_kv_heads,
+          page, pages_per_seq, window, scale);
       break;
     case 128:
-      paged_prefill_kernel<128><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, pr, of, ln, oo, T, num_heads, num_kv_heads, page,
-          pages_per_seq, window, scale);
+      paged_prefill_kernel<KV, 128><<<grid, kThreads, 0, s>>>(
+          qq, kk, vv, ks, vs, pr, of, ln, oo, T_len, num_heads, num_kv_heads,
+          page, pages_per_seq, window, scale);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
+
+}  // namespace
+
+extern "C" int paged_prefill_attention_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_rows, const void* offsets, const void* lengths, void* out,
+    int chunk_rows, int T, int num_heads, int num_kv_heads, int head_dim,
+    int page, int pages_per_seq, int window, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
+                               page_rows, offsets, lengths, out, chunk_rows, T,
+                               num_heads, num_kv_heads, head_dim, page,
+                               pages_per_seq, window, scale, stream);
+}
+
+// The quantized pool's instances: k_scales / v_scales (N, Hkv) f32.
+#define REPRO_QUANT_ENTRY(SUFFIX, ELEM)                                       \
+  extern "C" int paged_prefill_attention_##SUFFIX(                            \
+      const void* q, const void* k_pages, const void* v_pages,                \
+      const void* k_scales, const void* v_scales, const void* page_rows,      \
+      const void* offsets, const void* lengths, void* out, int chunk_rows,    \
+      int T, int num_heads, int num_kv_heads, int head_dim, int page,         \
+      int pages_per_seq, int window, float scale, void* stream) {             \
+    return launch<ELEM>(q, k_pages, v_pages, k_scales, v_scales, page_rows,   \
+                        offsets, lengths, out, chunk_rows, T, num_heads,      \
+                        num_kv_heads, head_dim, page, pages_per_seq, window,  \
+                        scale, stream);                                       \
+  }
+
+REPRO_QUANT_ENTRY(int8, int8_t)
+REPRO_QUANT_ENTRY(fp8, __nv_fp8_e4m3)
+#undef REPRO_QUANT_ENTRY
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

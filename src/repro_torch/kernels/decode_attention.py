@@ -14,13 +14,20 @@ design notes there), both bound by the bytes of K/V they read:
     masked by its own length; row s is bitwise the decode kernel at
     ``lengths[:, s]``.
 
+Each has one entry point per pool element type: bf16, and the int8 and
+fp8 (e4m3) frames of a quantized pool, which take the per-(frame, KV
+head) f32 scales ``k_scales``/``v_scales`` (N, Hkv) beside the pool and
+dequantize each K/V element as it is loaded — the TPU kernels'
+quantized instances (their scale BlockSpecs at lines 234 and 377).
+
 :func:`paged_decode_attention_torch` and
 :func:`paged_verify_attention_torch` are the plain PyTorch versions:
 gather the page-table view of the pool, then run
 :func:`one_token_attention` / :func:`multi_token_attention` — the
 expressions of the JAX package's XLA paths (``kernels/ops.py:98-112`` and
-``:131-147``).  The CPU tests run them, and ``chip_smoke.py`` holds the
-kernels against them on the card.
+``:131-147``), which dequantize the gathered view of a quantized pool
+(``k.float() * ks``) first.  The CPU tests run them, and
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -30,21 +37,27 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operand
+from repro_torch.kernels.build import (POOL_DTYPES, check_operand,
+                                      kernel_per_dtype, scale_pointers)
 
 __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
            "paged_decode_attention_torch", "paged_decode_attention_cuda",
            "paged_verify_attention_torch", "paged_verify_attention_cuda",
-           "KERNEL", "VERIFY_KERNEL"]
+           "KERNEL", "VERIFY_KERNEL", "KERNELS", "VERIFY_KERNELS"]
 
 NEG_INF = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("paged_decode.cu", "paged_decode_attention_bf16",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-VERIFY_KERNEL = CudaKernel("paged_verify.cu", "paged_verify_attention_bf16",
+#: entry point per pool dtype; the int8/fp8 ones take k_scales, v_scales
+#: after v_pages
+KERNELS = kernel_per_dtype("paged_decode.cu", "paged_decode_attention",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _P])
+                            _F, _P])
+VERIFY_KERNELS = kernel_per_dtype("paged_verify.cu", "paged_verify_attention",
+                                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _P])
+KERNEL = KERNELS[torch.bfloat16]
+VERIFY_KERNEL = VERIFY_KERNELS[torch.bfloat16]
 _GROUPS = (1, 2, 3, 4, 6, 8)
 _HEAD_DIMS = (64, 128)
 
@@ -91,49 +104,67 @@ def multi_token_attention(q, kc, vc, valid, num_kv_heads: int):
                       for s in range(q.shape[1])], dim=1)
 
 
-def _gather_pages(pool, page_table):
-    """(B, pages_per_seq * page, Hkv, D) dense view of ``pool``."""
+def gather_pages(pool, page_table, scales=None):
+    """(rows, pages_per_seq * page, Hkv, D) dense view of ``pool`` through
+    ``page_table`` (rows, pages_per_seq).  With ``scales`` (N, Hkv) the
+    pool is quantized: the view is gathered as bytes and dequantized,
+    ``pool.float() * scales`` per (frame, KV head), in f32."""
     _, page, hkv, d = pool.shape
-    return pool[page_table.long()].reshape(page_table.shape[0], -1, hkv, d)
+    idx = page_table.long()
+    if scales is None:
+        x = pool[idx]
+    else:
+        x = pool.view(torch.uint8)[idx].view(pool.dtype).float() \
+            * scales[idx][:, :, None, :, None]
+    return x.reshape(page_table.shape[0], -1, hkv, d)
 
 
-def paged_decode_attention_torch(q, k_pages, v_pages, page_table, lengths):
+def paged_decode_attention_torch(q, k_pages, v_pages, page_table, lengths,
+                                 k_scales=None, v_scales=None):
     """Plain version: q (B, H, D); k/v_pages (N, page, Hkv, D);
-    page_table (B, pages_per_seq) frame ids; lengths (B,) valid KV."""
+    page_table (B, pages_per_seq) frame ids; lengths (B,) valid KV;
+    ``k_scales``/``v_scales`` (N, Hkv) for an int8/fp8 pool."""
     B, H, D = q.shape
     Hkv = k_pages.shape[2]
-    out = one_token_attention(q, _gather_pages(k_pages, page_table),
-                              _gather_pages(v_pages, page_table), lengths,
-                              Hkv)
+    out = one_token_attention(q, gather_pages(k_pages, page_table, k_scales),
+                              gather_pages(v_pages, page_table, v_scales),
+                              lengths, Hkv)
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def paged_verify_attention_torch(q, k_pages, v_pages, page_table, lengths):
+def paged_verify_attention_torch(q, k_pages, v_pages, page_table, lengths,
+                                 k_scales=None, v_scales=None):
     """Plain version: q (B, S, H, D); k/v_pages (N, page, Hkv, D);
     page_table (B, pages_per_seq) frame ids; lengths (B, S) valid KV per
-    row.  A row with ``lengths == 0`` returns the uniform average of the
-    gathered values (the kernel returns zeros); callers never read it."""
+    row; scales as for decode.  A row with ``lengths == 0`` returns the
+    uniform average of the gathered values (the kernel returns zeros);
+    callers never read it."""
     B, S, H, D = q.shape
     Hkv = k_pages.shape[2]
-    out = multi_token_attention(q, _gather_pages(k_pages, page_table),
-                                _gather_pages(v_pages, page_table), lengths,
-                                Hkv)
+    out = multi_token_attention(q, gather_pages(k_pages, page_table, k_scales),
+                                gather_pages(v_pages, page_table, v_scales),
+                                lengths, Hkv)
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def _launch(kernel, name, q, k_pages, v_pages, page_table, lengths, *,
-            verify: bool):
-    """Check the operands of the decode / verify kernel (bf16 q and pool,
-    int32 table and lengths; q (B, H, D) and lengths (B,) for decode,
-    q (B, S, H, D) and lengths (B, S) for verify), allocate the output,
-    launch."""
+def _launch(kernels, name, q, k_pages, v_pages, page_table, lengths,
+            k_scales, v_scales, *, verify: bool):
+    """Check the operands of the decode / verify kernel (bf16 q; a bf16,
+    int8 or fp8 pool, with (N, Hkv) f32 scales for the last two; int32
+    table and lengths; q (B, H, D) and lengths (B,) for decode,
+    q (B, S, H, D) and lengths (B, S) for verify), pick the entry point
+    by pool dtype, allocate the output, launch."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     dev = q.device
     ndim = 4 if verify else 3
+    if k_pages.dtype not in POOL_DTYPES:
+        raise TypeError(f"k_pages has dtype {k_pages.dtype}, expected one "
+                        f"of {POOL_DTYPES}")
     check_operand("q", q, torch.bfloat16, ndim, dev)
-    check_operand("k_pages", k_pages, torch.bfloat16, 4, dev)
-    check_operand("v_pages", v_pages, torch.bfloat16, 4, dev)
+    check_operand("k_pages", k_pages, k_pages.dtype, 4, dev)
+    check_operand("v_pages", v_pages, k_pages.dtype, 4, dev)
+    scale_ptrs = scale_pointers(k_scales, v_scales, dev)
     check_operand("page_table", page_table, torch.int32, 2, dev)
     check_operand("lengths", lengths, torch.int32, ndim - 2, dev)
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -152,21 +183,26 @@ def _launch(kernel, name, q, k_pages, v_pages, page_table, lengths, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = (q.shape[1],) if verify else ()
     with torch.cuda.device(dev):
-        kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      page_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), B, *rows, H, Hkv, D, page,
-                      page_table.shape[1], 1.0 / math.sqrt(D), stream)
+        kernels[k_pages.dtype].launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            *scale_ptrs, page_table.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, *rows, H, Hkv, D, page, page_table.shape[1],
+            1.0 / math.sqrt(D), stream)
     return out
 
 
-def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths):
+def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
+                                k_scales=None, v_scales=None):
     """Launch the decode kernel: q (B, H, D) bf16, lengths (B,) int32."""
-    return _launch(KERNEL, "paged_decode_attention_cuda", q, k_pages,
-                   v_pages, page_table, lengths, verify=False)
+    return _launch(KERNELS, "paged_decode_attention_cuda", q, k_pages,
+                   v_pages, page_table, lengths, k_scales, v_scales,
+                   verify=False)
 
 
-def paged_verify_attention_cuda(q, k_pages, v_pages, page_table, lengths):
+def paged_verify_attention_cuda(q, k_pages, v_pages, page_table, lengths,
+                                k_scales=None, v_scales=None):
     """Launch the verify kernel: q (B, S, H, D) bf16, lengths (B, S)
     int32."""
-    return _launch(VERIFY_KERNEL, "paged_verify_attention_cuda", q, k_pages,
-                   v_pages, page_table, lengths, verify=True)
+    return _launch(VERIFY_KERNELS, "paged_verify_attention_cuda", q,
+                   k_pages, v_pages, page_table, lengths, k_scales, v_scales,
+                   verify=True)

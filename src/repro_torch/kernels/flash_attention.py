@@ -4,13 +4,17 @@ The CUDA kernel (``csrc/paged_prefill.cu``) replaces the TPU kernel
 ``paged_prefill_flash`` of ``src/repro/kernels/flash_attention.py``
 (``_paged_prefill_kernel``, its ``pallas_call`` at line 279).  At the
 main path's shapes it is bound by operations; its design notes are in the
-source.
+source.  It has one entry point per pool element type: bf16, and the
+int8 and fp8 frames of a quantized pool, which take the per-(frame, KV
+head) f32 scales (the TPU kernel's quantized instance, its scale
+BlockSpecs at line 257) and dequantize each K/V element as it is staged.
 
 :func:`paged_prefill_attention_torch` is the plain PyTorch version of the
 same function: gather each chunk row's page-table view of the pool, then
 run :func:`chunked_attention` with a per-row ``q_offset`` — the
 expressions of the JAX package's XLA path (``kernels/ops.py:171-185``,
-the grouped f32-operand branch of ``models/attention.py::_chunked_core``).
+the grouped f32-operand branch of ``models/attention.py::_chunked_core``),
+on the dequantized view of a quantized pool.
 The CPU tests run it, and ``chip_smoke.py`` holds the kernel against it
 on the card.
 """
@@ -22,16 +26,20 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operand
-from repro_torch.kernels.decode_attention import NEG_INF
+from repro_torch.kernels.build import (POOL_DTYPES, check_operand,
+                                      kernel_per_dtype, scale_pointers)
+from repro_torch.kernels.decode_attention import NEG_INF, gather_pages
 
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
-           "paged_prefill_attention_cuda", "KERNEL"]
+           "paged_prefill_attention_cuda", "KERNEL", "KERNELS"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("paged_prefill.cu", "paged_prefill_attention_bf16",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _F, _P])
+#: entry point per pool dtype; the int8/fp8 ones take k_scales, v_scales
+#: after v_pages
+KERNELS = kernel_per_dtype("paged_prefill.cu", "paged_prefill_attention",
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _P])
+KERNEL = KERNELS[torch.bfloat16]
 _HEAD_DIMS = (64, 128)
 
 
@@ -86,28 +94,34 @@ def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
 
 
 def paged_prefill_attention_torch(q, k_pages, v_pages, page_rows, offset,
-                                  lengths, *, window: int = 0):
+                                  lengths, *, window: int = 0,
+                                  k_scales=None, v_scales=None):
     """Plain version: q (C, T, H, D); k/v_pages (N, page, Hkv, D);
-    page_rows (C, pages_per_seq); offset / lengths (C,).  Rows at or past
-    ``lengths`` are don't-care, as in the kernel."""
-    C, T, H, D = q.shape
-    _, page, Hkv, _ = k_pages.shape
-    idx = page_rows.long()
-    k = k_pages[idx].reshape(C, -1, Hkv, D)        # (C, pps * page, Hkv, D)
-    v = v_pages[idx].reshape(C, -1, Hkv, D)
+    page_rows (C, pages_per_seq); offset / lengths (C,);
+    ``k_scales``/``v_scales`` (N, Hkv) for an int8/fp8 pool.  Rows at or
+    past ``lengths`` are don't-care, as in the kernel."""
+    k = gather_pages(k_pages, page_rows, k_scales)   # (C, pps * page, Hkv, D)
+    v = gather_pages(v_pages, page_rows, v_scales)
     return chunked_attention(q, k, v, q_offset=offset, causal=True,
                              window=window)
 
 
 def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
-                                 lengths, *, window: int = 0):
-    """Launch the CUDA kernel (bf16 q and pool, int32 rows/offset/lengths)."""
+                                 lengths, *, window: int = 0,
+                                 k_scales=None, v_scales=None):
+    """Launch the CUDA kernel (bf16 q; a bf16 pool, or an int8/fp8 pool
+    with (N, Hkv) f32 scales; int32 rows/offset/lengths), the entry
+    point picked by pool dtype."""
     if not q.is_cuda:
         raise ValueError("paged_prefill_attention_cuda needs CUDA tensors")
     dev = q.device
+    if k_pages.dtype not in POOL_DTYPES:
+        raise TypeError(f"k_pages has dtype {k_pages.dtype}, expected one "
+                        f"of {POOL_DTYPES}")
     check_operand("q", q, torch.bfloat16, 4, dev)
-    check_operand("k_pages", k_pages, torch.bfloat16, 4, dev)
-    check_operand("v_pages", v_pages, torch.bfloat16, 4, dev)
+    check_operand("k_pages", k_pages, k_pages.dtype, 4, dev)
+    check_operand("v_pages", v_pages, k_pages.dtype, 4, dev)
+    scale_ptrs = scale_pointers(k_scales, v_scales, dev)
     check_operand("page_rows", page_rows, torch.int32, 2, dev)
     check_operand("offset", offset, torch.int32, 1, dev)
     check_operand("lengths", lengths, torch.int32, 1, dev)
@@ -125,9 +139,9 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      page_rows.data_ptr(), offset.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), C, T, H, Hkv, D,
-                      page, page_rows.shape[1], int(window),
-                      1.0 / math.sqrt(D), stream)
+        KERNELS[k_pages.dtype].launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            *scale_ptrs, page_rows.data_ptr(), offset.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), C, T, H, Hkv, D, page,
+            page_rows.shape[1], int(window), 1.0 / math.sqrt(D), stream)
     return out

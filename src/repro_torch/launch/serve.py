@@ -10,9 +10,10 @@ per knob, help text included), including ``--device {cuda,cpu}``
 (default ``cuda``).  The weights
 are random, drawn from ``--seed`` on the device; ``--smoke`` picks the
 architecture's reduced config.  ``--speculate-k K`` turns on
-self-speculative verify-K decode.  Options the port does not serve yet
-(other roles, prefix cache, quantized pool) raise
-``NotImplementedError`` from the engine.
+self-speculative verify-K decode, and ``--kv-quant {int8,fp8}`` the
+quantized page pool (int8 / fp8 frames with per-(frame, KV head)
+scales).  Options the port does not serve yet (other roles, prefix
+cache) raise ``NotImplementedError`` from the engine.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def _report(eng, econf, out, wall) -> None:
         print(f"[serve] mean TTFT {np.mean(ttft)*1e3:.0f} ms, "
               f"mean latency {np.mean(lat)*1e3:.0f} ms (virtual clock)")
     print(f"[serve] page pool {eng.page_pool.n_pages} x "
-          f"{eng.page_size} tok: preemptions {eng.stats['preemptions']}, "
+          f"{eng.page_size} tok, {eng.cache.kv['k_pages'].dtype} frames of "
+          f"{eng.pager.page_nbytes} B: preemptions {eng.stats['preemptions']}, "
           f"resumes {eng.stats['resumes']}, pager {dict(eng.pager.stats)}")
     print(f"[serve] chunked prefill: {eng.stats['chunks']} chunks of "
           f"<= {eng.chunk_tokens} tok across "

@@ -16,6 +16,12 @@ of verify rows past a slot's draft and of positions past the slot's
 capacity.  Only the trash frame ever receives the same (frame, row)
 twice in one ``index_put_``, whose order on CUDA is unspecified —
 harmless, since the trash frame is never read unmasked.
+
+A quantized pool (int8 / fp8 frames) comes with per-(frame, KV head) f32
+scales, handed to each block as ``scales=(k_scales, v_scales)`` of the
+layer, (N, Hkv); its scatters are the quantize-and-scatter of
+:mod:`repro_torch.kernels.kv_quant` (in place, scales too), and the
+attention ops dequantize with the scales.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF, one_token_attention
 from repro_torch.kernels.flash_attention import chunked_attention
+from repro_torch.kernels.kv_quant import (KVQuantConfig, quant_scatter_multi,
+                                          quant_scatter_token)
 from repro_torch.models.layers import dense, rms_norm, rope
 
 __all__ = ["init_paged_kv_cache", "paged_decode_attention_block",
@@ -35,6 +43,7 @@ __all__ = ["init_paged_kv_cache", "paged_decode_attention_block",
            "chunked_attention", "NEG_INF"]
 
 Params = Dict[str, torch.Tensor]
+Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
@@ -59,25 +68,66 @@ def _position_encode(cfg: ModelConfig, q, k, positions):
 def init_paged_kv_cache(cfg: ModelConfig, n_frames: int, page_size: int,
                         batch: int, max_len: int, *, device,
                         n_layers: Optional[int] = None,
-                        dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+                        dtype=torch.bfloat16,
+                        quant=None) -> Dict[str, torch.Tensor]:
     """KV cache in the device-pool layout: ``k_pages``/``v_pages`` of
     shape (L, n_frames, page, Hkv, D) — one frame holds a page's K or V
     for every layer — and the per-slot ``page_table`` (batch,
     pages_per_seq) int32, initialised to the trash frame ``n_frames - 1``.
-    The per-sequence capacity must be a multiple of ``page_size``."""
+    The per-sequence capacity must be a multiple of ``page_size``.
+
+    ``quant`` (a :class:`KVQuantConfig` or mode name) makes the frames
+    int8 / fp8 and adds ``k_scales``/``v_scales`` (L, n_frames, Hkv) f32,
+    zeros; the keys are absent in ``none`` mode, so the bf16 cache is the
+    same dict as without quantization."""
     L = n_layers if n_layers is not None else cfg.num_layers
     slots = min(max_len, cfg.window) if cfg.attention == "swa" else max_len
     if slots % page_size:
         raise ValueError(
             f"page_size {page_size} must divide the per-sequence token "
             f"capacity {slots} for the paged decode layout")
+    quant = KVQuantConfig.from_name(quant)
+    if quant.enabled:
+        dtype = quant.dtype
     shape = (L, n_frames, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    out = {
         "k_pages": torch.zeros(shape, dtype=dtype, device=device),
         "v_pages": torch.zeros(shape, dtype=dtype, device=device),
         "page_table": torch.full((batch, slots // page_size), n_frames - 1,
                                  dtype=torch.int32, device=device),
     }
+    if quant.enabled:
+        sshape = (L, n_frames, cfg.num_kv_heads)
+        out["k_scales"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+        out["v_scales"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+    return out
+
+
+def _scatter(kp, vp, scales: Scales, k_new, v_new, frame, row,
+             window=None) -> None:
+    """Write K/V into the layer's pool at (frame, row), in place; into a
+    quantized pool through the quantize-and-scatter: one token per slot
+    (decode), or, with ``window = (page_rows, page_idx, ok)``, a window of
+    tokens per row (prefill chunk, verify rows)."""
+    if scales is None:
+        kp.index_put_((frame, row), k_new.to(kp.dtype))
+        vp.index_put_((frame, row), v_new.to(vp.dtype))
+        return
+    qcfg = KVQuantConfig.from_dtype(kp.dtype)
+    for pages, sc, new in ((kp, scales[0], k_new), (vp, scales[1], v_new)):
+        if window is None:
+            quant_scatter_token(pages, sc, new, frame, row, qcfg)
+        else:
+            page_rows, page_idx, ok = window
+            quant_scatter_multi(pages, sc, new, page_rows, page_idx, row, ok,
+                                frame, qcfg)
+
+
+def _scale_kw(scales: Scales) -> Dict[str, torch.Tensor]:
+    return {} if scales is None else {"k_scales": scales[0],
+                                      "v_scales": scales[1]}
 
 
 def paged_decode_attention_block(
@@ -90,6 +140,7 @@ def paged_decode_attention_block(
     *,
     compute_dtype,
     impl: str = "auto",
+    scales: Scales = None,               # (k, v) scales (N, Hkv), quantized
 ) -> torch.Tensor:
     """One-token attention on the paged layout: scatter the new token's
     K/V into its mapped frame (in place), attend through the page table,
@@ -104,11 +155,10 @@ def paged_decode_attention_block(
             else torch.clamp(pos, max=slots - 1)).long()
     frame = page_table[torch.arange(B, device=x.device), slot // page].long()
     row = slot % page
-    kp.index_put_((frame, row), k_new[:, 0].to(kp.dtype))
-    vp.index_put_((frame, row), v_new[:, 0].to(vp.dtype))
+    _scatter(kp, vp, scales, k_new[:, 0], v_new[:, 0], frame, row)
     valid = torch.clamp(pos + 1, max=slots)       # (B,) int32
     out = ops.paged_decode_attention(q[:, 0], kp, vp, page_table, valid,
-                                     impl=impl)
+                                     impl=impl, **_scale_kw(scales))
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim).to(compute_dtype)
     return dense(p["o"], out, compute_dtype)
 
@@ -124,6 +174,7 @@ def paged_verify_block(
     *,
     compute_dtype,
     impl: str = "auto",
+    scales: Scales = None,
 ) -> torch.Tensor:
     """Verify-K attention for self-speculative decode on the paged pool:
     :func:`paged_decode_attention_block` with ``S = K + 1`` query rows per
@@ -153,11 +204,12 @@ def paged_verify_block(
     frame = torch.where(ok, torch.gather(page_table, 1, page_idx.long()),
                         trash).long()
     row = (abs_pos % page).long()
-    kp.index_put_((frame, row), k_new.to(kp.dtype))
-    vp.index_put_((frame, row), v_new.to(vp.dtype))
+    _scatter(kp, vp, scales, k_new, v_new, frame, row,
+             (page_table, page_idx, ok))
     valid = torch.clamp(abs_pos + 1, max=slots)              # (B, S)
 
-    out = ops.paged_verify_attention(q, kp, vp, page_table, valid, impl=impl)
+    out = ops.paged_verify_attention(q, kp, vp, page_table, valid, impl=impl,
+                                     **_scale_kw(scales))
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(compute_dtype)
     return dense(p["o"], out, compute_dtype)
 
@@ -174,6 +226,7 @@ def paged_prefill_block(
     *,
     compute_dtype,
     impl: str = "auto",
+    scales: Scales = None,
 ) -> torch.Tensor:
     """One prompt chunk per row on the paged layout: scatter the chunk's
     K/V into its mapped frames (in place; padding and out-of-capacity
@@ -197,11 +250,12 @@ def paged_prefill_block(
     frame = torch.where(ok, torch.gather(page_rows, 1, page_idx.long()),
                         trash).long()
     row = (abs_pos % page).long()
-    kp.index_put_((frame, row), k_new.to(kp.dtype))
-    vp.index_put_((frame, row), v_new.to(vp.dtype))
+    _scatter(kp, vp, scales, k_new, v_new, frame, row,
+             (page_rows, page_idx, ok))
 
     out = ops.paged_prefill_attention(
         q, kp, vp, page_rows, offset, length,
-        window=cfg.window if cfg.attention == "swa" else 0, impl=impl)
+        window=cfg.window if cfg.attention == "swa" else 0, impl=impl,
+        **_scale_kw(scales))
     out = out.reshape(C, T, cfg.num_heads * cfg.head_dim).to(compute_dtype)
     return dense(p["o"], out, compute_dtype)

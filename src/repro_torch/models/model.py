@@ -106,21 +106,26 @@ def _layer(tree: Params, l: int) -> Params:
 
 class PagedCache(NamedTuple):
     """Decode-time state with the attention KV in the paged pool layout:
-    ``kv`` holds ``k_pages``/``v_pages`` (L, n_frames, page, Hkv, D) and
-    the per-slot ``page_table`` (B, pages_per_seq) int32; ``pos`` (B,)
-    int32 is each slot's next absolute position."""
+    ``kv`` holds ``k_pages``/``v_pages`` (L, n_frames, page, Hkv, D), the
+    per-slot ``page_table`` (B, pages_per_seq) int32 and, for an int8 /
+    fp8 pool only, ``k_scales``/``v_scales`` (L, n_frames, Hkv) f32;
+    ``pos`` (B,) int32 is each slot's next absolute position."""
 
     kv: Dict[str, torch.Tensor]
     pos: torch.Tensor
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     n_frames: int, page_size: int, *, device) -> PagedCache:
+                     n_frames: int, page_size: int, *, device,
+                     quant=None) -> PagedCache:
     """Frame ``n_frames - 1`` is the trash frame: unmapped page-table
-    entries (and every entry of an empty decode slot) point there."""
+    entries (and every entry of an empty decode slot) point there.
+    ``quant`` (a :class:`~repro_torch.kernels.kv_quant.KVQuantConfig` or
+    mode name) makes the pool int8 / fp8 with scales beside it;
+    ``None``/"none" keeps the bf16 pool with no scale keys."""
     _check_family(cfg)
     kv = init_paged_kv_cache(cfg, n_frames, page_size, batch, max_len,
-                             device=device)
+                             device=device, quant=quant)
     return PagedCache(kv=kv, pos=torch.zeros((batch,), dtype=torch.int32,
                                              device=device))
 
@@ -128,15 +133,19 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: PagedCache, attn: Callable, cdt) -> torch.Tensor:
     """The dense layer stack shared by one-token decode, speculative
-    verify and chunked prefill; ``attn(p, h, k_layer, v_layer)`` runs
-    one attention block on the pre-normed hidden ``h`` against that
-    layer's pool view."""
-    kp, vp = cache.kv["k_pages"], cache.kv["v_pages"]
+    verify and chunked prefill; ``attn(p, h, k_layer, v_layer, scales)``
+    runs one attention block on the pre-normed hidden ``h`` against that
+    layer's pool view (``scales`` the layer's (k, v) scale rows of a
+    quantized pool, else None)."""
+    kv = cache.kv
+    kp, vp = kv["k_pages"], kv["v_pages"]
+    ks, vs = kv.get("k_scales"), kv.get("v_scales")
     layers = params["layers"]
     for l in range(cfg.num_layers):
         lp = _layer(layers, l)
+        scales = None if ks is None else (ks[l], vs[l])
         x = x + attn(lp["attn"], rms_norm(lp["attn_norm"], x, cfg.norm_eps),
-                     kp[l], vp[l])
+                     kp[l], vp[l], scales)
         h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + swiglu(lp["mlp"], h, cdt)
     return x
@@ -163,9 +172,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PagedCache,
     pt = cache.kv["page_table"]
     x = embed(params["embed"], tokens, cdt)
 
-    def attn(p, h, kl, vl):
+    def attn(p, h, kl, vl, scales):
         return paged_decode_attention_block(p, cfg, h, (kl, vl), pt, pos,
-                                            compute_dtype=cdt, impl=impl)
+                                            compute_dtype=cdt, impl=impl,
+                                            scales=scales)
 
     x = _decode_families(params, cfg, x, cache, attn, cdt)
     return _logits(params, cfg, x, cdt)[:, 0], cache._replace(pos=pos + 1)
@@ -194,9 +204,10 @@ def verify_step(params: Params, cfg: ModelConfig, cache: PagedCache,
     pt = cache.kv["page_table"]
     x = embed(params["embed"], tokens, cdt)
 
-    def attn(p, h, kl, vl):
+    def attn(p, h, kl, vl, scales):
         return paged_verify_block(p, cfg, h, (kl, vl), pt, pos, length,
-                                  compute_dtype=cdt, impl=impl)
+                                  compute_dtype=cdt, impl=impl,
+                                  scales=scales)
 
     x = _decode_families(params, cfg, x, cache, attn, cdt)
     return _logits(params, cfg, x, cdt), cache
@@ -223,10 +234,10 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
     positions = offset[:, None] + torch.arange(T, dtype=torch.int32,
                                                device=toks.device)[None, :]
 
-    def attn(p, h, kl, vl):
+    def attn(p, h, kl, vl, scales):
         return paged_prefill_block(p, cfg, h, (kl, vl), page_rows, offset,
                                    length, positions, compute_dtype=cdt,
-                                   impl=impl)
+                                   impl=impl, scales=scales)
 
     x = _decode_families(params, cfg, x, cache, attn, cdt)
     idx = torch.clamp(length - 1, 0, T - 1).long()

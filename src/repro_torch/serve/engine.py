@@ -33,6 +33,12 @@ The host logic (pool, page table, pager, far tier, virtual clock,
 scheduling policy) is a copy of the JAX package's, so on the same
 weights both engines make the same scheduling decisions.  Options this
 port does not serve yet raise ``NotImplementedError``.
+
+With ``paging.kv_quant`` int8 or fp8 the pool's frames are quantized with
+per-(frame, KV head) scales (:mod:`repro_torch.kernels.kv_quant`): a
+frame is about half the bytes of a bf16 one, so a byte budget holds
+twice the frames and every park or resume moves half the bytes; the
+scales ride every page transfer beside the frame's bytes.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.kv_quant import KVQuantConfig
 from repro_torch.models.model import (cast_params, init_paged_cache,
                                       torch_dtype)
 from repro_torch.obs import (MetricsRegistry, Tracer, to_chrome_trace,
@@ -63,8 +70,37 @@ from repro_torch.steps import make_mixed_step, make_serve_step
 
 __all__ = ["Request", "Engine"]
 
-#: the K/V pool's dtype (the JAX package's ``init_paged_kv_cache`` default)
+#: the K/V pool's dtype without quantization (the JAX package's
+#: ``init_paged_kv_cache`` default)
 POOL_DTYPE = torch.bfloat16
+
+
+def _check_quant(cfg: ModelConfig, pg, kv_quant: KVQuantConfig) -> None:
+    """The JAX engine's two rules for a quantized pool
+    (``repro/serve/engine.py:241-252``), checked first, as there."""
+    if not kv_quant.enabled:
+        return
+    if pg.enabled is False:
+        raise PagingError(
+            "kv_quant requires the paged engine: quantized frames live in "
+            "the device page pool")
+    if cfg.family not in ("dense", "moe") or cfg.attention == "swa":
+        raise PagingError(
+            "kv_quant supports global-attention dense/moe families "
+            "(append-only KV; a SWA ring wrap would rewrite rows under a "
+            f"stale frame scale); got family={cfg.family!r} "
+            f"attention={cfg.attention!r}")
+
+
+def _page_nbytes(cfg: ModelConfig, page_size: int,
+                kv_quant: KVQuantConfig) -> int:
+    """Bytes of one page frame, K + V of every layer — the unit the pager
+    moves; a quantized frame adds its (L, Hkv) f32 scale pair."""
+    kv = 2 * cfg.num_layers * page_size * cfg.num_kv_heads * cfg.head_dim
+    if kv_quant.enabled:
+        return int(kv * kv_quant.itemsize + 2 * cfg.num_layers
+                   * cfg.num_kv_heads * 4)
+    return int(kv * POOL_DTYPE.itemsize)
 
 
 def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
@@ -73,7 +109,6 @@ def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
     unported = {
         "role != 'fused'": ec.role != EngineRole.FUSED.value,
         "prefix_cache": ck.prefix_cache,
-        "kv_quant != 'none'": pg.kv_quant != "none",
         "paging.enabled=False (the dense per-slot cache)":
             pg.enabled is False,
         "offload_finished": pg.offload_finished,
@@ -110,8 +145,14 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
     def __init__(self, cfg: ModelConfig, params,
                  config: Optional[EngineConfig] = None):
         ec = config or EngineConfig()
-        _check_supported(cfg, ec)
         pg, ck, sc = ec.paging, ec.chunking, ec.scheduler
+        # quantized paged frames (int8/fp8 + per-(frame, head) scales):
+        # resolved up front so the pool dtype, the page byte accounting
+        # and the far-tier payloads agree; "none" keeps the bf16 pool with
+        # no scale tensors
+        self.kv_quant = KVQuantConfig.from_name(pg.kv_quant)
+        _check_quant(cfg, pg, self.kv_quant)
+        _check_supported(cfg, ec)
         max_batch, max_len = ec.max_batch, ec.max_len
         self.device = torch.device(ec.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -155,17 +196,15 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.pages_per_seq = self.slot_tokens // page_size
         n_pages = pg.device_pages if pg.device_pages is not None \
             else max_batch * self.pages_per_seq
-        # K + V of every layer for one page: the unit the pager moves
-        page_nbytes = int(2 * cfg.num_layers * page_size * cfg.num_kv_heads
-                          * cfg.head_dim * POOL_DTYPE.itemsize)
+        nbytes = _page_nbytes(cfg, page_size, self.kv_quant)
         self.page_pool = PagePool(n_pages, page_size)
         self.page_table = PageTable(self.page_pool)
         if pg.pager_factory is not None:
             self.pager = pg.pager_factory(self.page_pool, self.page_table,
-                                          page_nbytes=page_nbytes)
+                                          page_nbytes=nbytes)
         else:
             self.pager = Pager(self.page_pool, self.page_table,
-                               page_nbytes=page_nbytes)
+                               page_nbytes=nbytes)
         if self.pager.read_frame is None:        # keep a factory's hook
             self.pager.read_frame = self._read_frame
         self.pager.bind_obs(self.metrics, self.tracer)
@@ -177,7 +216,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.cache = init_paged_cache(cfg, max_batch, max_len,
                                       n_frames=n_pages + 1,
                                       page_size=page_size,
-                                      device=self.device)
+                                      device=self.device,
+                                      quant=self.kv_quant)
         self._pt_np = np.full((max_batch, self.pages_per_seq),
                               self.trash_frame, np.int32)
         self._pt_dirty = True

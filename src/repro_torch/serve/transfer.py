@@ -9,9 +9,12 @@ device operations are rewritten onto tensors —
 
   * :meth:`_read_frame` copies one frame of every layer, (L, page, Hkv,
     D) of K and of V, from the device pool to host memory: the page
-    payload the pager's astores park in the far tier;
+    payload the pager's astores park in the far tier; a quantized pool's
+    payload also carries the frame's (L, Hkv) f32 ``k_scale`` /
+    ``v_scale``, and its int8 / fp8 bytes move as ``uint8``;
   * :meth:`_land_frame` copies such a payload back into its frame, in
-    place (the JAX package scatters into a donated pool instead).
+    place (the JAX package scatters into a donated pool instead): a byte
+    copy, never a requantization.
 
 The mixin assumes the host class provides the engine state surface
 (``page_pool``/``page_table``/``pager``/``cache``/``sched``/…) —
@@ -37,22 +40,34 @@ class TransferMixin:
     Engine`."""
 
     # -- paged device-pool plumbing -------------------------------------------
-    def _read_frame(self, phys: int) -> Dict[str, torch.Tensor]:
-        """Copy one frame's content (L, page, Hkv, D) to host memory —
-        the page-granularity transfer unit the pager's astores move."""
+    def _frame_views(self, phys: int) -> Dict[str, torch.Tensor]:
+        """Payload key -> the device view of frame ``phys`` it copies:
+        (L, page, Hkv, D) of K and V (as ``uint8`` for an int8 / fp8
+        pool) and, quantized, the (L, Hkv) scale rows."""
         kv = self.cache.kv
-        return {"k": kv["k_pages"][:, phys].to("cpu", copy=True),
-                "v": kv["v_pages"][:, phys].to("cpu", copy=True)}
+        if "k_scales" not in kv:
+            return {"k": kv["k_pages"][:, phys], "v": kv["v_pages"][:, phys]}
+        return {"k": kv["k_pages"][:, phys].view(torch.uint8),
+                "v": kv["v_pages"][:, phys].view(torch.uint8),
+                "k_scale": kv["k_scales"][:, phys],
+                "v_scale": kv["v_scales"][:, phys]}
+
+    def _read_frame(self, phys: int) -> Dict[str, torch.Tensor]:
+        """Copy one frame's content (L, page, Hkv, D), and a quantized
+        frame's scales, to host memory — the page-granularity transfer
+        unit the pager's astores move."""
+        return {key: view.to("cpu", copy=True)
+                for key, view in self._frame_views(phys).items()}
 
     def _land_frame(self, phys: int) -> None:
         """If the pool frame holds a far-tier payload that has not been
-        copied into the device pool yet, land it now (in place)."""
+        copied into the device pool yet, land it now (in place, bytes and
+        scales as they were read)."""
         frame = self.page_pool.frames[phys]
         if frame.data is None:
             return                       # content already lives in the pool
-        kv = self.cache.kv
-        kv["k_pages"][:, phys].copy_(frame.data["k"])
-        kv["v_pages"][:, phys].copy_(frame.data["v"])
+        for key, view in self._frame_views(phys).items():
+            view.copy_(frame.data[key])
         frame.data = None
 
     def _set_pos(self, slot: int, pos: int) -> None:

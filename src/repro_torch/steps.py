@@ -5,9 +5,11 @@ No mesh and no jit: a step is a plain function that runs eagerly on the
 device its tensors live on.  Where the JAX steps donate the cache so XLA
 updates the pool in place, these steps write in place directly: the
 attention blocks ``index_put_`` each token's K/V into its frame of the
-layer's view of ``cache.kv["k_pages"]``/``["v_pages"]``, and nothing
-else in the cache is written (``pos`` advances into a new tensor; the
-verify step leaves it alone).
+layer's view of ``cache.kv["k_pages"]``/``["v_pages"]`` (for an int8 /
+fp8 pool, quantize it there and update the frame's row of
+``cache.kv["k_scales"]``/``["v_scales"]``, which every step hands each
+layer beside its pool view), and nothing else in the cache is written
+(``pos`` advances into a new tensor; the verify step leaves it alone).
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ Each kernel is held against its plain PyTorch version on the same bf16
 inputs, over ragged lengths, page edges and GQA group sizes: every
 element within atol 4e-3 + rtol 1e-2 (one bf16 step at any magnitude),
 every output row of D values within a relative L2 error of 1e-2 (a
-skipped or repeated page exceeds it).  The engine test serves a reduced
-dense config through the kernels.
+skipped or repeated page exceeds it).  The int8 / fp8 instances of the
+quantized pool are held to their plain versions the same way.  The
+engine tests serve a reduced dense config through the kernels, with a
+bf16 and with a quantized pool.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import decode_attention, flash_attention, ops
+from repro_torch.kernels.kv_quant import KVQuantConfig, quantize
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
                                       PagingConfig, SpeculationConfig)
@@ -146,6 +149,57 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         ops.paged_verify_attention(q[:, None], pool, pool, pt, ln)
 
 
+def _quant_pools(n_frames, page, hkv, head_dim, mode, dev):
+    """int8 / fp8 K and V pools quantized from normal draws with absmax
+    scales per (frame, KV head); returns (k, v, scale keywords)."""
+    qcfg = KVQuantConfig(mode)
+    made = []
+    for _ in range(2):
+        x = torch.randn(n_frames, page, hkv, head_dim, device=dev)
+        s = x.abs().amax(dim=(1, 3)) * qcfg.inv_qmax
+        made += [quantize(x, s[:, None, :, None], qcfg), s.contiguous()]
+    return made[0], made[2], {"k_scales": made[1], "v_scales": made[3]}
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("groups,head_dim,page", [(3, 128, 16), (1, 64, 8),
+                                                  (8, 128, 16)])
+def test_quant_kernels_match_plain(dev, mode, groups, head_dim, page):
+    """Decode, verify and prefill on a quantized pool against their plain
+    versions; verify row s bitwise the decode kernel of the same element
+    type at ``lengths[:, s]``; each launch counted on the pool dtype's
+    entry point."""
+    rng = np.random.default_rng(4)
+    hkv, rows, dt = 4, 5, KVQuantConfig(mode).dtype
+    base = np.array([0, page - 1, page, 63, 64, 150], np.int32)
+    lengths = (base[:, None] + np.arange(rows)[None, :] + 1).astype(np.int32)
+    B, pps = len(base), 256 // page
+    n_frames = B * pps + 1
+    pt = torch.from_numpy(_table(rng, lengths[:, -1], page, pps,
+                                 n_frames)).to(dev)
+    kp, vp, kw = _quant_pools(n_frames, page, hkv, head_dim, mode, dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    q = torch.randn(B, rows, hkv * groups, head_dim, device=dev).bfloat16()
+    kernels = (decode_attention.KERNELS[dt],
+               decode_attention.VERIFY_KERNELS[dt], flash_attention.KERNELS[dt])
+    before = [k.launches for k in kernels]
+    out = ops.paged_verify_attention(q, kp, vp, pt, ln, **kw)
+    _assert_agree(out, ops.paged_verify_attention(q, kp, vp, pt, ln,
+                                                  impl="torch", **kw))
+    for s in range(rows):
+        args = (q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous())
+        one = ops.paged_decode_attention(*args, **kw)
+        _assert_agree(one, ops.paged_decode_attention(*args, impl="torch",
+                                                      **kw))
+        assert torch.equal(out[:, s], one), s
+    off = torch.from_numpy(base).to(dev)
+    n = torch.full((B,), rows, dtype=torch.int32, device=dev)
+    pre = ops.paged_prefill_attention(q, kp, vp, pt, off, n, **kw)
+    _assert_agree(pre, ops.paged_prefill_attention(q, kp, vp, pt, off, n,
+                                                   impl="torch", **kw))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [rows, 1, 1]
+
+
 class _RepeatLast:
     """Drafts the last token k times: a draft on every step."""
 
@@ -182,4 +236,33 @@ def test_engine_serves_through_the_kernels(dev, speculate_k):
     out = eng.run()
     assert sorted(len(v) for v in out.values()) == [7] * 6
     assert eng.stats["preemptions"] > 0
+    assert all(k.launches > c for k, c in zip(kernels, counts))
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_quant_engine_serves_through_the_kernels(dev, kv_quant):
+    """The quantized pool on the card: every request finished, the pool
+    preempted, and the decode, prefill and verify instances of the pool's
+    element type launched."""
+    cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), head_dim=128)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    dt = KVQuantConfig(kv_quant).dtype
+    kernels = [decode_attention.KERNELS[dt], flash_attention.KERNELS[dt],
+               decode_attention.VERIFY_KERNELS[dt]]
+    counts = [k.launches for k in kernels]
+    for speculate_k in (0, 4):
+        eng = Engine(cfg, params, EngineConfig(
+            max_batch=3, max_len=64, device="cuda",
+            paging=PagingConfig(page_size=4, device_pages=10,
+                                kv_quant=kv_quant),
+            chunking=ChunkingConfig(chunk_tokens=8, chunk_slots=2),
+            speculation=SpeculationConfig(speculate_k=speculate_k,
+                                          proposer_factory=_RepeatLast)))
+        rng = np.random.default_rng(2)
+        for n in (13, 6, 17, 9, 20, 5):
+            eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=7)
+        out = eng.run()
+        assert sorted(len(v) for v in out.values()) == [7] * 6
+        assert eng.stats["preemptions"] > 0
+        assert eng.cache.kv["k_pages"].dtype == dt
     assert all(k.launches > c for k, c in zip(kernels, counts))

@@ -115,7 +115,6 @@ def test_random_init_serves_smoke_config():
     {"role": "prefill"},
     {"chunking": tconf.ChunkingConfig(chunk_tokens=8, prefix_cache=True)},
     {"chunking": tconf.ChunkingConfig(chunk_tokens=None)},
-    {"paging": tconf.PagingConfig(kv_quant="int8")},
     {"paging": tconf.PagingConfig(enabled=False)},
     {"paging": tconf.PagingConfig(offload_finished=True)},
 ])

@@ -111,16 +111,32 @@ def test_auto_picks_plain_version_on_cpu_and_cuda_refuses_cpu():
         ops.resolve_impl("xla", q)
 
 
-def test_quantized_pool_scales_raise():
-    """The dequant variants come with the quantized-pool slice."""
+@pytest.mark.parametrize("pool_dtype,scales,match", [
+    (torch.float32, "both", "neither"),
+    (torch.bfloat16, "k", "neither"),
+    (torch.int8, None, "both"),
+    (torch.float8_e4m3fn, "k", "both"),
+    (torch.int8, "wrong shape", "shape"),
+    (torch.float8_e4m3fn, "wrong dtype", "float32"),
+])
+def test_scales_must_match_the_pool(pool_dtype, scales, match):
+    """An int8 / fp8 pool takes both (N, Hkv) f32 scale tensors, any other
+    pool neither; both implementations refuse anything else."""
     q = torch.zeros(1, H, D)
-    pool = torch.zeros(N, PAGE, HKV, D)
+    pool = torch.zeros(N, PAGE, HKV, D).to(pool_dtype)
     pt = torch.full((1, 2), N - 1, dtype=torch.int32)
     one = torch.ones(1, dtype=torch.int32)
-    scales = torch.ones(N, HKV)
-    with pytest.raises(NotImplementedError):
-        ops.paged_decode_attention(q, pool, pool, pt, one,
-                                   k_scales=scales, v_scales=scales)
-    with pytest.raises(NotImplementedError):
-        ops.paged_prefill_attention(q[None], pool, pool, pt, one, one,
-                                    k_scales=scales, v_scales=scales)
+    good = torch.ones(N, HKV)
+    ks, vs = {None: (None, None), "both": (good, good), "k": (good, None),
+              "wrong shape": (good[1:], good[1:]),
+              "wrong dtype": (good.double(), good.double())}[scales]
+    for impl in ("torch", "cuda"):
+        with pytest.raises(ValueError, match=match):
+            ops.paged_decode_attention(q, pool, pool, pt, one, impl=impl,
+                                       k_scales=ks, v_scales=vs)
+        with pytest.raises(ValueError, match=match):
+            ops.paged_prefill_attention(q[None], pool, pool, pt, one, one,
+                                        impl=impl, k_scales=ks, v_scales=vs)
+        with pytest.raises(ValueError, match=match):
+            ops.paged_verify_attention(q[:, None], pool, pool, pt, one[None],
+                                       impl=impl, k_scales=ks, v_scales=vs)

@@ -139,7 +139,7 @@ def test_verify_kernel_raises_for_cpu_tensors_and_scales():
                               for a in _verify_inputs("float32"))
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_verify_attention(q, kp, vp, pt, lengths, impl="cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="neither of k_scales"):
         ops.paged_verify_attention(q, kp, vp, pt, lengths, k_scales=kp,
                                    v_scales=vp)
 
