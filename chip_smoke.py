@@ -6,9 +6,11 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 
 1. builds the three CUDA kernels of the serving path (paged decode,
    paged prefill, paged verify), each with its three entry points (bf16
-   pool, int8 and fp8 frames of the quantized pool), from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   compiler per source, started together, and prints each source's
+   pool, int8 and fp8 frames of the quantized pool), and the three of
+   the kernel-level entry points (AMU matmul, dense flash attention,
+   dense decode attention), each with an f32 and a bf16 entry point,
+   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``,
+   one compiler per source, started together, and prints each source's
    registers and spills per element type (``-Xptxas -v``);
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
@@ -27,6 +29,21 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    (1-byte K/V and the scales read for a quantized pool).  Verify row s
    must be bitwise the decode kernel of the same element type at
    ``lengths[:, s]`` (both are one template);
+2d. holds each kernel-level entry point (``ops.matmul``,
+   ``ops.flash_attention``, ``ops.decode_attention``, f32 and bf16)
+   against its plain version on the card: in bf16 at phi4-mini-3.8b's
+   full-width shapes — the MLP's gate/up (512 x 3072 @ 3072 x 8192, two
+   256-token prefill chunks) and down (512 x 8192 @ 8192 x 3072)
+   products, causal attention over one 2048-token prompt (24/8 heads of
+   128) and over a 256-token chunk at offset 1792, decode of 8 sequences
+   over 2000 of 2048 cached positions — within the bars of phase 2; in
+   f32 at the quickstart's product (256 x 512 @ 512 x 256, 128^3 tiles)
+   and the reference benchmark's attention shapes
+   (``benchmarks/run.py:490-499``) within the reference's own bar, max
+   |err| / max |ref| < 5e-6.  It times kernel, plain version and a
+   library yardstick (``torch.matmul``, ``scaled_dot_product_attention``)
+   and computes each case's bound (f32 operations at the card's FP32
+   CUDA-core rate: TF32 is off);
 3. serves 12 requests (prompts of 512-1536 tokens, 32 new tokens each)
    on ``phi4-mini-3.8b`` at full width with random weights from a seeded
    generator, through the port's ``Engine``: FUSED role, paging and
@@ -69,7 +86,14 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    decode steps (relative error, and the same argmax wherever the
    decode step's top-2 margin exceeds twice their largest difference);
    and, for the pieces of a layer, the largest difference between 40
-   rows and 8 rows of the same input.
+   rows and 8 rows of the same input;
+6. runs the kernel-level entry points as a user calls them: the port's
+   quickstart (``repro_torch.launch.quickstart``) on the card — part 1's
+   runtime-AMU counts must equal a CPU run's, part 2 must go through the
+   f32 AMU matmul kernel within 5e-6 of ``x @ w`` — then each case of
+   phase 2d once through ``ops`` with the default ``impl``, whose output
+   must be bitwise phase 2d's kernel output.  Every kernel-level entry
+   point must launch in this phase.
 
 It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -95,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import time
+from importlib import import_module
 from pathlib import Path
 
 import numpy as np
@@ -103,11 +128,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
-from repro_torch.kernels import flash_attention as pre_mod  # noqa: E402
+from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.models.layers import (dense, rms_norm, swiglu,  # noqa: E402
                                        unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
@@ -118,11 +143,18 @@ from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E40
                                       SpeculationConfig)
 from repro_torch.serve.engine import Engine  # noqa: E402
 
+# the kernel modules by name: the package's attributes of these names are
+# the ops entry points, as in the JAX package
+dec_mod = import_module("repro_torch.kernels.decode_attention")
+pre_mod = import_module("repro_torch.kernels.flash_attention")
+
 H, HKV, D, PAGE = 24, 8, 128, 16
 ATOL, RTOL = 4e-3, 1e-2          # per element, on bf16 outputs
 ROW_TOL = 1e-2                   # relative L2 error of each output row
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
+FP32_FLOPS = 67e12               # H100 SXM f32 on the CUDA cores (no TF32)
+F32_TOL = 5e-6                   # max |err| / max |ref|, the reference's bar
 ARCH = "phi4-mini-3.8b"
 # 448 of the 8 * 128 pages a roomy pool would need (0.875 GiB of bf16 KV):
 # at 512 this load preempted once, at 448 four times (CPU rehearsal at
@@ -192,9 +224,12 @@ def agree(what: str, out, ref):
     return float(err.max()), float(row.max())
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16):
+    """The least time for the work in ms, and what sets it: bytes at the
+    HBM rate, or operations at the peak rate of their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / (FP32_FLOPS if dtype == torch.float32
+                     else BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -398,6 +433,165 @@ def check_verify(dev, rng, mode="none"):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+#: phase 2d: (entry point, dtype, what the case is, shapes); bf16 at
+#: phi4-mini-3.8b's full width, f32 at the quickstart's and the reference
+#: benchmark's shapes.  The first case of an entry point heads its row.
+DENSE_CASES = (
+    ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
+     dict(M=512, K=3072, N=8192)),
+    ("matmul", torch.bfloat16, "MLP down, 2 chunks of 256 tokens",
+     dict(M=512, K=8192, N=3072)),
+    ("matmul", torch.float32, "quickstart, 128^3 tiles",
+     dict(M=256, K=512, N=256, bm=128, bk=128, bn=128)),
+    ("flash", torch.bfloat16, "causal 2048-token prompt",
+     dict(B=1, H=24, Hkv=8, Sq=2048, Skv=2048, D=128, q_offset=0,
+          kv_valid=2048)),
+    ("flash", torch.bfloat16, "256-token chunk at 1792",
+     dict(B=1, H=24, Hkv=8, Sq=256, Skv=2048, D=128, q_offset=1792,
+          kv_valid=2048)),
+    ("flash", torch.float32, "bench_kernels B1 H4/2 S256 D64",
+     dict(B=1, H=4, Hkv=2, Sq=256, Skv=256, D=64, q_offset=0,
+          kv_valid=256)),
+    ("decode", torch.bfloat16, "8 sequences, 2000 of 2048 positions",
+     dict(B=8, H=24, Hkv=8, Skv=2048, D=128, valid=2000, bkv=256)),
+    ("decode", torch.float32, "bench_kernels B2 H8/2 cache 1024",
+     dict(B=2, H=8, Hkv=2, Skv=1024, D=64, valid=1000, bkv=256)),
+)
+_DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
+                 "flash": ("flash_attention", "flash_attention.py:114"),
+                 "decode": ("decode_attention", "decode_attention.py:109")}
+
+
+def dense_inputs(i: int, dev):
+    """Case ``i`` of :data:`DENSE_CASES`: (call, library call, bytes,
+    flops), where ``call(impl)`` runs the ops entry point on inputs drawn
+    from a generator seeded by ``i`` (phase 6 draws them again)."""
+    kind, dt, _, c = DENSE_CASES[i]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    el = torch.tensor([], dtype=dt).element_size()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kind == "matmul":
+        M, K, N = c["M"], c["K"], c["N"]
+        x, w = rand(M, K), rand(K, N)
+        tiles = {t: c[t] for t in ("bm", "bk", "bn") if t in c}
+        return ((lambda impl="auto": ops.matmul(x, w, impl=impl, **tiles)),
+                (lambda: torch.matmul(x, w)), (M * K + K * N + M * N) * el,
+                2 * M * K * N)
+    if kind == "flash":
+        B, H, Hkv, Sq, Skv, D = (c[n] for n in ("B", "H", "Hkv", "Sq",
+                                                 "Skv", "D"))
+        off, kvv = c["q_offset"], c["kv_valid"]
+        q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+        qs = q.transpose(1, 2).contiguous()
+        ks, vs = (t[:, :kvv].repeat_interleave(H // Hkv, dim=2)
+                  .transpose(1, 2).contiguous() for t in (k, v))
+        q_pos = off + torch.arange(Sq, device=dev)
+        mask = torch.arange(kvv, device=dev)[None, :] <= q_pos[:, None]
+        lib = ((lambda: sdpa(qs, ks, vs, is_causal=True)) if off == 0
+               and Sq == kvv else (lambda: sdpa(qs, ks, vs, attn_mask=mask)))
+        pairs = sum(min(off + t + 1, kvv) for t in range(Sq))
+        return ((lambda impl="auto": ops.flash_attention(
+                    q, k, v, causal=True, impl=impl, q_offset=off,
+                    kv_valid=kvv)), lib,
+                (2 * B * Sq * H * D + 2 * B * kvv * Hkv * D) * el,
+                4 * B * H * D * pairs)
+    B, H, Hkv, Skv, D, valid = (c[n] for n in ("B", "H", "Hkv", "Skv", "D",
+                                                "valid"))
+    q, k, v = rand(B, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+    qs = q[:, :, None]
+    ks, vs = (t[:, :valid].repeat_interleave(H // Hkv, dim=2)
+              .transpose(1, 2).contiguous() for t in (k, v))
+    return ((lambda impl="auto": ops.decode_attention(
+                q, k, v, valid_len=valid, impl=impl, bkv=c["bkv"])),
+            (lambda: sdpa(qs, ks, vs)),
+            (2 * B * H * D + 2 * B * valid * Hkv * D) * el,
+            4 * B * H * valid * D)
+
+
+def check_dense(dev):
+    """Phase 2d: every case of :data:`DENSE_CASES`, kernel against plain
+    version; returns one ``{"kernels": [...]}`` row per entry point (its
+    first case's numbers, every case under ``cases``) and each case's
+    kernel output, on the host, for phase 6."""
+    rows, outs = {}, []
+    for i, (kind, dt, label, shape) in enumerate(DENSE_CASES):
+        call, lib, nbytes, flops = dense_inputs(i, dev)
+        out, ref = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        what = f"{kind} {label} ({dt})"
+        if dt == torch.float32:
+            o, r = out.float(), ref.float()
+            require(torch.isfinite(o).all(), f"{what}: non-finite")
+            err = float((o - r).abs().max())
+            rel = err / float(r.abs().max())
+            require(rel < F32_TOL, f"{what} disagrees with plain version: "
+                    f"max err / max ref {rel:.3e}")
+            acc = {"rel_err": rel}
+        else:
+            err, row_err = agree(what, out, ref)
+            acc = {"row_err": row_err}
+        outs.append(out.cpu())
+        b_ms, b_by = bound(nbytes, flops, dt)
+        case = {"case": label, **shape, "max_abs_err": err, **acc,
+                "ms": time_ms(lambda: call("cuda")),
+                "plain_ms": time_ms(lambda: call("torch")),
+                "library_ms": time_ms(lib), "bound_ms": b_ms,
+                "bound_by": b_by}
+        print(f"[dense] {what}: kernel_ms {case['ms']:.4f} plain_ms "
+              f"{case['plain_ms']:.4f} library_ms {case['library_ms']:.4f} "
+              f"bound_ms {b_ms:.4f} ({b_by}) max_abs_err {err:.3e} "
+              + " ".join(f"{k} {v:.3e}" for k, v in acc.items()))
+        src, replaces = _DENSE_SOURCE[kind]
+        name = f"{src}_{'f32' if dt == torch.float32 else 'bf16'}"
+        if name not in rows:
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": None,
+                **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                "cases": []}
+        rows[name]["cases"].append(case)
+    return list(rows.values()), outs
+
+
+def run_dense_path(dev, outs) -> dict:
+    """Phase 6: the quickstart on the card, then every case of phase 2d
+    once through ``ops`` as a user calls it; returns the launch counts
+    of the kernel-level entry points in this run."""
+    cpu = quickstart.main(["--device", "cpu"])
+    for k in ops.DENSE_KERNELS:
+        k.launches = 0
+    card = quickstart.main([])
+    require(mm_mod.KERNELS[torch.float32].launches > 0,
+            "the quickstart did not launch the f32 AMU matmul kernel")
+    require(card["runtime"] == cpu["runtime"],
+            f"quickstart part 1 on the card {card['runtime']} differs from "
+            f"the CPU run {cpu['runtime']}")
+    require(card["kernel"]["rel_err"] < F32_TOL,
+            f"quickstart matmul error {card['kernel']['rel_err']:.3e}")
+    print(f"[quickstart] part 1 as on the CPU: {card['runtime']}; part 2 "
+          f"max err {card['kernel']['max_err']:.3e} (relative "
+          f"{card['kernel']['rel_err']:.3e})")
+    for i, (kind, dt, label, _) in enumerate(DENSE_CASES):
+        out = dense_inputs(i, dev)[0]()
+        torch.cuda.synchronize()
+        require(torch.equal(out.cpu(), outs[i]),
+                f"{kind} {label} ({dt}): the default impl's output is not "
+                "phase 2d's kernel output")
+    launches = {k.name: k.launches for k in ops.DENSE_KERNELS}
+    print(f"[dense] entry-point launches in phase 6: {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched on its path")
+    return launches
+
+
 class OracleProposer:
     """Drafts the continuation a plain run emitted: right wherever the
     verify step's argmax equals the decode step's."""
@@ -549,9 +743,9 @@ def check_steps(cfg, params, dev):
               f"{d:.3e}{' (bitwise)' if d == 0 else ''}")
 
 
-_ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a)L")
+_ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
 _ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
-              "a": "int8"}
+              "a": "int8", "f": "f32"}
 
 
 def ptxas_summary(log: str):
@@ -649,9 +843,10 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # 1. build
-    secs = build_all(ops.KERNELS)
-    sources = {k.source.name: k.build_log for k in ops.KERNELS}
-    print(f"[build] {len(ops.KERNELS)} entry points from {len(sources)} "
+    every = (*ops.KERNELS, *ops.DENSE_KERNELS)
+    secs = build_all(every)
+    sources = {k.source.name: k.build_log for k in every}
+    print(f"[build] {len(every)} entry points from {len(sources)} "
           f"sources in {secs:.1f}s")
     for name, log in sources.items():
         for elem, (n, lo, hi, spill, n_spill) in ptxas_summary(log).items():
@@ -672,6 +867,9 @@ def main(argv=None) -> int:
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
               f"max_abs_err {r['max_abs_err']:.3e} "
               f"row_err {r.pop('row_err'):.3e}")
+
+    # 2d. the kernel-level entry points vs their plain versions
+    dense_rows, dense_outs = check_dense(dev)
 
     # 3. the engine at full width
     cfg = get_config(ARCH)
@@ -894,6 +1092,11 @@ def main(argv=None) -> int:
     if args.profile_out:
         profile_engine(cfg, params, args.profile_out, oracle)
 
+    # 6. the kernel-level entry points as a user calls them
+    dense_launches = run_dense_path(dev, dense_outs)
+    for r in dense_rows:
+        r["launches"] = dense_launches[r["name"]]
+
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
     for i, mode in enumerate(MODES):
@@ -904,7 +1107,7 @@ def main(argv=None) -> int:
         rows[3 * i]["launches"] = plain[dec_mod.KERNELS[dt].name]
         rows[3 * i + 1]["launches"] = plain[pre_mod.KERNELS[dt].name]
         rows[3 * i + 2]["launches"] = spec[dec_mod.VERIFY_KERNELS[dt].name]
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + dense_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

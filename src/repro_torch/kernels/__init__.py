@@ -1,6 +1,14 @@
-"""Attention kernels of the serving path: hand-written CUDA for Hopper,
-each beside its plain PyTorch version (see :mod:`repro_torch.kernels.ops`).
+"""Kernels of the port: hand-written CUDA for Hopper, each beside its
+plain PyTorch version (see :mod:`repro_torch.kernels.ops`): the paged
+attention kernels of the serving path, and the kernel-level entry points
+``matmul`` (the AMU matmul), dense ``flash_attention`` and dense
+``decode_attention``.
 
 Importing this package loads no library and calls no compiler: a kernel
 is built from ``csrc/`` the first time it launches.
 """
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ops import decode_attention, flash_attention, matmul
+
+__all__ = ["ops", "ref", "matmul", "flash_attention", "decode_attention"]

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["CudaKernel", "build_all", "check_operand", "kernel_per_dtype",
-           "scale_pointers", "BUILD_DIR", "NVCC_FLAGS", "POOL_DTYPES"]
+           "dense_kernels", "check_dense", "scale_pointers", "BUILD_DIR",
+           "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -159,6 +160,38 @@ def kernel_per_dtype(source: str, stem: str,
     return {dt: CudaKernel(source, f"{stem}_{sfx}",
                            argtypes if dt == torch.bfloat16 else scaled)
             for dt, sfx in _SUFFIX.items()}
+
+
+#: operand types of the dense kernels (AMU matmul, dense flash and
+#: decode attention), one entry point each
+DENSE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def dense_kernels(source: str, stem: str,
+                  argtypes: Sequence) -> Dict[torch.dtype, CudaKernel]:
+    """One :class:`CudaKernel` per dense dtype over ``source``'s entry
+    points ``{stem}_f32`` and ``{stem}_bf16``, which take the same
+    arguments."""
+    return {dt: CudaKernel(source, f"{stem}_{sfx}", argtypes)
+            for dt, sfx in DENSE_DTYPES.items()}
+
+
+def check_dense(name: str, q, k, v) -> None:
+    """Raise unless q, k and v are contiguous CUDA tensors of one dense
+    dtype, q (B, ..., D) and k, v (B, Skv, Hkv, D) of its batch and
+    head dim — what the dense attention kernels take."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if q.dtype not in DENSE_DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected one of "
+                        f"{tuple(DENSE_DTYPES)}")
+    check_operand("q", q, q.dtype, q.dim(), q.device)
+    check_operand("k", k, q.dtype, 4, q.device)
+    check_operand("v", v, q.dtype, 4, q.device)
+    if v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[-1]:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
 
 
 def scale_pointers(k_scales, v_scales, device) -> tuple:

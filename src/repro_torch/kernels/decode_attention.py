@@ -28,6 +28,14 @@ expressions of the JAX package's XLA paths (``kernels/ops.py:98-112`` and
 ``:131-147``), which dequantize the gathered view of a quantized pool
 (``k.float() * ks``) first.  The CPU tests run them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+The dense decode kernel (``csrc/decode_attention.cu``) replaces the TPU
+kernel ``decode_attention`` of the same file (``_decode_kernel``, its
+``pallas_call`` at line 109): one query token per sequence over a dense
+(B, Skv, Hkv, D) cache, one scalar ``valid_len`` for the batch, one entry
+point per dtype (f32, bf16).  Its plain version
+:func:`decode_attention_torch` is the reference's
+``decode_attention_ref``.
 """
 
 from __future__ import annotations
@@ -37,13 +45,17 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import (POOL_DTYPES, check_operand,
+from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
+                                      check_operand, dense_kernels,
                                       kernel_per_dtype, scale_pointers)
+from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
            "paged_decode_attention_torch", "paged_decode_attention_cuda",
            "paged_verify_attention_torch", "paged_verify_attention_cuda",
-           "KERNEL", "VERIFY_KERNEL", "KERNELS", "VERIFY_KERNELS"]
+           "decode_attention_torch", "decode_attention_cuda",
+           "KERNEL", "VERIFY_KERNEL", "KERNELS", "VERIFY_KERNELS",
+           "DENSE_KERNELS"]
 
 NEG_INF = -1e30
 
@@ -60,6 +72,11 @@ KERNEL = KERNELS[torch.bfloat16]
 VERIFY_KERNEL = VERIFY_KERNELS[torch.bfloat16]
 _GROUPS = (1, 2, 3, 4, 6, 8)
 _HEAD_DIMS = (64, 128)
+#: the dense kernel's entry point per dtype of q, k, v and out
+DENSE_KERNELS = dense_kernels(
+    "decode_attention.cu", "decode_attention",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+_DENSE_HEAD_DIMS = (32, 64, 128)
 
 
 def one_token_attention(q, kc, vc, valid, num_kv_heads: int):
@@ -206,3 +223,34 @@ def paged_verify_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     return _launch(VERIFY_KERNELS, "paged_verify_attention_cuda", q,
                    k_pages, v_pages, page_table, lengths, k_scales, v_scales,
                    verify=True)
+
+
+def decode_attention_torch(q, k, v, valid_len=None):
+    """Plain version of the dense kernel, the reference's
+    ``decode_attention_ref``: q (B, H, D); k/v (B, Skv, Hkv, D); the
+    first ``valid_len`` positions (default Skv) of every sequence."""
+    return decode_attention_ref(q, k, v,
+                                k.shape[1] if valid_len is None else valid_len)
+
+
+def decode_attention_cuda(q, k, v, valid_len=None):
+    """Launch the dense kernel: q (B, H, D), k/v (B, Skv, Hkv, D), all f32
+    or all bf16, contiguous; head dim 32, 64 or 128, G in 1, 2, 3, 4, 6,
+    8."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, H, D), got {tuple(q.shape)}")
+    check_dense("decode_attention_cuda", q, k, v)
+    dev = q.device
+    B, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if H % Hkv or H // Hkv not in _GROUPS or D not in _DENSE_HEAD_DIMS:
+        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
+                         f"(groups {_GROUPS}, head_dim {_DENSE_HEAD_DIMS})")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        DENSE_KERNELS[q.dtype].launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Skv,
+            H, Hkv, D, Skv if valid_len is None else int(valid_len),
+            1.0 / math.sqrt(D), stream)
+    return out

@@ -17,6 +17,15 @@ the grouped f32-operand branch of ``models/attention.py::_chunked_core``),
 on the dequantized view of a quantized pool.
 The CPU tests run it, and ``chip_smoke.py`` holds the kernel against it
 on the card.
+
+The dense kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+``flash_attention`` of the same file (``_flash_kernel``, its
+``pallas_call`` at line 114): blocked flash attention over a dense cache
+with static ``causal``, ``window``, ``q_offset`` and ``kv_valid``, read
+in the model layout, one entry point per dtype (f32, bf16).  Its plain
+version :func:`flash_attention_torch` is :func:`chunked_attention` with
+the scalar ``q_offset`` broadcast over the batch and K/V cut to their
+first ``kv_valid`` positions — the same function.
 """
 
 from __future__ import annotations
@@ -26,12 +35,14 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import (POOL_DTYPES, check_operand,
+from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
+                                      check_operand, dense_kernels,
                                       kernel_per_dtype, scale_pointers)
 from repro_torch.kernels.decode_attention import NEG_INF, gather_pages
 
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
-           "paged_prefill_attention_cuda", "KERNEL", "KERNELS"]
+           "paged_prefill_attention_cuda", "flash_attention_torch",
+           "flash_attention_cuda", "KERNEL", "KERNELS", "DENSE_KERNELS"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: entry point per pool dtype; the int8/fp8 ones take k_scales, v_scales
@@ -41,6 +52,11 @@ KERNELS = kernel_per_dtype("paged_prefill.cu", "paged_prefill_attention",
                             _I, _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
 _HEAD_DIMS = (64, 128)
+#: the dense kernel's entry point per dtype of q, k, v and out
+DENSE_KERNELS = dense_kernels(
+    "flash_attention.cu", "flash_attention",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+_DENSE_HEAD_DIMS = (32, 64, 128)
 
 
 def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
@@ -144,4 +160,41 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
             *scale_ptrs, page_rows.data_ptr(), offset.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), C, T, H, Hkv, D, page,
             page_rows.shape[1], int(window), 1.0 / math.sqrt(D), stream)
+    return out
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0, kv_valid=None):
+    """Plain version of the dense kernel: q (B, Sq, H, D); k/v (B, Skv,
+    Hkv, D); ``q_offset`` the absolute position of ``q[:, 0]``; KV
+    positions at or past ``kv_valid`` (default Skv) are masked."""
+    if kv_valid is not None:
+        k, v = k[:, :kv_valid], v[:, :kv_valid]
+    offset = torch.full((q.shape[0],), q_offset, dtype=torch.int64,
+                        device=q.device)
+    return chunked_attention(q, k, v, q_offset=offset, causal=causal,
+                             window=window)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0, kv_valid=None):
+    """Launch the dense kernel: q (B, Sq, H, D), k/v (B, Skv, Hkv, D), all
+    f32 or all bf16, contiguous, head dim 32, 64 or 128."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
+    check_dense("flash_attention_cuda", q, k, v)
+    dev = q.device
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if H % Hkv or D not in _DENSE_HEAD_DIMS:
+        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
+                         f"(head_dim {_DENSE_HEAD_DIMS})")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        DENSE_KERNELS[q.dtype].launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, Hkv, D, int(causal), int(window), int(q_offset),
+            Skv if kv_valid is None else int(kv_valid), 1.0 / math.sqrt(D),
+            stream)
     return out

@@ -13,18 +13,27 @@ A quantized pool (int8 or ``float8_e4m3fn`` frames) comes with its
 per-(frame, KV head) f32 scales ``k_scales``/``v_scales`` (N, Hkv); both
 implementations dequantize with them, the kernels as they load each
 element, the plain versions on the gathered view.
+
+The kernel-level entry points :func:`matmul`, :func:`flash_attention`
+and :func:`decode_attention` are the reference's (``kernels/ops.py``),
+with its signatures, layouts and keyword names, on f32 or bf16 operands.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels import amu_matmul as _amu
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.kv_quant import QUANT_DTYPES
 
-__all__ = ["paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention", "resolve_impl", "KERNELS", "IMPLS"]
+__all__ = ["matmul", "flash_attention", "decode_attention",
+           "paged_decode_attention", "paged_verify_attention",
+           "paged_prefill_attention", "resolve_impl", "KERNELS",
+           "DENSE_KERNELS", "IMPLS"]
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -32,6 +41,10 @@ IMPLS = ("auto", "torch", "cuda")
 #: (build, launch counts): decode, prefill, verify
 KERNELS = (*_decode.KERNELS.values(), *_flash.KERNELS.values(),
            *_decode.VERIFY_KERNELS.values())
+#: the CUDA kernels of the kernel-level entry points, one entry per
+#: dtype (f32, bf16): matmul, dense flash attention, dense decode
+DENSE_KERNELS = (*_amu.KERNELS.values(), *_flash.DENSE_KERNELS.values(),
+                 *_decode.DENSE_KERNELS.values())
 
 
 def resolve_impl(impl: str, x) -> str:
@@ -40,6 +53,47 @@ def resolve_impl(impl: str, x) -> str:
     if impl != "auto":
         return impl
     return "cuda" if x.is_cuda else "torch"
+
+
+def matmul(x, w, *, impl: str = "auto", bm: Optional[int] = None,
+           bk: Optional[int] = None, bn: Optional[int] = None):
+    """x (M, K) @ w (K, N) with f32 accumulation, in x's dtype.  The
+    kernel's tiles (bm, bk, bn) default to the SPM planner's and must
+    tile the shapes (ValueError otherwise, and where the planner finds
+    no tiles within the card's shared memory, as for f32 at 512 x 3072 x
+    8192: pass the tiles); the plain version takes no tiles, as the
+    reference's XLA path."""
+    if resolve_impl(impl, x) == "torch":
+        return _amu.amu_matmul_torch(x, w)
+    return _amu.amu_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto", q_offset: int = 0,
+                    kv_valid: Optional[int] = None, bq: int = 128,
+                    bkv: int = 128):
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) — model layout.  Query t
+    sits at position ``q_offset + t``; KV positions at or past
+    ``kv_valid`` (default Skv, at least 1) are masked.  ``bq``/``bkv``
+    are the TPU kernel's block shapes, accepted for its signature; the
+    CUDA kernel's tiles are its own and, for every query that sees a key,
+    the result does not depend on them."""
+    if kv_valid is not None and kv_valid < 1:
+        raise ValueError(f"kv_valid must be at least 1, got {kv_valid}")
+    fn = (_flash.flash_attention_torch if resolve_impl(impl, q) == "torch"
+          else _flash.flash_attention_cuda)
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
+              kv_valid=kv_valid)
+
+
+def decode_attention(q, k, v, *, valid_len: Optional[int] = None,
+                     impl: str = "auto", bkv: int = 256):
+    """q: (B, H, D); k/v: (B, Skv, Hkv, D); ``valid_len`` one scalar for
+    the batch (default Skv).  ``bkv`` is the TPU kernel's block size,
+    accepted for its signature (the CUDA kernel tiles by 64)."""
+    if resolve_impl(impl, q) == "torch":
+        return _decode.decode_attention_torch(q, k, v, valid_len)
+    return _decode.decode_attention_cuda(q, k, v, valid_len)
 
 
 def _check_scales(k_pages, k_scales, v_scales) -> None:

@@ -12,17 +12,21 @@ every output row of D values within a relative L2 error of 1e-2 (a
 skipped or repeated page exceeds it).  The int8 / fp8 instances of the
 quantized pool are held to their plain versions the same way.  The
 engine tests serve a reduced dense config through the kernels, with a
-bf16 and with a quantized pool.
+bf16 and with a quantized pool.  The kernel-level entry points (AMU
+matmul, dense flash and decode attention) are held to their plain
+versions in f32 at the reference's bar, max |err| / max |ref| < 5e-6
+(f32 products without TF32), and in bf16 at the bars above.
 """
 
 import dataclasses
+from importlib import import_module
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import decode_attention, flash_attention, ops
+from repro_torch.kernels import amu_matmul, ops
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
@@ -30,6 +34,10 @@ from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
 from repro_torch.serve.engine import Engine
 
 pytestmark = pytest.mark.cuda
+# the kernel modules by name: the package's attributes of these names are
+# the ops entry points, as in the JAX package
+decode_attention = import_module("repro_torch.kernels.decode_attention")
+flash_attention = import_module("repro_torch.kernels.flash_attention")
 ATOL, RTOL, ROW_TOL = 4e-3, 1e-2, 1e-2
 
 
@@ -266,3 +274,105 @@ def test_quant_engine_serves_through_the_kernels(dev, kv_quant):
         assert eng.stats["preemptions"] > 0
         assert eng.cache.kv["k_pages"].dtype == dt
     assert all(k.launches > c for k, c in zip(kernels, counts))
+
+
+def _assert_dense_agree(out, ref):
+    """f32: the reference's bar, max |err| / max |ref| < 5e-6; bf16: the
+    bars of the paged kernels."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if out.dtype == torch.float32:
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        assert rel < 5e-6, rel
+    else:
+        _assert_agree(out, ref)
+
+
+@pytest.fixture
+def full_f32(dev):
+    """f32 products in full f32 on the card (no TF32), for the plain
+    versions the f32 kernels are held to."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,tiles", [
+    (256, 512, 256, dict(bm=128, bk=128, bn=128)),   # f32: two K sub-steps
+    (384, 768, 128, dict(bm=128, bk=256, bn=128)),
+    (128, 128, 128, dict(bm=128, bk=128, bn=128)),   # one tile, n_k == 1
+    (128, 384, 512, {}),                             # the planner's tiles
+    (8, 128, 64, {}),                                # 8 threads a block
+])
+def test_dense_matmul_kernel_matches_plain(full_f32, dtype, M, K, N, tiles):
+    dev = full_f32
+    x = torch.randn(M, K, device=dev).to(dtype)
+    w = torch.randn(K, N, device=dev).to(dtype)
+    kernel = amu_matmul.KERNELS[dtype]
+    before = kernel.launches
+    out = ops.matmul(x, w, **tiles)
+    assert kernel.launches == before + 1
+    _assert_dense_agree(out, ops.matmul(x, w, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window,q_offset,kv_valid", [
+    (2, 4, 2, 100, 100, 64, True, 0, 0, None),       # ragged query tile
+    (1, 8, 2, 192, 192, 128, True, 48, 0, None),     # GQA 4:1 + SWA
+    (1, 2, 2, 128, 256, 64, False, 0, 0, None),      # non-causal, Skv != Sq
+    (1, 4, 4, 256, 256, 32, True, 0, 0, None),       # D = 32
+    (2, 6, 2, 64, 256, 64, True, 0, 128, 160),       # offset, short kv_valid
+    (1, 6, 2, 64, 256, 128, True, 40, 64, 200),      # the same with SWA
+])
+def test_dense_flash_kernel_matches_plain(full_f32, dtype, B, H, Hkv, Sq,
+                                          Skv, D, causal, window, q_offset,
+                                          kv_valid):
+    dev = full_f32
+    q = torch.randn(B, Sq, H, D, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hkv, D, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hkv, D, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_valid=kv_valid)
+    kernel = flash_attention.DENSE_KERNELS[dtype]
+    before = kernel.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert kernel.launches == before + 1
+    _assert_dense_agree(out, ops.flash_attention(q, k, v, impl="torch", **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,valid", [
+    (2, 8, 2, 512, 64, 512), (1, 4, 4, 256, 128, 200),
+    (2, 16, 4, 256, 64, 33), (2, 6, 2, 100, 32, 77), (3, 24, 8, 300, 128, 1)])
+def test_dense_decode_kernel_matches_plain(full_f32, dtype, B, H, Hkv, S, D,
+                                           valid):
+    dev = full_f32
+    q = torch.randn(B, H, D, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, D, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, D, device=dev).to(dtype)
+    kernel = decode_attention.DENSE_KERNELS[dtype]
+    before = kernel.launches
+    out = ops.decode_attention(q, k, v, valid_len=valid)
+    assert kernel.launches == before + 1
+    _assert_dense_agree(out, ops.decode_attention(q, k, v, valid_len=valid,
+                                                  impl="torch"))
+
+
+def test_dense_kernels_reject_what_they_do_not_take(dev):
+    x = torch.zeros(256, 512, device=dev)
+    with pytest.raises(ValueError, match="must tile"):
+        ops.matmul(x, torch.zeros(512, 384, device=dev), bm=128, bk=128,
+                   bn=256)
+    with pytest.raises(ValueError, match="cannot hold"):
+        ops.matmul(x, torch.zeros(512, 256, device=dev), bm=256, bk=128,
+                   bn=256)
+    with pytest.raises(TypeError):
+        ops.matmul(x.half(), torch.zeros(512, 256, device=dev).half())
+    q = torch.zeros(1, 64, 4, 16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="groups"):
+        ops.decode_attention(torch.zeros(1, 5, 64, device=dev),
+                             torch.zeros(1, 8, 1, 64, device=dev),
+                             torch.zeros(1, 8, 1, 64, device=dev))

@@ -40,7 +40,8 @@ from repro.serve import config as jconf
 from repro.serve.engine import Engine as JaxEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels.decode_attention import (multi_token_attention,
+                                                one_token_attention)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
@@ -127,10 +128,10 @@ def test_multi_token_rows_bitwise_one_token(dtype):
     kc = torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))).to(dtype)
     vc = torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))).to(dtype)
     valid = torch.from_numpy(rng.integers(1, Skv + 1, (B, S)))
-    multi = tdec.multi_token_attention(q, kc, vc, valid, Hkv)
+    multi = multi_token_attention(q, kc, vc, valid, Hkv)
     assert multi.shape == (B, S, Hkv * G * D) and multi.dtype == torch.float32
     for s in range(S):
-        one = tdec.one_token_attention(q[:, s], kc, vc, valid[:, s], Hkv)
+        one = one_token_attention(q[:, s], kc, vc, valid[:, s], Hkv)
         assert torch.equal(multi[:, s], one[:, 0])
 
 
