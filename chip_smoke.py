@@ -6,9 +6,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 
 1. builds the three CUDA kernels of the serving path (paged decode,
    paged prefill, paged verify), each with its three entry points (bf16
-   pool, int8 and fp8 frames of the quantized pool), and the three of
+   pool, int8 and fp8 frames of the quantized pool), and the five of
    the kernel-level entry points (AMU matmul, dense flash attention,
-   dense decode attention), each with an f32 and a bf16 entry point,
+   dense decode attention, and the RWKV-6 and Mamba2 recurrences wkv6
+   and ssd), each with an f32 and a bf16 entry point,
    from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``,
    one compiler per source, started together, and prints each source's
    registers and spills per element type (``-Xptxas -v``);
@@ -30,19 +31,34 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    must be bitwise the decode kernel of the same element type at
    ``lengths[:, s]`` (both are one template);
 2d. holds each kernel-level entry point (``ops.matmul``,
-   ``ops.flash_attention``, ``ops.decode_attention``, f32 and bf16)
-   against its plain version on the card: in bf16 at phi4-mini-3.8b's
-   full-width shapes — the MLP's gate/up (512 x 3072 @ 3072 x 8192, two
-   256-token prefill chunks) and down (512 x 8192 @ 8192 x 3072)
-   products, causal attention over one 2048-token prompt (24/8 heads of
-   128) and over a 256-token chunk at offset 1792, decode of 8 sequences
-   over 2000 of 2048 cached positions — within the bars of phase 2; in
-   f32 at the quickstart's product (256 x 512 @ 512 x 256, 128^3 tiles)
-   and the reference benchmark's attention shapes
-   (``benchmarks/run.py:490-499``) within the reference's own bar, max
-   |err| / max |ref| < 5e-6.  It times kernel, plain version and a
-   library yardstick (``torch.matmul``, ``scaled_dot_product_attention``)
-   and computes each case's bound (f32 operations at the card's FP32
+   ``ops.flash_attention``, ``ops.decode_attention``, ``ops.wkv6``,
+   ``ops.ssd``, f32 and bf16) against its plain version on the card: in
+   bf16 at phi4-mini-3.8b's full-width shapes — the MLP's gate/up
+   (512 x 3072 @ 3072 x 8192, two 256-token prefill chunks) and down
+   (512 x 8192 @ 8192 x 3072) products, causal attention over one
+   2048-token prompt (24/8 heads of 128) and over a 256-token chunk at
+   offset 1792, decode of 8 sequences over 2000 of 2048 cached positions
+   — within the bars of phase 2; in f32 at the quickstart's product
+   (256 x 512 @ 512 x 256, 128^3 tiles) and the reference benchmark's
+   attention shapes (``benchmarks/run.py:490-499``) within the
+   reference's own bar, max |err| / max |ref| < 5e-6.  Then the shapes
+   that only the repaired wrappers and kernels take: f32 1024^3 with no
+   tiles (the reference's plan, run as sub-tiles), and the attention
+   kernels at the heads of other registered configs — dense flash and
+   decode, paged decode and verify at G = 5 (llama4, 40/8), G = 12
+   (command-r-plus, 96/8) and D = 80 (h2o-danube, 32/8), paged prefill
+   at D = 80 — at the phase-2 bars, verify row s bitwise the decode
+   kernel.  Then wkv6 and ssd at the reference benchmark's f32 shapes
+   (``benchmarks/run.py:500-511``: B1 T256 H2 K64, and P64 N64, chunk
+   64) within its kernel-vs-chunked bar, < 1e-5, and within 1e-4 of the
+   sequential oracles (``tests/test_kernels.py:117-158``), and in bf16
+   at rwkv6-7b's full width (64 heads of K = V = 64, T = 2048, chunk 64)
+   and zamba2-1.2b's Mamba2 layer (64 heads of P = 64, N = 64, T = 2048,
+   chunk 128), decay inputs in f32, within the bars of phase 2.  It
+   times kernel, plain version and a library yardstick where one
+   PyTorch call computes the function (``torch.matmul``,
+   ``scaled_dot_product_attention``; none computes WKV6 or SSD) and
+   computes each case's bound (f32 operations at the card's FP32
    CUDA-core rate: TF32 is off);
 3. serves 12 requests (prompts of 512-1536 tokens, 32 new tokens each)
    on ``phi4-mini-3.8b`` at full width with random weights from a seeded
@@ -93,7 +109,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    f32 AMU matmul kernel within 5e-6 of ``x @ w`` — then each case of
    phase 2d once through ``ops`` with the default ``impl``, whose output
    must be bitwise phase 2d's kernel output.  Every kernel-level entry
-   point must launch in this phase.
+   point (the ten of matmul, flash, decode, wkv6 and ssd) must launch in
+   this phase.
 
 It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -130,6 +147,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
@@ -243,12 +261,12 @@ def random_frames(rng, n_frames, counts):
     return out
 
 
-def gathered(pool, table):
-    """(rows, pages * page, H, D) view of the pool, KV heads repeated to
-    the query heads — the operand SDPA needs."""
-    rows = table.shape[0]
-    x = pool[table.long()].reshape(rows, -1, HKV, D)
-    return x.repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+def gathered(pool, table, heads=H):
+    """(rows, pages * page, heads, D) view of the pool, KV heads repeated
+    to the query heads — the operand SDPA needs."""
+    rows, (_, _, hkv, d) = table.shape[0], pool.shape
+    x = pool[table.long()].reshape(rows, -1, hkv, d)
+    return x.repeat_interleave(heads // hkv, dim=2).transpose(1, 2)
 
 
 def make_pools(n_frames, mode, dev):
@@ -435,7 +453,12 @@ def check_verify(dev, rng, mode="none"):
 
 #: phase 2d: (entry point, dtype, what the case is, shapes); bf16 at
 #: phi4-mini-3.8b's full width, f32 at the quickstart's and the reference
-#: benchmark's shapes.  The first case of an entry point heads its row.
+#: benchmark's shapes; then the shapes the attention kernels and the f32
+#: matmul took only after their repair (other configs' heads, f32 with
+#: no tiles), and the linear recurrences at the reference benchmark's f32
+#: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16.  The
+#: first case of an entry point heads its row; the paged kernels' cases
+#: join phase 2's rows.
 DENSE_CASES = (
     ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
      dict(M=512, K=3072, N=8192)),
@@ -456,22 +479,178 @@ DENSE_CASES = (
      dict(B=8, H=24, Hkv=8, Skv=2048, D=128, valid=2000, bkv=256)),
     ("decode", torch.float32, "bench_kernels B2 H8/2 cache 1024",
      dict(B=2, H=8, Hkv=2, Skv=1024, D=64, valid=1000, bkv=256)),
+    ("matmul", torch.float32, "1024^3, no tiles (the reference's plan)",
+     dict(M=1024, K=1024, N=1024)),
+    ("flash", torch.bfloat16, "h2o-danube 32/8 heads of 80, causal 2048",
+     dict(B=1, H=32, Hkv=8, Sq=2048, Skv=2048, D=80, q_offset=0,
+          kv_valid=2048)),
+    ("decode", torch.bfloat16, "llama4 G=5 (40/8 of 128), 8 x 2000",
+     dict(B=8, H=40, Hkv=8, Skv=2048, D=128, valid=2000, bkv=256)),
+    ("decode", torch.bfloat16, "command-r-plus G=12 (96/8 of 128), 8 x 2000",
+     dict(B=8, H=96, Hkv=8, Skv=2048, D=128, valid=2000, bkv=256)),
+    ("decode", torch.bfloat16, "h2o-danube 32/8 heads of 80, 8 x 2000",
+     dict(B=8, H=32, Hkv=8, Skv=2048, D=80, valid=2000, bkv=256)),
+    ("paged_decode", torch.bfloat16, "llama4 G=5 (40/8 of 128)",
+     dict(H=40, Hkv=8, D=128)),
+    ("paged_decode", torch.bfloat16, "command-r-plus G=12 (96/8 of 128)",
+     dict(H=96, Hkv=8, D=128)),
+    ("paged_decode", torch.bfloat16, "h2o-danube 32/8 heads of 80",
+     dict(H=32, Hkv=8, D=80)),
+    ("paged_verify", torch.bfloat16, "llama4 G=5 (40/8 of 128), K=4",
+     dict(H=40, Hkv=8, D=128)),
+    ("paged_verify", torch.bfloat16, "command-r-plus G=12 (96/8 of 128), K=4",
+     dict(H=96, Hkv=8, D=128)),
+    ("paged_verify", torch.bfloat16, "h2o-danube 32/8 heads of 80, K=4",
+     dict(H=32, Hkv=8, D=80)),
+    ("paged_prefill", torch.bfloat16, "h2o-danube 32/8 heads of 80",
+     dict(H=32, Hkv=8, D=80)),
+    ("wkv6", torch.float32, "bench_kernels B1 T256 H2 K64",
+     dict(B=1, T=256, H=2, K=64, chunk=64)),
+    ("wkv6", torch.bfloat16, "rwkv6-7b B1 T2048 H64 K64 (w, u f32)",
+     dict(B=1, T=2048, H=64, K=64, chunk=64)),
+    ("ssd", torch.float32, "bench_kernels B1 T256 H2 P64 N64",
+     dict(B=1, T=256, H=2, P=64, N=64, chunk=64)),
+    ("ssd", torch.bfloat16,
+     "zamba2-1.2b B1 T2048 H64 P64 N64 (dt, A, D f32)",
+     dict(B=1, T=2048, H=64, P=64, N=64, chunk=128)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
-                 "decode": ("decode_attention", "decode_attention.py:109")}
+                 "decode": ("decode_attention", "decode_attention.py:109"),
+                 "wkv6": ("wkv6", "rwkv6.py:93"),
+                 "ssd": ("ssd", "mamba2.py:93")}
+#: the paged kernels' cases join these rows of phase 2
+_PAGED_ROW = {"paged_decode": "paged_decode_attention",
+              "paged_verify": "paged_verify_attention",
+              "paged_prefill": "paged_prefill_attention"}
+#: the reference's bars for the f32 recurrences (tests/test_kernels.py:
+#: 117-158): kernel vs chunked form, and vs the sequential oracle
+SSM_TOL, SSM_SEQ_TOL = 1e-5, 1e-4
+_NO_LIBRARY = {"wkv6": "no single PyTorch call computes WKV6",
+               "ssd": "no single PyTorch call computes SSD"}
+
+
+def paged_inputs(kind: str, c: dict, i: int, dev):
+    """A paged case of :data:`DENSE_CASES` at phase 2's lengths and page
+    size with the case's heads: (call, library call, bytes, flops, and
+    the verify case's decode call per row or the prefill rows' lengths)."""
+    heads, hkv, d = c["H"], c["Hkv"], c["D"]
+    rng = np.random.default_rng(SEED + 100 + i)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+    pps = 2048 // PAGE
+    if kind == "paged_prefill":
+        offset = np.array([512, 1283], np.int32)
+        length = np.array([256, 131], np.int32)
+        longest, rows_q = offset + length, (2, 256)
+    elif kind == "paged_verify":
+        S = SPECULATE_K + 1
+        starts = np.array([1, 12, 16, 255, 640, 1000, 1537, 2044], np.int32)
+        length = np.minimum(starts[:, None] + np.arange(S)[None, :],
+                            2048).astype(np.int32)
+        longest, rows_q = length.max(axis=1), (len(starts), S)
+    else:
+        length = np.array([1, 16, 17, 255, 640, 1000, 1537, 2048], np.int32)
+        longest, rows_q = length, (len(length),)
+    n_frames = len(longest) * pps + 1
+    table = np.full((len(longest), pps), n_frames - 1, np.int32)
+    for b, fr in enumerate(random_frames(rng, n_frames - 1,
+                                         [-(-n // PAGE) for n in longest])):
+        table[b, :len(fr)] = fr
+    kp, vp = (torch.randn(n_frames, PAGE, hkv, d, generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    q = torch.randn(*rows_q, heads, d, generator=gen, device=dev).bfloat16()
+    pt = torch.from_numpy(table).to(dev)
+    ln = torch.from_numpy(length).to(dev)
+    kg, vg = gathered(kp, pt, heads), gathered(vp, pt, heads)
+    kv_pos = torch.arange(pps * PAGE, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    frames = sum(-(-int(n) // PAGE) for n in longest)
+    kv = 2 * int(longest.sum()) * hkv * d * 2 + pt.numel() * 4
+    decode_rows = None
+    if kind == "paged_prefill":
+        off = torch.from_numpy(offset).to(dev)
+        call = (lambda impl="auto": ops.paged_prefill_attention(
+            q, kp, vp, pt, off, ln, impl=impl))
+        q_pos = off[:, None] + torch.arange(rows_q[1], device=dev)[None, :]
+        mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+        qs = q.transpose(1, 2)
+        attended = sum(int(n) * int(o) + int(n) * (int(n) + 1) // 2
+                       for o, n in zip(offset, length))
+        return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
+                2 * 2 * int(length.sum()) * heads * d + kv + 2 * 2 * 4,
+                4 * attended * heads * d, [int(n) for n in length])
+    if kind == "paged_verify":
+        call = (lambda impl="auto": ops.paged_verify_attention(
+            q, kp, vp, pt, ln, impl=impl))
+        mask = (kv_pos[None, None, :] < ln[:, :, None])[:, None]
+        qs = q.transpose(1, 2)
+        decode_rows = [
+            (lambda s=s: ops.paged_decode_attention(
+                q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous()))
+            for s in range(rows_q[1])]
+    else:
+        call = (lambda impl="auto": ops.paged_decode_attention(
+            q, kp, vp, pt, ln, impl=impl))
+        mask = (kv_pos[None, :] < ln[:, None])[:, None, None, :]
+        qs = q[:, :, None]
+    return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
+            q.numel() * 2 * 2 + ln.numel() * 4 + kv,
+            4 * int(length.sum()) * heads * d, decode_rows)
+
+
+def ssm_inputs(kind: str, c: dict, dt, rand):
+    """A recurrence case of :data:`DENSE_CASES`, drawn as the reference's
+    test draws it, the decay path in f32: (call, sequential oracle or
+    None, bytes, flops).  The flops are the chunked form's products."""
+    el = torch.tensor([], dtype=dt).element_size()
+    B, T, H, n = c["B"], c["T"], c["H"], c["chunk"]
+    chunks, cc = T // min(n, T), min(n, T)
+    if kind == "wkv6":
+        K = V = c["K"]
+        r, k, v = (rand(B, T, H, K).to(dt) for _ in range(3))
+        w = -torch.exp(rand(B, T, H, K) - 2)
+        u = rand(H, K) * 0.1
+        per_chunk = (2 * cc * K * V + cc * (cc - 1) // 2 * K
+                     + cc * (cc + 1) // 2 * V + cc * K)
+        return ((lambda impl="auto": ops.wkv6(r, k, v, w, u, impl=impl,
+                                              chunk=n)),
+                (lambda: kref.wkv6_ref(r, k, v, w, u)) if T <= 256 else None,
+                el * B * T * H * (2 * K + 2 * V) + 4 * (B * T * H * K + H * K),
+                2 * B * H * chunks * per_chunk)
+    P, N = c["P"], c["N"]
+    x = rand(B, T, H, P).to(dt)
+    dts = torch.nn.functional.softplus(rand(B, T, H))
+    A = torch.linspace(0.5, 4.0, H, device=x.device)
+    Bm, Cm = (rand(B, T, N).to(dt) for _ in range(2))
+    Dh = rand(H)
+    per_chunk = (2 * cc * N * P + cc * (cc + 1) // 2 * (N + P)) * 2 + cc * P
+    return ((lambda impl="auto": ops.ssd(x, dts, A, Bm, Cm, Dh, impl=impl,
+                                         chunk=n)),
+            (lambda: kref.ssd_ref(x, dts, A, Bm, Cm, Dh)) if T <= 256
+            else None,
+            el * (2 * B * T * H * P + 2 * B * T * N) + 4 * (B * T * H + 2 * H),
+            B * H * chunks * per_chunk)
 
 
 def dense_inputs(i: int, dev):
-    """Case ``i`` of :data:`DENSE_CASES`: (call, library call, bytes,
-    flops), where ``call(impl)`` runs the ops entry point on inputs drawn
-    from a generator seeded by ``i`` (phase 6 draws them again)."""
+    """Case ``i`` of :data:`DENSE_CASES`: (call, library call or None,
+    bytes, flops, extra), where ``call(impl)`` runs the ops entry point
+    on inputs drawn from generators seeded by ``i`` (phase 6 draws them
+    again) and ``extra`` is the sequential oracle of a recurrence, the
+    per-row decode calls of a verify case or a prefill case's lengths."""
     kind, dt, _, c = DENSE_CASES[i]
+    if kind in _PAGED_ROW:
+        return paged_inputs(kind, c, i, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
+    if kind in _NO_LIBRARY:
+        call, seq, nbytes, flops = ssm_inputs(
+            kind, c, dt, lambda *shape: torch.randn(
+                *shape, generator=gen, device=dev))
+        return call, None, nbytes, flops, seq
     el = torch.tensor([], dtype=dt).element_size()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kind == "matmul":
@@ -480,7 +659,7 @@ def dense_inputs(i: int, dev):
         tiles = {t: c[t] for t in ("bm", "bk", "bn") if t in c}
         return ((lambda impl="auto": ops.matmul(x, w, impl=impl, **tiles)),
                 (lambda: torch.matmul(x, w)), (M * K + K * N + M * N) * el,
-                2 * M * K * N)
+                2 * M * K * N, None)
     if kind == "flash":
         B, H, Hkv, Sq, Skv, D = (c[n] for n in ("B", "H", "Hkv", "Sq",
                                                  "Skv", "D"))
@@ -498,7 +677,7 @@ def dense_inputs(i: int, dev):
                     q, k, v, causal=True, impl=impl, q_offset=off,
                     kv_valid=kvv)), lib,
                 (2 * B * Sq * H * D + 2 * B * kvv * Hkv * D) * el,
-                4 * B * H * D * pairs)
+                4 * B * H * D * pairs, None)
     B, H, Hkv, Skv, D, valid = (c[n] for n in ("B", "H", "Hkv", "Skv", "D",
                                                 "valid"))
     q, k, v = rand(B, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
@@ -509,42 +688,83 @@ def dense_inputs(i: int, dev):
                 q, k, v, valid_len=valid, impl=impl, bkv=c["bkv"])),
             (lambda: sdpa(qs, ks, vs)),
             (2 * B * H * D + 2 * B * valid * Hkv * D) * el,
-            4 * B * H * valid * D)
+            4 * B * H * valid * D, None)
+
+
+def _rel(out, ref) -> tuple:
+    """(max |err|, max |err| / max |ref|) of two outputs, in f32."""
+    o, r = out.float(), ref.float()
+    err = float((o - r).abs().max())
+    return err, err / float(r.abs().max())
+
+
+def check_case(i: int, dev):
+    """Case ``i``: kernel against plain version at its bar (and a verify
+    case's rows against the decode kernel, bitwise; an f32 recurrence
+    against its sequential oracle too), timed; returns (the case's
+    numbers, the kernel output on the host)."""
+    kind, dt, label, shape = DENSE_CASES[i]
+    call, lib, nbytes, flops, extra = dense_inputs(i, dev)
+    out, ref = call("cuda"), call("torch")
+    torch.cuda.synchronize()
+    what = f"{kind} {label} ({dt})"
+    require(torch.isfinite(out.float()).all(), f"{what}: non-finite")
+    if kind == "paged_prefill":          # rows past lengths: don't-care
+        errs = [agree(what, out[c, :m], ref[c, :m])
+                for c, m in enumerate(extra)]
+        err, acc = max(e for e, _ in errs), {"row_err": max(
+            r for _, r in errs)}
+    elif dt == torch.bfloat16:
+        err, row_err = agree(what, out, ref)
+        acc = {"row_err": row_err}
+    else:
+        err, rel = _rel(out, ref)
+        tol = SSM_TOL if kind in _NO_LIBRARY else F32_TOL
+        require(rel < tol, f"{what} disagrees with plain version: max err "
+                f"/ max ref {rel:.3e} (bar {tol})")
+        acc = {"rel_err": rel}
+    if kind in _NO_LIBRARY and dt == torch.float32 and extra is not None:
+        seq_rel = _rel(out, extra())[1]
+        require(seq_rel < SSM_SEQ_TOL, f"{what} disagrees with the "
+                f"sequential oracle: {seq_rel:.3e} (bar {SSM_SEQ_TOL})")
+        acc["seq_rel_err"] = seq_rel
+    if kind == "paged_verify":
+        diff = max(float((out[:, s].float() - one().float()).abs().max())
+                   for s, one in enumerate(extra))
+        require(diff == 0, f"{what}: row s is not bitwise the decode "
+                "kernel at lengths[:, s]")
+        acc["vs_decode"] = diff
+    b_ms, b_by = bound(nbytes, flops, dt)
+    case = {"case": label, **shape, "max_abs_err": err, **acc,
+            "ms": time_ms(lambda: call("cuda")),
+            "plain_ms": time_ms(lambda: call("torch"),
+                                reps=3 if kind in _NO_LIBRARY else 10),
+            "library_ms": None if lib is None else time_ms(lib),
+            "bound_ms": b_ms, "bound_by": b_by}
+    if kind in _NO_LIBRARY:
+        case["library"] = _NO_LIBRARY[kind]
+    lib_txt = (_NO_LIBRARY.get(kind, "n/a") if case["library_ms"] is None
+               else f"{case['library_ms']:.4f}")
+    print(f"[dense] {what}: kernel_ms {case['ms']:.4f} plain_ms "
+          f"{case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
+          f"{b_ms:.4f} ({b_by}) max_abs_err {err:.3e} "
+          + " ".join(f"{k} {v:.3e}" for k, v in acc.items()))
+    return case, out.cpu()
 
 
 def check_dense(dev):
     """Phase 2d: every case of :data:`DENSE_CASES`, kernel against plain
-    version; returns one ``{"kernels": [...]}`` row per entry point (its
-    first case's numbers, every case under ``cases``) and each case's
-    kernel output, on the host, for phase 6."""
-    rows, outs = {}, []
-    for i, (kind, dt, label, shape) in enumerate(DENSE_CASES):
-        call, lib, nbytes, flops = dense_inputs(i, dev)
-        out, ref = call("cuda"), call("torch")
-        torch.cuda.synchronize()
-        what = f"{kind} {label} ({dt})"
-        if dt == torch.float32:
-            o, r = out.float(), ref.float()
-            require(torch.isfinite(o).all(), f"{what}: non-finite")
-            err = float((o - r).abs().max())
-            rel = err / float(r.abs().max())
-            require(rel < F32_TOL, f"{what} disagrees with plain version: "
-                    f"max err / max ref {rel:.3e}")
-            acc = {"rel_err": rel}
-        else:
-            err, row_err = agree(what, out, ref)
-            acc = {"row_err": row_err}
-        outs.append(out.cpu())
-        b_ms, b_by = bound(nbytes, flops, dt)
-        case = {"case": label, **shape, "max_abs_err": err, **acc,
-                "ms": time_ms(lambda: call("cuda")),
-                "plain_ms": time_ms(lambda: call("torch")),
-                "library_ms": time_ms(lib), "bound_ms": b_ms,
-                "bound_by": b_by}
-        print(f"[dense] {what}: kernel_ms {case['ms']:.4f} plain_ms "
-              f"{case['plain_ms']:.4f} library_ms {case['library_ms']:.4f} "
-              f"bound_ms {b_ms:.4f} ({b_by}) max_abs_err {err:.3e} "
-              + " ".join(f"{k} {v:.3e}" for k, v in acc.items()))
+    version; returns one ``{"kernels": [...]}`` row per kernel-level entry
+    point (its first case's numbers, every case under ``cases``), the
+    paged kernels' cases by phase 2's row name, and each case's kernel
+    output, on the host, for phase 6."""
+    rows, paged, outs = {}, {}, []
+    for i, (kind, dt, _, _) in enumerate(DENSE_CASES):
+        case, out = check_case(i, dev)
+        outs.append(out)
+        if kind in _PAGED_ROW:
+            paged.setdefault(_PAGED_ROW[kind], []).append(case)
+            continue
         src, replaces = _DENSE_SOURCE[kind]
         name = f"{src}_{'f32' if dt == torch.float32 else 'bf16'}"
         if name not in rows:
@@ -557,16 +777,19 @@ def check_dense(dev):
                                         "bound_ms", "bound_by",
                                         "library_ms")},
                 "cases": []}
+            if "library" in case:
+                rows[name]["library"] = case["library"]
         rows[name]["cases"].append(case)
-    return list(rows.values()), outs
+    return list(rows.values()), paged, outs
 
 
 def run_dense_path(dev, outs) -> dict:
     """Phase 6: the quickstart on the card, then every case of phase 2d
     once through ``ops`` as a user calls it; returns the launch counts
     of the kernel-level entry points in this run."""
+    entry_points = (*ops.DENSE_KERNELS, *ops.SSM_KERNELS)
     cpu = quickstart.main(["--device", "cpu"])
-    for k in ops.DENSE_KERNELS:
+    for k in entry_points:
         k.launches = 0
     card = quickstart.main([])
     require(mm_mod.KERNELS[torch.float32].launches > 0,
@@ -585,7 +808,7 @@ def run_dense_path(dev, outs) -> dict:
         require(torch.equal(out.cpu(), outs[i]),
                 f"{kind} {label} ({dt}): the default impl's output is not "
                 "phase 2d's kernel output")
-    launches = {k.name: k.launches for k in ops.DENSE_KERNELS}
+    launches = {k.name: k.launches for k in entry_points}
     print(f"[dense] entry-point launches in phase 6: {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on its path")
@@ -843,7 +1066,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # 1. build
-    every = (*ops.KERNELS, *ops.DENSE_KERNELS)
+    every = (*ops.KERNELS, *ops.DENSE_KERNELS, *ops.SSM_KERNELS)
     secs = build_all(every)
     sources = {k.source.name: k.build_log for k in every}
     print(f"[build] {len(every)} entry points from {len(sources)} "
@@ -868,8 +1091,11 @@ def main(argv=None) -> int:
               f"max_abs_err {r['max_abs_err']:.3e} "
               f"row_err {r.pop('row_err'):.3e}")
 
-    # 2d. the kernel-level entry points vs their plain versions
-    dense_rows, dense_outs = check_dense(dev)
+    # 2d. the kernel-level entry points vs their plain versions, and the
+    #     paged kernels at the other configs' heads
+    dense_rows, paged_cases, dense_outs = check_dense(dev)
+    for r in rows:
+        r["cases"] = paged_cases.get(r["name"], [])
 
     # 3. the engine at full width
     cfg = get_config(ARCH)

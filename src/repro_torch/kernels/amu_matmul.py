@@ -12,8 +12,15 @@ f32 and bf16 (x, w and out of the same type).
 Tiles come from the SPM planner (:func:`repro_torch.core.spm.
 plan_matmul_blocks`) as in the reference (``amu_matmul.py:106-112``),
 planned against the card's opt-in shared memory per block — the SPM on
-Hopper.  A bk step whose two slots do not fit is split into sub-steps
-(:func:`k_substep`).
+Hopper.  The planner counts a bm x bn f32 accumulator in that budget,
+which the kernel keeps in registers, so where it finds no tiles within
+it (f32 at 1024^3 and up) the reference's own plan (its default budget)
+stands.  The reference's tiles, planned or given, then map to the
+kernel's launch tile (:func:`launch_tiles`): the tile itself where one
+block holds it, else the largest sub-tile one block holds; a bk step
+whose two slots do not fit is split into sub-steps (:func:`k_substep`).
+Each output element sums its K products in order whatever the tiles, so
+the tiles change no bit of the result.
 
 :func:`amu_matmul_torch` is the plain version, the reference's
 ``matmul_ref``: an f32 product cast to x's dtype.  The CPU tests run it,
@@ -32,8 +39,8 @@ from repro_torch.kernels.build import (DENSE_DTYPES, check_operand,
                                       dense_kernels)
 from repro_torch.kernels.ref import matmul_ref
 
-__all__ = ["amu_matmul_torch", "amu_matmul_cuda", "plan_tiles", "k_substep",
-           "KERNELS"]
+__all__ = ["amu_matmul_torch", "amu_matmul_cuda", "plan_tiles",
+           "launch_tiles", "k_substep", "KERNELS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: entry point per dtype of x, w and out
@@ -50,10 +57,15 @@ def plan_tiles(M: int, K: int, N: int, dtype_bytes: int, vmem_budget: int,
                bm: Optional[int] = None, bk: Optional[int] = None,
                bn: Optional[int] = None) -> Tuple[int, int, int]:
     """(bm, bk, bn): the given tiles, the missing ones from the planner,
-    as the reference picks them; ValueError unless they tile (M, K, N)."""
+    as the reference picks them, planned against ``vmem_budget`` or, where
+    no tiles fit it, against the reference's default budget; ValueError
+    unless they tile (M, K, N)."""
     if bm is None or bk is None or bn is None:
-        plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes,
-                                  vmem_budget=vmem_budget)
+        try:
+            plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes,
+                                      vmem_budget=vmem_budget)
+        except ValueError:      # the reference's plan: its accumulator
+            plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes)
         bm = bm or min(plan.block_shapes["x"][0], M)
         bk = bk or min(plan.block_shapes["x"][1], K)
         bn = bn or min(plan.block_shapes["w"][1], N)
@@ -83,6 +95,29 @@ def k_substep(bm: int, bk: int, bn: int, elem_bytes: int,
                      f"slots of ({bm}, {bn}) tiles in {smem_bytes} bytes")
 
 
+def launch_tiles(bm: int, bk: int, bn: int, elem_bytes: int,
+                 smem_bytes: int) -> Tuple[int, int, int]:
+    """(tm, tn, bks): the kernel's launch tile for the reference's
+    (bm, bk, bn) and its K step.  (tm, tn) is (bm, bn) where one block
+    holds it, else the largest sub-tile one block holds — sides that are
+    multiples of 8 dividing bm and bn, at most 256 threads of 8 x 8
+    outputs, the squarer of two of one size — and bks is
+    :func:`k_substep`'s for it.  ValueError where no such sub-tile
+    exists (a side with no divisor that is a multiple of 8)."""
+    def sides(b):
+        return [s for s in range(_MICRO, b + 1, _MICRO) if b % s == 0]
+
+    fits = [(tm, tn) for tm in sides(bm) for tn in sides(bn)
+            if (tm // _MICRO) * (tn // _MICRO) <= _MAX_THREADS]
+    if not fits:
+        raise ValueError(
+            f"amu_matmul kernel cannot hold a ({bm}, {bn}) output tile or "
+            f"any sub-tile of it: sides must have divisors that are "
+            f"multiples of {_MICRO}")
+    tm, tn = max(fits, key=lambda t: (t[0] * t[1], -(t[0] + t[1]), t[1]))
+    return tm, tn, k_substep(tm, bk, tn, elem_bytes, smem_bytes)
+
+
 def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
                     bk: Optional[int] = None, bn: Optional[int] = None):
     """Launch the kernel: x (M, K) and w (K, N), both f32 or both bf16,
@@ -100,7 +135,7 @@ def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
     smem = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
     bm, bk, bn = plan_tiles(M, K, N, x.element_size(), smem, bm, bk, bn)
-    bks = k_substep(bm, bk, bn, x.element_size(), smem)
+    tm, tn, bks = launch_tiles(bm, bk, bn, x.element_size(), smem)
     for name, t in (("x", x), ("w", w)):
         if t.data_ptr() % _PIECE:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -108,5 +143,5 @@ def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         KERNELS[x.dtype].launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                M, K, N, bm, bn, bks, stream)
+                                M, K, N, tm, tn, bks, stream)
     return out

@@ -28,8 +28,9 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["CudaKernel", "build_all", "check_operand", "kernel_per_dtype",
-           "dense_kernels", "check_dense", "scale_pointers", "BUILD_DIR",
-           "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES"]
+           "dense_kernels", "check_dense", "check_heads", "scale_pointers",
+           "kernel_chunk", "state_slice", "BUILD_DIR", "NVCC_FLAGS",
+           "POOL_DTYPES", "DENSE_DTYPES", "HEAD_DIMS"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -192,6 +193,46 @@ def check_dense(name: str, q, k, v) -> None:
             or k.shape[3] != q.shape[-1]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
+
+
+#: head dims with an instance in every attention kernel (paged decode,
+#: prefill and verify, dense flash and decode): those of the registered
+#: configs, full and SMOKE
+HEAD_DIMS = (16, 32, 64, 80, 128)
+
+
+def check_heads(num_heads: int, num_kv_heads: int, head_dim: int) -> None:
+    """Raise unless the attention kernels take these heads: query heads
+    in equal groups over the KV heads (any group size G), and a head dim
+    in :data:`HEAD_DIMS`."""
+    if num_kv_heads <= 0 or num_heads % num_kv_heads:
+        raise ValueError(f"{num_heads} query heads do not form equal groups "
+                         f"over {num_kv_heads} KV heads")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"unsupported head_dim {head_dim} (head_dim "
+                         f"{HEAD_DIMS})")
+
+
+def kernel_chunk(name: str, T: int, chunk: int) -> int:
+    """The chunk a recurrence kernel (wkv6, ssd) runs, ``min(chunk, T)``;
+    ValueError unless it divides T, as the TPU kernels assert (the plain
+    versions pad instead)."""
+    c = min(chunk, T)
+    if c <= 0 or T % c:
+        raise ValueError(f"{name} kernel: T = {T} is not a multiple of the "
+                         f"chunk {c} (the plain version pads)")
+    return c
+
+
+def state_slice(cols: int, blocks: int, sms: int, least: int = 16) -> int:
+    """State columns per block of a recurrence kernel: ``cols`` over the
+    most slices (powers of two, each at least ``least`` columns wide) that
+    keep ``blocks * slices`` within one wave of ``sms`` SMs."""
+    n = 1
+    while blocks * 2 * n <= sms and cols % (2 * n) == 0 \
+            and cols // (2 * n) >= least:
+        n *= 2
+    return cols // n
 
 
 def scale_pointers(k_scales, v_scales, device) -> tuple:

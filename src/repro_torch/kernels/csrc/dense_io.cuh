@@ -1,5 +1,6 @@
 // Element I/O of the dense kernels (amu_matmul.cu, flash_attention.cu,
-// decode_attention.cu), whose operands are all f32 or all bf16.
+// decode_attention.cu, wkv6.cu, ssd.cu), whose operands are all f32 or
+// all bf16 (the recurrences' decay and per-head operands are f32).
 //
 // load8 reads 8 consecutive elements at p and widens them to f32 (two
 // 16-byte loads for f32, one for bf16); store8 narrows 8 f32 values to
@@ -72,6 +73,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// One element, narrowed from f32 to the element type (round to nearest).
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
 }
 
 }  // namespace repro_dense

@@ -8,7 +8,8 @@
 // through — p <= q_pos when causal, p > q_pos - window when window > 0 —
 // with an f32 online softmax and the output in the operands' type.
 // Entry points flash_attention_f32 and flash_attention_bf16 (q, k, v and
-// out all of that type), head dims 32, 64 and 128.
+// out all of that type), head dims 16, 32, 64, 80 and 128 (a thread holds
+// D / 16 float4 chunks of its query row), any G.
 //
 // Layout: the model layout, read in place (no transposes): q and out
 // (B, Sq, H, D), k and v (B, Skv, Hkv, D).  H = G * Hkv.
@@ -197,8 +198,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
         q_offset, kv_valid, scale);                                           \
     break;
   switch (head_dim) {
+    REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(80)
     REPRO_FLASH_CASE(128)
     default:
       return cudaErrorInvalidValue;

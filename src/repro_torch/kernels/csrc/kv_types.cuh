@@ -11,8 +11,8 @@
 //
 // load8 reads the 8 consecutive elements at p (a lane's share of a K or V
 // row) and widens them to f32: one 16-byte load for bf16, one 8-byte load
-// for the 1-byte types.  Rows are D elements (64 or 128), Hkv * D apart,
-// and a lane starts at a multiple of 8 elements, so both loads are
+// for the 1-byte types.  Rows are D elements (a multiple of 8), Hkv * D
+// apart, and a lane starts at a multiple of 8 elements, so both loads are
 // aligned whenever the pool's base is.  int8 and fp8 widen exactly.
 
 #pragma once

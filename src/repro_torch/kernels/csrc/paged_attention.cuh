@@ -27,27 +27,42 @@
 // a position at or past the longest row length, so the trash frame's junk
 // scale is never touched.
 //
-// Design: one block of 128 threads per (KV head, sequence, group of SB
-// query rows).  The block stages its R = SB * G query rows (SB rows s of
-// G heads each) and walks the sequence's KV positions in tiles of 64, each
-// position mapped through the table, so a tile may straddle several
-// frames.  All R rows share each K/V row it loads, which is what the
-// verify kernel is for: one pass over a sequence's pages scores K + 1
-// tokens.
-//   1. scores: a K row is read by D/8 lanes, 16 bytes each; the R partial
-//      dot products are reduced with warp shuffles;
+// Design: one block of 128 threads per (KV head, sequence, group of R
+// query rows).  A (KV head, sequence) has S * G query rows, row i = s * G
+// + g (verify row s, group head g), and G is a runtime value: block z
+// stages rows z * R .. z * R + R - 1.  R is the least of 1, 2, 3, 4, 5,
+// 6, 8, 10, 12, 15, 16 that holds the rows, or, past 16 rows, that holds
+// an equal share of them over the fewest blocks of at most 16 (rows_for):
+// a row slot without a row costs about as much as a row (on the card a
+// 16-row block over 15 rows was slower than a 15-row one), so the set
+// fits the decode rows of G = 1..6, 8, 12 and the verify rows S * G of
+// K = 4 exactly.
+// The head dim D is a runtime value too, on a lane width DP of 64 or 128
+// (D <= DP, a multiple of 8): a K or V row is read by DP/8 lanes, 8
+// elements each, and a lane past D reads the last live lane's elements
+// again against q = 0, so head dims 16, 32, 64, 80 and 128 run on two
+// widths.  The block walks
+// the sequence's KV positions in tiles of 64, each position mapped
+// through the table, so a tile may straddle several frames.  All R rows
+// share each K/V row it loads, which is what the verify kernel is for:
+// one pass over a sequence's pages scores K + 1 tokens.
+//   1. scores: the R partial dot products of a K row are reduced with
+//      warp shuffles (a lane past D adds an exact 0);
 //   2. softmax: one warp per query row updates the running max and sum;
 //   3. P.V: each thread owns 8 dims of the output for a subset of the
 //      tile's positions, and the position groups are summed once at the
 //      end, one row at a time.
 // The tile loop ends at the last tile that holds a position below the
 // largest of the block's row lengths, and every row is masked by its own
-// length: a row sees exactly what the decode kernel (SB = 1) would see at
-// that length, through the same arithmetic in the same order.  Past its
-// own length a row's tiles add exact zeros (p = 0, rescale by exp(0) = 1),
-// so row s of the verify kernel is bitwise the decode kernel at
-// lengths[:, s].  Table indices are clamped to pages_per_seq - 1, and no
-// position at or past the largest row length is read.
+// length.  A row's arithmetic, in its order, depends on its own q and
+// length and on DP only, never on R, G or the rows that share its block:
+// past its own length a row's tiles add exact zeros (p = 0, rescale by
+// exp(0) = 1), and a block's slots past the S * G rows are never stored.
+// So row s of the verify kernel is bitwise the decode kernel at
+// lengths[:, s], and the (G, D = 128) instances that ran before compute
+// the same bits (G = 3: three rows for decode, fifteen for verify).
+// Table indices are clamped to pages_per_seq - 1, and no position at or
+// past the largest row length is read.
 //
 // Bound on the card: bytes.  A step reads every valid K and V row once
 // (2 * len * D * sizeof(T) bytes per sequence and KV head, plus a scale
@@ -74,56 +89,67 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxRows = 16;   // the per-thread accumulator is R * 8 f32
+// the row counts with an instance (see rows_for)
+constexpr int kRowCounts[] = {1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 16};
 
-// Grid (Hkv, B, ceil(S / SB)); block z covers query rows s0 .. s0 + SB - 1.
-template <typename T, int G, int D, int SB>
+// Grid (Hkv, B, ceil(S * G / R)); block z covers rows i = z * R + r.
+template <typename T, int DP, int R>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ page_table,
     const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-    int num_kv_heads, int S, int page, int pages_per_seq, float scale) {
-  constexpr int R = SB * G;                            // query rows per block
-  constexpr int kLanesPerRow = D / 8;                  // 8 elements per lane
+    int num_kv_heads, int G, int S, int D, int page, int pages_per_seq,
+    float scale) {
+  constexpr int kLanesPerRow = DP / 8;                 // 8 elements per lane
   constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   constexpr int kRowGroups = kThreads / kLanesPerRow;  // P.V position split
   static_assert(kTile % (kWarps * kRowsPerWarp) == 0, "tile rows");
   static_assert(kTile % kRowGroups == 0, "tile rows");
 
-  __shared__ float q_s[R][D];
+  __shared__ float q_s[R][DP];
   __shared__ float p_s[R][kTile];
   __shared__ float m_s[R], l_s[R], corr_s[R];
-  __shared__ int len_s[SB];
-  __shared__ float red_s[kRowGroups][D];
+  __shared__ int len_s[R];
+  __shared__ float red_s[kRowGroups][DP];
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int s0 = blockIdx.z * SB;
+  const int i0 = blockIdx.z * R;
+  const int rows = S * G;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int* pt = page_table + static_cast<long>(b) * pages_per_seq;
   const long row_stride = static_cast<long>(num_kv_heads) * D;
   const long head_off = static_cast<long>(kvh) * D;
-  // (b, s, kvh, g, :) of q / out: rows s of one KV head are H * D apart
-  const long q_row = static_cast<long>(num_kv_heads) * G * D;
-  const long q_base = (static_cast<long>(b) * S + s0) * q_row
-                      + static_cast<long>(kvh) * G * D;
+  // (b, s, kvh * G + g, :) of q / out for row i = s * G + g
+  const long num_heads = static_cast<long>(num_kv_heads) * G;
+  auto q_off = [&](int i) {
+    return ((static_cast<long>(b) * S + i / G) * num_heads
+            + static_cast<long>(kvh) * G + i % G) * D;
+  };
 
-  if (tid < SB) len_s[tid] = s0 + tid < S ? lengths[b * S + s0 + tid] : 0;
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int sl = r / G, g = r % G;
-    q_s[r][d] = s0 + sl < S
-        ? __bfloat162float(q[q_base + sl * q_row + g * D + d]) * scale
-        : 0.f;
-  }
   if (tid < R) {
+    const int i = i0 + tid;
+    len_s[tid] = i < rows ? lengths[b * S + i / G] : 0;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
+  for (int x = tid; x < R * DP; x += kThreads) {
+    const int r = x / DP, d = x % DP;
+    q_s[r][d] = i0 + r < rows && d < D
+        ? __bfloat162float(q[q_off(i0 + r) + d]) * scale
+        : 0.f;
+  }
   const int sub = tid % kLanesPerRow;   // 8 dims [sub*8, sub*8+8)
-  const int grp = tid / kLanesPerRow;   // P.V positions grp, grp+kRowGroups, ...
+  const int grp = tid / kLanesPerRow;   // P.V positions grp, +kRowGroups..
+  // a lane past D loads the last live lane's 8 elements again and
+  // multiplies them by q = 0: it adds an exact 0 to every score, and its
+  // dims are never stored (a branch on the lane instead made the 15-row
+  // verify block slower on the card)
+  const int ld = min(sub, D / 8 - 1) * 8;
   float acc[R][8];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -131,9 +157,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
   __syncthreads();
 
+  int len[R];   // the rows' lengths, in registers for the tile loop (read
+                // from shared memory there, they slowed the 15-row block)
   int len_max = 0;
 #pragma unroll
-  for (int sl = 0; sl < SB; ++sl) len_max = max(len_max, len_s[sl]);
+  for (int r = 0; r < R; ++r) {
+    len[r] = len_s[r];
+    len_max = max(len_max, len[r]);
+  }
 
   const int n_tiles = (len_max + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -147,8 +178,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int r = 0; r < R; ++r) part[r] = 0.f;
       if (pos < len_max) {
         const int frame = pt[min(pos / page, pages_per_seq - 1)];
-        const long base = (static_cast<long>(frame) * page + pos % page) * row_stride
-                          + head_off + sub * 8;
+        const long base =
+            (static_cast<long>(frame) * page + pos % page) * row_stride
+            + head_off + ld;
         float kf[8];
         load8_dequant(k_pages + base, k_scales,
                       static_cast<long>(frame) * num_kv_heads + kvh, kf);
@@ -165,14 +197,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       if (sub == 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          p_s[r][c] = pos < len_s[r / G] ? part[r] : kNegInf;
+          p_s[r][c] = pos < len[r] ? part[r] : kNegInf;
       }
     }
     __syncthreads();
     // 2. online softmax: one warp per query row; positions past the row's
     //    own length weigh exactly 0
     for (int r = warp; r < R; r += kWarps) {
-      const int len = len_s[r / G];
+      const int row_len = len_s[r];
       float mx = kNegInf;
       for (int c = lane; c < kTile; c += 32) mx = fmaxf(mx, p_s[r][c]);
 #pragma unroll
@@ -182,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
       for (int c = lane; c < kTile; c += 32) {
-        const float e = t0 + c < len ? expf(p_s[r][c] - m_new) : 0.f;
+        const float e = t0 + c < row_len ? expf(p_s[r][c] - m_new) : 0.f;
         p_s[r][c] = e;
         sum += e;
       }
@@ -208,8 +240,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int pos = t0 + c;
       if (pos >= len_max) break;
       const int frame = pt[min(pos / page, pages_per_seq - 1)];
-      const long base = (static_cast<long>(frame) * page + pos % page) * row_stride
-                        + head_off + sub * 8;
+      const long base =
+          (static_cast<long>(frame) * page + pos % page) * row_stride
+          + head_off + ld;
       float vf[8];
       load8_dequant(v_pages + base, v_scales,
                     static_cast<long>(frame) * num_kv_heads + kvh, vf);
@@ -226,18 +259,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   // per row: sum the position groups' partial outputs, normalise, store
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    if (i0 + r >= rows) break;   // the same for every thread of the block
 #pragma unroll
     for (int e = 0; e < 8; ++e) red_s[grp][sub * 8 + e] = acc[r][e];
     __syncthreads();
-    const int sl = r / G;
-    if (s0 + sl < S) {
-      for (int d = tid; d < D; d += kThreads) {
-        float s = 0.f;
+    const long o = q_off(i0 + r);
+    for (int d = tid; d < D; d += kThreads) {
+      float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < kRowGroups; ++j) s += red_s[j][d];
-        out[q_base + sl * q_row + (r % G) * D + d] =
-            __float2bfloat16(s / fmaxf(l_s[r], 1e-30f));
-      }
+      for (int j = 0; j < kRowGroups; ++j) s += red_s[j][d];
+      out[o + d] = __float2bfloat16(s / fmaxf(l_s[r], 1e-30f));
     }
     __syncthreads();   // red_s is rewritten for the next row
   }
@@ -254,58 +285,70 @@ struct Args {
   const int* pt;
   const int* len;
   __nv_bfloat16* out;
-  int batch, S, num_kv_heads, page, pps;
+  int batch, S, num_kv_heads, groups, head_dim, page, pps;
   float scale;
 };
 
+// Rows per block for n rows of a (KV head, sequence): the least row
+// count of the instance set that holds an equal share of the rows over
+// the fewest blocks of at most kMaxRows.
+inline int rows_for(int n) {
+  const int blocks = (n + kMaxRows - 1) / kMaxRows;
+  const int share = (n + blocks - 1) / blocks;
+  for (int r : kRowCounts) {
+    if (r >= share) return r;
+  }
+  return kMaxRows;
+}
+
 // Launch one instance; returns the launch's CUDA error.
-template <typename T, int G, int D, int SB>
-cudaError_t launch_gd(const Args<T>& a, cudaStream_t stream) {
-  const dim3 grid(a.num_kv_heads, a.batch, (a.S + SB - 1) / SB);
-  paged_attention_kernel<T, G, D, SB><<<grid, kThreads, 0, stream>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.pt, a.len, a.out, a.num_kv_heads, a.S,
-      a.page, a.pps, a.scale);
+template <typename T, int DP, int R>
+cudaError_t launch_dr(const Args<T>& a, cudaStream_t stream) {
+  const dim3 grid(a.num_kv_heads, a.batch, (a.S * a.groups + R - 1) / R);
+  paged_attention_kernel<T, DP, R><<<grid, kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.pt, a.len, a.out, a.num_kv_heads,
+      a.groups, a.S, a.head_dim, a.page, a.pps, a.scale);
   return cudaGetLastError();
 }
 
-// Rows per block: 1 for decode; for verify, as many whole rows s as keep
-// R = SB * G <= 16 (the per-thread accumulator is R * 8 f32 registers).
-template <bool kVerify, int G>
-constexpr int rows_per_block() {
-  return kVerify ? (16 / G > 0 ? 16 / G : 1) : 1;
-}
-
-template <bool kVerify, typename T, int D>
-cudaError_t launch_d(int groups, const Args<T>& a, cudaStream_t stream) {
-#define REPRO_PAGED_CASE(GG)                                                  \
-  case GG:                                                                    \
-    return launch_gd<T, GG, D, rows_per_block<kVerify, GG>()>(a, stream);
-  switch (groups) {
-    REPRO_PAGED_CASE(1)
-    REPRO_PAGED_CASE(2)
-    REPRO_PAGED_CASE(3)
-    REPRO_PAGED_CASE(4)
-    REPRO_PAGED_CASE(6)
-    REPRO_PAGED_CASE(8)
+template <typename T, int DP>
+cudaError_t launch_d(const Args<T>& a, cudaStream_t stream) {
+#define REPRO_PAGED_ROWS(RR) \
+  case RR:                   \
+    return launch_dr<T, DP, RR>(a, stream);
+  switch (rows_for(a.S * a.groups)) {
+    REPRO_PAGED_ROWS(1)
+    REPRO_PAGED_ROWS(2)
+    REPRO_PAGED_ROWS(3)
+    REPRO_PAGED_ROWS(4)
+    REPRO_PAGED_ROWS(5)
+    REPRO_PAGED_ROWS(6)
+    REPRO_PAGED_ROWS(8)
+    REPRO_PAGED_ROWS(10)
+    REPRO_PAGED_ROWS(12)
+    REPRO_PAGED_ROWS(15)
+    REPRO_PAGED_ROWS(16)
     default:
       return cudaErrorInvalidValue;
   }
-#undef REPRO_PAGED_CASE
+#undef REPRO_PAGED_ROWS
 }
 
 // One entry point's body: element type T of the pool; k_scales /
-// v_scales are null for bf16.
-template <bool kVerify, typename T>
+// v_scales are null for bf16.  Decode and verify share it (S = 1 for
+// decode).
+template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales, const void* page_table,
            const void* lengths, void* out, int batch, int S, int num_heads,
            int num_kv_heads, int head_dim, int page, int pages_per_seq,
            float scale, void* stream) {
-  if (num_kv_heads <= 0 || num_heads % num_kv_heads || S <= 0)
+  if (num_kv_heads <= 0 || num_heads % num_kv_heads || S <= 0
+      || head_dim <= 0 || head_dim % 8 || head_dim > 128)
     return cudaErrorInvalidValue;
-  if (repro_kv::Elem<T>::kScaled && (k_scales == nullptr || v_scales == nullptr))
+  if (repro_kv::Elem<T>::kScaled
+      && (k_scales == nullptr || v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const int groups = num_heads / num_kv_heads;
   const Args<T> a{static_cast<const __nv_bfloat16*>(q),
                   static_cast<const T*>(k_pages),
                   static_cast<const T*>(v_pages),
@@ -314,16 +357,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
                   static_cast<const int*>(page_table),
                   static_cast<const int*>(lengths),
                   static_cast<__nv_bfloat16*>(out),
-                  batch, S, num_kv_heads, page, pages_per_seq, scale};
+                  batch, S, num_kv_heads, num_heads / num_kv_heads, head_dim,
+                  page, pages_per_seq, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch_d<kVerify, T, 64>(groups, a, s);
-    case 128:
-      return launch_d<kVerify, T, 128>(groups, a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return head_dim <= 64 ? launch_d<T, 64>(a, s) : launch_d<T, 128>(a, s);
 }
 
 }  // namespace repro_paged

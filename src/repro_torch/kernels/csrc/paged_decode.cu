@@ -15,11 +15,12 @@
 // v_scales (N, Hkv) f32 and dequantize each element as it is loaded (the
 // TPU kernel's quantized instance, its scale BlockSpecs at line 234).
 //
-// It is the one-row instance (S = 1, one row per block) of the template in
+// It is the one-row instance (S = 1) of the template in
 // paged_attention.cuh, which holds the design notes and the bound: one
-// block of 128 threads per (KV head, sequence), 64-position tiles through
-// the page table, the G query heads of a KV head sharing each staged K/V
-// row.  The speculative verify kernel (paged_verify.cu) is the same
+// block of 128 threads per (KV head, sequence, up to 16 of its G query
+// heads), 64-position tiles through the page table, the query heads of a
+// block sharing each staged K/V row; head dims 16, 32, 64, 80 and 128,
+// any G.  The speculative verify kernel (paged_verify.cu) is the same
 // template with S rows, so its row s computes what this kernel computes
 // at lengths[:, s], bit for bit.
 
@@ -30,7 +31,7 @@ extern "C" int paged_decode_attention_bf16(
     const void* page_table, const void* lengths, void* out, int batch,
     int num_heads, int num_kv_heads, int head_dim, int page,
     int pages_per_seq, float scale, void* stream) {
-  return repro_paged::launch<false, __nv_bfloat16>(
+  return repro_paged::launch<__nv_bfloat16>(
       q, k_pages, v_pages, nullptr, nullptr, page_table, lengths, out, batch,
       1, num_heads, num_kv_heads, head_dim, page, pages_per_seq, scale,
       stream);
@@ -44,7 +45,7 @@ extern "C" int paged_decode_attention_bf16(
       const void* lengths, void* out, int batch, int num_heads,               \
       int num_kv_heads, int head_dim, int page, int pages_per_seq,            \
       float scale, void* stream) {                                            \
-    return repro_paged::launch<false, ELEM>(                                  \
+    return repro_paged::launch<ELEM>(                                  \
         q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, out,    \
         batch, 1, num_heads, num_kv_heads, head_dim, page, pages_per_seq,     \
         scale, stream);                                                       \

@@ -12,7 +12,9 @@
 //
 // Layout: q and out (C, T, H, D), the model layout; k_pages / v_pages
 // (N, page, Hkv, D); page_rows (C, pages_per_seq) int32; offset and
-// lengths (C,) int32.  H = G * Hkv, query head h reads KV head h / G.
+// lengths (C,) int32.  H = G * Hkv, query head h reads KV head h / G,
+// any G; head dims 16, 32, 64, 80 and 128 (a thread holds D / 16 float4
+// chunks of its query row, so any multiple of 16 fits the design).
 //
 // Entry points: paged_prefill_attention_bf16 for a bf16 pool, and _int8 /
 // _fp8 for the frames of a quantized pool (element types in
@@ -221,20 +223,22 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   auto ln = static_cast<const int*>(lengths);
   auto oo = static_cast<__nv_bfloat16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_PREFILL_CASE(DD)                                                \
+  case DD:                                                                    \
+    paged_prefill_kernel<KV, DD><<<grid, kThreads, 0, s>>>(                   \
+        qq, kk, vv, ks, vs, pr, of, ln, oo, T_len, num_heads, num_kv_heads,   \
+        page, pages_per_seq, window, scale);                                  \
+    break;
   switch (head_dim) {
-    case 64:
-      paged_prefill_kernel<KV, 64><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, ks, vs, pr, of, ln, oo, T_len, num_heads, num_kv_heads,
-          page, pages_per_seq, window, scale);
-      break;
-    case 128:
-      paged_prefill_kernel<KV, 128><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, ks, vs, pr, of, ln, oo, T_len, num_heads, num_kv_heads,
-          page, pages_per_seq, window, scale);
-      break;
+    REPRO_PREFILL_CASE(16)
+    REPRO_PREFILL_CASE(32)
+    REPRO_PREFILL_CASE(64)
+    REPRO_PREFILL_CASE(80)
+    REPRO_PREFILL_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef REPRO_PREFILL_CASE
   return cudaGetLastError();
 }
 

@@ -19,14 +19,15 @@
 // its scale BlockSpecs at line 377); row s stays bitwise the decode entry
 // point of the same element type.
 //
-// Design: the template of paged_attention.cuh with SB whole verify rows
-// per block (SB * G <= 16 query rows, SB = 5 at G = 3, so one block covers
-// all S = 5 rows of a K = 4 verify).  Each K/V row the block stages
-// serves every one of its rows: one pass over a sequence's pages verifies
-// K + 1 tokens, as the TPU kernel's (S * G, page) score tile does.  The
-// tile loop runs to the largest row length and masks each row by its own,
-// with the decode kernel's per-row arithmetic in the same order, so row s
-// here is bitwise the decode kernel (paged_decode.cu) at lengths[:, s].
+// Design: the template of paged_attention.cuh with the S * G query rows
+// of a (KV head, sequence) in blocks of up to 16 (15 at G = 3, so one
+// block covers all S = 5 rows of a K = 4 verify).  Each K/V row the
+// block stages serves every one of its rows: one pass over a sequence's
+// pages verifies K + 1 tokens, as the TPU kernel's (S * G, page) score
+// tile does.  The tile loop runs to the largest row length and masks
+// each row by its own, with the decode kernel's per-row arithmetic in
+// the same order, so row s here is bitwise the decode kernel
+// (paged_decode.cu) at lengths[:, s].
 //
 // Bound on the card: bytes, as for decode — the K/V rows up to the
 // longest row, read once per (sequence, KV head), against 4 * S * G * D
@@ -40,7 +41,7 @@ extern "C" int paged_verify_attention_bf16(
     const void* page_table, const void* lengths, void* out, int batch,
     int num_rows, int num_heads, int num_kv_heads, int head_dim, int page,
     int pages_per_seq, float scale, void* stream) {
-  return repro_paged::launch<true, __nv_bfloat16>(
+  return repro_paged::launch<__nv_bfloat16>(
       q, k_pages, v_pages, nullptr, nullptr, page_table, lengths, out, batch,
       num_rows, num_heads, num_kv_heads, head_dim, page, pages_per_seq, scale,
       stream);
@@ -54,7 +55,7 @@ extern "C" int paged_verify_attention_bf16(
       const void* lengths, void* out, int batch, int num_rows, int num_heads, \
       int num_kv_heads, int head_dim, int page, int pages_per_seq,            \
       float scale, void* stream) {                                            \
-    return repro_paged::launch<true, ELEM>(                                   \
+    return repro_paged::launch<ELEM>(                                   \
         q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, out,    \
         batch, num_rows, num_heads, num_kv_heads, head_dim, page,             \
         pages_per_seq, scale, stream);                                        \

@@ -46,8 +46,9 @@ import math
 import torch
 
 from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
-                                      check_operand, dense_kernels,
-                                      kernel_per_dtype, scale_pointers)
+                                      check_heads, check_operand,
+                                      dense_kernels, kernel_per_dtype,
+                                      scale_pointers)
 from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
@@ -70,13 +71,10 @@ VERIFY_KERNELS = kernel_per_dtype("paged_verify.cu", "paged_verify_attention",
                                    _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
 VERIFY_KERNEL = VERIFY_KERNELS[torch.bfloat16]
-_GROUPS = (1, 2, 3, 4, 6, 8)
-_HEAD_DIMS = (64, 128)
 #: the dense kernel's entry point per dtype of q, k, v and out
 DENSE_KERNELS = dense_kernels(
     "decode_attention.cu", "decode_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-_DENSE_HEAD_DIMS = (32, 64, 128)
 
 
 def one_token_attention(q, kc, vc, valid, num_kv_heads: int):
@@ -193,9 +191,7 @@ def _launch(kernels, name, q, k_pages, v_pages, page_table, lengths,
         raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if H % Hkv or H // Hkv not in _GROUPS or D not in _HEAD_DIMS:
-        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
-                         f"(groups {_GROUPS}, head_dim {_HEAD_DIMS})")
+    check_heads(H, Hkv, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = (q.shape[1],) if verify else ()
@@ -235,17 +231,14 @@ def decode_attention_torch(q, k, v, valid_len=None):
 
 def decode_attention_cuda(q, k, v, valid_len=None):
     """Launch the dense kernel: q (B, H, D), k/v (B, Skv, Hkv, D), all f32
-    or all bf16, contiguous; head dim 32, 64 or 128, G in 1, 2, 3, 4, 6,
-    8."""
+    or all bf16, contiguous; any G, a head dim of ``HEAD_DIMS``."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, D), got {tuple(q.shape)}")
     check_dense("decode_attention_cuda", q, k, v)
     dev = q.device
     B, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    if H % Hkv or H // Hkv not in _GROUPS or D not in _DENSE_HEAD_DIMS:
-        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
-                         f"(groups {_GROUPS}, head_dim {_DENSE_HEAD_DIMS})")
+    check_heads(H, Hkv, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -36,8 +36,9 @@ import math
 import torch
 
 from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
-                                      check_operand, dense_kernels,
-                                      kernel_per_dtype, scale_pointers)
+                                      check_heads, check_operand,
+                                      dense_kernels, kernel_per_dtype,
+                                      scale_pointers)
 from repro_torch.kernels.decode_attention import NEG_INF, gather_pages
 
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
@@ -51,12 +52,10 @@ KERNELS = kernel_per_dtype("paged_prefill.cu", "paged_prefill_attention",
                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
-_HEAD_DIMS = (64, 128)
 #: the dense kernel's entry point per dtype of q, k, v and out
 DENSE_KERNELS = dense_kernels(
     "flash_attention.cu", "flash_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
-_DENSE_HEAD_DIMS = (32, 64, 128)
 
 
 def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
@@ -149,9 +148,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
     if page_rows.shape[0] != C or offset.shape[0] != C \
             or lengths.shape[0] != C:
         raise ValueError("page_rows / offset / lengths rows do not match q")
-    if H % Hkv or D not in _HEAD_DIMS:
-        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
-                         f"(head_dim {_HEAD_DIMS})")
+    check_heads(H, Hkv, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -179,16 +176,14 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0, kv_valid=None):
     """Launch the dense kernel: q (B, Sq, H, D), k/v (B, Skv, Hkv, D), all
-    f32 or all bf16, contiguous, head dim 32, 64 or 128."""
+    f32 or all bf16, contiguous, any G, a head dim of ``HEAD_DIMS``."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
     check_dense("flash_attention_cuda", q, k, v)
     dev = q.device
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    if H % Hkv or D not in _DENSE_HEAD_DIMS:
-        raise ValueError(f"unsupported heads {H}/{Hkv} or head_dim {D} "
-                         f"(head_dim {_DENSE_HEAD_DIMS})")
+    check_heads(H, Hkv, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

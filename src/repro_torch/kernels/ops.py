@@ -14,9 +14,10 @@ per-(frame, KV head) f32 scales ``k_scales``/``v_scales`` (N, Hkv); both
 implementations dequantize with them, the kernels as they load each
 element, the plain versions on the gathered view.
 
-The kernel-level entry points :func:`matmul`, :func:`flash_attention`
-and :func:`decode_attention` are the reference's (``kernels/ops.py``),
-with its signatures, layouts and keyword names, on f32 or bf16 operands.
+The kernel-level entry points :func:`matmul`, :func:`flash_attention`,
+:func:`decode_attention`, :func:`wkv6` and :func:`ssd` are the
+reference's (``kernels/ops.py``), with its signatures, layouts and
+keyword names, on f32 or bf16 operands.
 """
 
 from __future__ import annotations
@@ -28,12 +29,14 @@ import torch
 from repro_torch.kernels import amu_matmul as _amu
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba2 as _mamba2
+from repro_torch.kernels import rwkv6 as _rwkv6
 from repro_torch.kernels.kv_quant import QUANT_DTYPES
 
 __all__ = ["matmul", "flash_attention", "decode_attention",
            "paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention", "resolve_impl", "KERNELS",
-           "DENSE_KERNELS", "IMPLS"]
+           "paged_prefill_attention", "wkv6", "ssd", "resolve_impl",
+           "KERNELS", "DENSE_KERNELS", "SSM_KERNELS", "IMPLS"]
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -45,6 +48,9 @@ KERNELS = (*_decode.KERNELS.values(), *_flash.KERNELS.values(),
 #: dtype (f32, bf16): matmul, dense flash attention, dense decode
 DENSE_KERNELS = (*_amu.KERNELS.values(), *_flash.DENSE_KERNELS.values(),
                  *_decode.DENSE_KERNELS.values())
+#: the CUDA kernels of the linear-recurrence entry points, one entry per
+#: dtype (f32, bf16): wkv6 (RWKV-6), ssd (Mamba2)
+SSM_KERNELS = (*_rwkv6.KERNELS.values(), *_mamba2.KERNELS.values())
 
 
 def resolve_impl(impl: str, x) -> str:
@@ -58,11 +64,12 @@ def resolve_impl(impl: str, x) -> str:
 def matmul(x, w, *, impl: str = "auto", bm: Optional[int] = None,
            bk: Optional[int] = None, bn: Optional[int] = None):
     """x (M, K) @ w (K, N) with f32 accumulation, in x's dtype.  The
-    kernel's tiles (bm, bk, bn) default to the SPM planner's and must
-    tile the shapes (ValueError otherwise, and where the planner finds
-    no tiles within the card's shared memory, as for f32 at 512 x 3072 x
-    8192: pass the tiles); the plain version takes no tiles, as the
-    reference's XLA path."""
+    tiles (bm, bk, bn) default to the SPM planner's, as the reference
+    plans them, and must tile the shapes (ValueError otherwise); the
+    kernel runs a tile that one block cannot hold as sub-tiles of it
+    (:func:`repro_torch.kernels.amu_matmul.launch_tiles`), and refuses
+    only a side with no divisor that is a multiple of 8.  The plain
+    version takes no tiles, as the reference's XLA path."""
     if resolve_impl(impl, x) == "torch":
         return _amu.amu_matmul_torch(x, w)
     return _amu.amu_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn)
@@ -158,3 +165,23 @@ def paged_prefill_attention(q, k_pages, v_pages, page_rows, offset, lengths,
           else _flash.paged_prefill_attention_cuda)
     return fn(q, k_pages, v_pages, page_rows, offset, lengths, window=window,
               k_scales=k_scales, v_scales=v_scales)
+
+
+def wkv6(r, k, v, w, u, *, impl: str = "auto", chunk: int = 64):
+    """Chunked RWKV-6 WKV: r, k, w (B, T, H, K), w the log decay (<= 0);
+    v (B, T, H, V); u (H, K) the bonus.  Returns (B, T, H, V) in r's
+    dtype.  The plain version pads a T that ``min(chunk, T)`` does not
+    divide, as the reference's XLA path; the kernel refuses it
+    (ValueError), as the TPU kernel asserts."""
+    if resolve_impl(impl, r) == "torch":
+        return _rwkv6.wkv6_torch(r, k, v, w, u, chunk=chunk)
+    return _rwkv6.wkv6_cuda(r, k, v, w, u, chunk=chunk)
+
+
+def ssd(x, dt, A, B, C, D, *, impl: str = "auto", chunk: int = 128):
+    """Chunked Mamba2 SSD: x (B, T, H, P); dt (B, T, H) after the
+    softplus; A, D (H,); B, C (B, T, N) shared by the heads.  Returns
+    (B, T, H, P) in x's dtype.  T and the chunk as for :func:`wkv6`."""
+    if resolve_impl(impl, x) == "torch":
+        return _mamba2.ssd_torch(x, dt, A, B, C, D, chunk=chunk)
+    return _mamba2.ssd_cuda(x, dt, A, B, C, D, chunk=chunk)

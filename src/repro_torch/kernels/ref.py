@@ -1,6 +1,6 @@
-"""Plain oracles for the port's dense kernels: torch copies of the JAX
+"""Plain oracles for the port's kernels: torch copies of the JAX
 package's ``kernels/ref.py`` (``matmul_ref``, ``attention_ref``,
-``decode_attention_ref``, lines 22-59).
+``decode_attention_ref``, ``wkv6_ref``, ``ssd_ref``, lines 22-72).
 
 Deliberately naive — full materialisation, no chunking — so they stay
 obviously correct.  Operands are widened to f32 and the result is cast
@@ -13,7 +13,8 @@ import math
 
 import torch
 
-__all__ = ["matmul_ref", "attention_ref", "decode_attention_ref"]
+__all__ = ["matmul_ref", "attention_ref", "decode_attention_ref",
+           "wkv6_ref", "ssd_ref"]
 
 
 def matmul_ref(x, w):
@@ -53,3 +54,16 @@ def decode_attention_ref(q, k, v, valid_len):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u):
+    """Sequential WKV6 (same math as models.ssm.wkv6_sequential)."""
+    from repro_torch.models.ssm import wkv6_sequential
+    return wkv6_sequential(r, k, v, w, u)
+
+
+def ssd_ref(x, dt, A, B, C, D):
+    """Sequential Mamba2 SSD (same math as models.ssm.ssd_sequential)."""
+    from repro_torch.models.ssm import ssd_sequential
+    y, _ = ssd_sequential(x, dt, A, B, C, D)
+    return y

@@ -15,9 +15,10 @@ fields (:func:`add_config_args` / :func:`config_from_args`), and
 timestamp goes through.
 
 The port's engine serves a subset of these options (FUSED role, paged
-and chunked, no prefix cache, no speculation, no quantized pool, no
-finished-sequence offload); it raises ``NotImplementedError`` for the
-rest, which keep their flags so the CLI matches the JAX package's.
+and chunked, with speculative verify-K decode and the int8/fp8
+quantized pool; no prefix cache, no finished-sequence offload); it
+raises ``NotImplementedError`` for the rest, which keep their flags so
+the CLI matches the JAX package's.
 Two fields differ: ``device`` says where the engine's tensors live
 (``cuda`` unless the caller asks for the CPU), and ``chunk_tokens``
 defaults to 256 instead of unset, because the port admits through the

@@ -15,7 +15,13 @@ engine tests serve a reduced dense config through the kernels, with a
 bf16 and with a quantized pool.  The kernel-level entry points (AMU
 matmul, dense flash and decode attention) are held to their plain
 versions in f32 at the reference's bar, max |err| / max |ref| < 5e-6
-(f32 products without TF32), and in bf16 at the bars above.
+(f32 products without TF32), and in bf16 at the bars above; the
+attention kernels also at the head shapes of the other registered
+configs (G 5 and 12, head dims 16, 32 and 80).  The linear recurrences
+(wkv6, ssd) are held to their plain chunked versions in f32 at the
+reference's kernel-vs-chunked bar, < 1e-5, and to the sequential
+oracles at < 1e-4 (``tests/test_kernels.py:117-158``), in bf16 at the
+bars above.
 """
 
 import dataclasses
@@ -26,7 +32,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import amu_matmul, ops
+from repro_torch.kernels import amu_matmul, mamba2, ops, ref, rwkv6
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
@@ -145,8 +151,8 @@ def test_verify_kernel_matches_plain_and_decode_kernel(dev, groups, head_dim,
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
-    q = torch.zeros(2, 6, 16, device=dev, dtype=torch.bfloat16)
-    pool = torch.zeros(5, 4, 2, 16, device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(2, 6, 96, device=dev, dtype=torch.bfloat16)
+    pool = torch.zeros(5, 4, 2, 96, device=dev, dtype=torch.bfloat16)
     pt = torch.full((2, 2), 4, dtype=torch.int32, device=dev)
     ln = torch.ones(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -365,14 +371,138 @@ def test_dense_kernels_reject_what_they_do_not_take(dev):
         ops.matmul(x, torch.zeros(512, 384, device=dev), bm=128, bk=128,
                    bn=256)
     with pytest.raises(ValueError, match="cannot hold"):
-        ops.matmul(x, torch.zeros(512, 256, device=dev), bm=256, bk=128,
+        ops.matmul(x, torch.zeros(512, 256, device=dev), bm=4, bk=128,
                    bn=256)
     with pytest.raises(TypeError):
         ops.matmul(x.half(), torch.zeros(512, 256, device=dev).half())
-    q = torch.zeros(1, 64, 4, 16, device=dev)
+    q = torch.zeros(1, 64, 4, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="groups"):
         ops.decode_attention(torch.zeros(1, 5, 64, device=dev),
-                             torch.zeros(1, 8, 1, 64, device=dev),
-                             torch.zeros(1, 8, 1, 64, device=dev))
+                             torch.zeros(1, 8, 2, 64, device=dev),
+                             torch.zeros(1, 8, 2, 64, device=dev))
+
+
+#: (G, D) of the registered configs that the kernels took only after
+#: the shape-set repair: llama4 (G 5), command-r-plus (G 12), h2o-danube
+#: (D 80), the SMOKE configs (D 16, 32)
+NEW_SHAPES = [(5, 128), (12, 128), (4, 80), (3, 16), (2, 32)]
+
+
+@pytest.mark.parametrize("groups,head_dim", NEW_SHAPES)
+def test_paged_kernels_take_the_configs_heads(dev, groups, head_dim):
+    """Decode, verify and prefill at the new (G, D) against their plain
+    versions; verify row s bitwise the decode kernel at lengths[:, s]."""
+    rng = np.random.default_rng(groups * head_dim)
+    hkv, page, rows = 2, 16, 5
+    base = np.array([0, page - 1, 63, 150], np.int32)
+    lengths = (base[:, None] + np.arange(rows)[None, :] + 1).astype(np.int32)
+    B, pps = len(base), 256 // page
+    n_frames = B * pps + 1
+    pt = torch.from_numpy(_table(rng, lengths[:, -1], page, pps,
+                                 n_frames)).to(dev)
+    kp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    vp = torch.randn(n_frames, page, hkv, head_dim, device=dev).bfloat16()
+    q = torch.randn(B, rows, hkv * groups, head_dim, device=dev).bfloat16()
+    ln = torch.from_numpy(lengths).to(dev)
+    out = ops.paged_verify_attention(q, kp, vp, pt, ln)
+    _assert_agree(out, ops.paged_verify_attention(q, kp, vp, pt, ln,
+                                                  impl="torch"))
+    for s in range(rows):
+        args = (q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous())
+        one = ops.paged_decode_attention(*args)
+        _assert_agree(one, ops.paged_decode_attention(*args, impl="torch"))
+        assert torch.equal(out[:, s], one), s
+    off = torch.from_numpy(base).to(dev)
+    n = torch.full((B,), rows, dtype=torch.int32, device=dev)
+    _assert_agree(ops.paged_prefill_attention(q, kp, vp, pt, off, n),
+                  ops.paged_prefill_attention(q, kp, vp, pt, off, n,
+                                              impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,head_dim", NEW_SHAPES)
+def test_dense_attention_takes_the_configs_heads(full_f32, dtype, groups,
+                                                 head_dim):
+    dev = full_f32
+    hkv = 2
+    q = torch.randn(2, 100, hkv * groups, head_dim, device=dev).to(dtype)
+    k = torch.randn(2, 100, hkv, head_dim, device=dev).to(dtype)
+    v = torch.randn(2, 100, hkv, head_dim, device=dev).to(dtype)
+    _assert_dense_agree(ops.flash_attention(q, k, v),
+                        ops.flash_attention(q, k, v, impl="torch"))
+    qd = q[:, 0].contiguous()
+    _assert_dense_agree(ops.decode_attention(qd, k, v, valid_len=77),
+                        ops.decode_attention(qd, k, v, valid_len=77,
+                                             impl="torch"))
+
+
+@pytest.mark.parametrize("tiles", [{}, dict(bm=512, bk=512, bn=1024)])
+def test_f32_matmul_runs_the_reference_tiles(full_f32, tiles):
+    """f32 at 1024^3 with no tiles (the reference's plan, (512, 512,
+    1024)) and with that plan given: sub-tiles of it on the card."""
+    dev = full_f32
+    x = torch.randn(1024, 1024, device=dev)
+    w = torch.randn(1024, 1024, device=dev)
+    kernel = amu_matmul.KERNELS[torch.float32]
+    before = kernel.launches
+    out = ops.matmul(x, w, **tiles)
+    assert kernel.launches == before + 1
+    _assert_dense_agree(out, ops.matmul(x, w, impl="torch"))
+
+
+def _ssm_case(kind, dtype, dev, B, T, H, W, N=None):
+    """(call(impl), sequential oracle) of a wkv6 or ssd case drawn as the
+    reference's test draws it; the decay path f32, the rest ``dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(T + H + W)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    if kind == "wkv6":
+        r, k, v = (rand(B, T, H, W).to(dtype) for _ in range(3))
+        w = -torch.exp(rand(B, T, H, W) - 2)
+        u = rand(H, W) * 0.1
+        return ((lambda impl, c: ops.wkv6(r, k, v, w, u, impl=impl,
+                                          chunk=c)),
+                lambda: ref.wkv6_ref(r, k, v, w, u))
+    x = rand(B, T, H, W).to(dtype)
+    dt = torch.nn.functional.softplus(rand(B, T, H))
+    A = torch.linspace(0.5, 4.0, H, device=dev)
+    Bm, Cm = (rand(B, T, N).to(dtype) for _ in range(2))
+    D = rand(H)
+    return ((lambda impl, c: ops.ssd(x, dt, A, Bm, Cm, D, impl=impl,
+                                     chunk=c)),
+            lambda: ref.ssd_ref(x, dt, A, Bm, Cm, D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,B,T,H,W,N,chunk", [
+    ("wkv6", 1, 256, 2, 64, None, 64),      # bench_kernels' shape
+    ("wkv6", 2, 128, 3, 32, None, 32),
+    ("wkv6", 1, 64, 2, 128, None, 16),
+    ("ssd", 1, 256, 2, 64, 64, 64),         # bench_kernels' shape
+    ("ssd", 2, 128, 3, 32, 16, 32),
+    ("ssd", 1, 256, 4, 64, 64, 128),        # zamba2's chunk
+])
+def test_ssm_kernels_match_plain(full_f32, dtype, kind, B, T, H, W, N,
+                                 chunk):
+    dev = full_f32
+    call, seq = _ssm_case(kind, dtype, dev, B, T, H, W, N)
+    kernel = (rwkv6 if kind == "wkv6" else mamba2).KERNELS[dtype]
+    before = kernel.launches
+    out = call("auto", chunk)
+    assert kernel.launches == before + 1
+    plain = call("torch", chunk)
+    assert out.dtype == dtype and out.shape == plain.shape
+    if dtype == torch.float32:
+        rel = float((out - plain).abs().max() / plain.abs().max())
+        assert rel < 1e-5, rel
+        oracle = seq()
+        rel = float((out - oracle).abs().max() / oracle.abs().max())
+        assert rel < 1e-4, rel
+    else:
+        _assert_agree(out, plain)
+    with pytest.raises(ValueError, match="not a multiple"):
+        call("cuda", T // 2 + 8)

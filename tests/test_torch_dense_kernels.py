@@ -22,13 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.core import spm as jspm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.amu_matmul import amu_matmul as jamu_matmul
 from repro_torch.core import spm
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.amu_matmul import k_substep, plan_tiles
+from repro_torch.kernels.amu_matmul import k_substep, launch_tiles, plan_tiles
+from repro_torch.kernels.build import HEAD_DIMS, check_heads
 from repro_torch.launch import quickstart
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -191,6 +193,72 @@ def test_kernel_tiles_and_substeps():
         k_substep(256, 128, 256, 2, H100_SMEM)
     with pytest.raises(ValueError, match="cannot hold"):
         k_substep(60, 128, 128, 4, H100_SMEM)
+
+
+def test_f32_matmul_plans_without_tiles():
+    """f32 at 1024^3 plans with no tiles given, as the reference does:
+    the plain version equals the JAX XLA path and the JAX kernel run on
+    its own plan (interpret mode) at the f32 bar."""
+    rng = np.random.default_rng(1024)
+    jx, tx = _both(rng.standard_normal((1024, 1024)).astype(np.float32),
+                   "float32")
+    jw, tw = _both(rng.standard_normal((1024, 1024)).astype(np.float32),
+                   "float32")
+    out = _np(ops.matmul(tx, tw, impl="torch"))
+    assert _rel_err(out, jops.matmul(jx, jw, impl="xla")) < 5e-6
+    assert _rel_err(out, jamu_matmul(jx, jw)) < 5e-6
+    assert plan_tiles(1024, 1024, 1024, 4, H100_SMEM) \
+        == (512, 512, 1024)
+
+
+@pytest.mark.parametrize("M,K,N,tiles", [
+    (1024, 1024, 1024, None), (2048, 2048, 2048, None),
+    (4096, 4096, 4096, None),                      # the reference's plans
+    (1024, 1024, 1024, (512, 512, 1024)),          # explicit, as planned
+    (512, 1024, 2048, (512, 256, 1024)),
+    (512, 3072, 8192, None),                       # bf16 and f32 main path
+])
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+def test_launch_tiles_hold_the_reference_tiles(M, K, N, tiles, dtype_bytes):
+    """The reference's tiles, planned or given, map to a launch tile the
+    kernel holds: it divides them, takes at most 256 threads of 8 x 8
+    outputs, and ``k_substep`` accepts it; a tile the kernel holds maps to
+    itself (the bf16 main path's (64, 128, 256) stays as it was)."""
+    bm, bk, bn = plan_tiles(M, K, N, dtype_bytes, H100_SMEM,
+                            *(tiles or (None,) * 3))
+    if tiles is None:
+        ref_plan = jspm.plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes)
+        assert (bm, bk, bn) in {(64, 128, 256), (
+            ref_plan.block_shapes["x"][0], ref_plan.block_shapes["x"][1],
+            ref_plan.block_shapes["w"][1])}
+    tm, tn, bks = launch_tiles(bm, bk, bn, dtype_bytes, H100_SMEM)
+    assert bm % tm == 0 and bn % tn == 0 and tm % 8 == 0 and tn % 8 == 0
+    assert (tm // 8) * (tn // 8) <= 256
+    assert k_substep(tm, bk, tn, dtype_bytes, H100_SMEM) == bks
+    assert bk % bks == 0 and 2 * (tm + tn) * bks * dtype_bytes <= H100_SMEM
+    if (bm // 8) * (bn // 8) <= 256:
+        assert (tm, tn) == (bm, bn)
+    if (M, K, N, dtype_bytes) == (512, 3072, 8192, 2):
+        assert (bm, bk, bn, tm, tn, bks) == (64, 128, 256, 64, 256, 128)
+    with pytest.raises(ValueError, match="cannot hold"):
+        launch_tiles(4, bk, bn, dtype_bytes, H100_SMEM)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_attention_kernels_take_the_configs_heads(arch):
+    """The heads of every registered config, full and SMOKE (G 1, 2, 3,
+    4, 5, 8, 12; D 16, 32, 64, 80, 128), pass the attention kernels'
+    shape check; a head dim outside the set and unequal groups raise."""
+    for cfg in (jconfigs.get_config(arch), jconfigs.get_smoke(arch)):
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        check_heads(H, Hkv, D)
+        for G in (1, 2, 3, 4, 5, 8, 12):
+            check_heads(G * Hkv, Hkv, D)
+        with pytest.raises(ValueError, match="head_dim"):
+            check_heads(H, Hkv, 96)
+        with pytest.raises(ValueError, match="groups"):
+            check_heads(H + 1, Hkv, D)
+    assert HEAD_DIMS == (16, 32, 64, 80, 128)
 
 
 def _part1_lines(text):
