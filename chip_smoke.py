@@ -6,10 +6,12 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 
 1. builds the three CUDA kernels of the serving path (paged decode,
    paged prefill, paged verify), each with its three entry points (bf16
-   pool, int8 and fp8 frames of the quantized pool), and the five of
+   pool, int8 and fp8 frames of the quantized pool), the five of
    the kernel-level entry points (AMU matmul, dense flash attention,
    dense decode attention, and the RWKV-6 and Mamba2 recurrences wkv6
-   and ssd), each with an f32 and a bf16 entry point,
+   and ssd), each with an f32 and a bf16 entry point, and the two
+   indexed gathers of ``moe_gather.cu`` (gather_rows, gather_blocks, f32
+   and bf16) — 23 entry points from 9 sources —
    from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``,
    one compiler per source, started together, and prints each source's
    registers and spills per element type (``-Xptxas -v``);
@@ -60,6 +62,18 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    ``scaled_dot_product_attention``; none computes WKV6 or SSD) and
    computes each case's bound (f32 operations at the card's FP32
    CUDA-core rate: TF32 is off);
+2g. holds each gather entry point against its plain version
+   (``index_select``) bitwise, the reference's bar: f32 at the
+   reference's test shapes, bf16 at olmoe-1b-7b's full width with the
+   indices its MoE block computes from a normal draw (dispatch into the
+   capacity slots of 8 rows of one token and of two 256-token chunks,
+   the combine of those chunks), and ``gather_blocks`` at the paged-KV
+   fetch (128 of 448 frames of 16 rows of 8 x 128); it times the kernel
+   and ``index_select`` (the plain version, and the one PyTorch call
+   that computes the function) on inputs out of L2, the calls queued
+   back to back behind a device sleep (a call's host cost exceeds these
+   gathers' device time), and holds both to each case's byte bound
+   (distinct source rows read, output rows written, indices);
 3. serves 12 requests (prompts of 512-1536 tokens, 32 new tokens each)
    on ``phi4-mini-3.8b`` at full width with random weights from a seeded
    generator, through the port's ``Engine``: FUSED role, paging and
@@ -108,21 +122,40 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    runtime-AMU counts must equal a CPU run's, part 2 must go through the
    f32 AMU matmul kernel within 5e-6 of ``x @ w`` — then each case of
    phase 2d once through ``ops`` with the default ``impl``, whose output
-   must be bitwise phase 2d's kernel output.  Every kernel-level entry
-   point (the ten of matmul, flash, decode, wkv6 and ssd) must launch in
-   this phase.
+   must be bitwise phase 2d's kernel output, and each case of phase 2g
+   through ``ops.gather_rows`` / ``moe_gather.gather_blocks``, bitwise
+   phase 2g's.  Every kernel-level entry point (the ten of matmul,
+   flash, decode, wkv6 and ssd, the four gathers) must launch in this
+   phase;
+7. frees phi4's weights and serves phase 3's 12 requests with the same
+   engine settings on ``olmoe-1b-7b`` at full width (16 layers, d_model
+   2048, 16 heads of 128, 64 experts top-8 of d_ff 1024 on every layer,
+   vocab 50304; random bf16 weights from the seed): every request
+   finishes with its token count, paged decode, paged prefill and the
+   bf16 row gather (the MoE dispatch and combine) launched, the pager
+   preempted and resumed, and a roomy pool gives the same tokens (the
+   combine sums each token's experts in a fixed order); it prints
+   throughput, TTFT, peak memory and a sha256 of the tokens;
+7s. checks one olmoe prefill chunk and one decode step over 8 rows,
+   kernels against plain versions on the same cache (finite logits
+   within phase 5's relative error), and one layer's MoE block with its
+   gathers on the kernel against the same block with them plain,
+   bitwise, at a decode step's and a chunk's shapes.  Phase 5's "verify
+   row s == decode step s" is not asked of MoE: the expert capacity
+   depends on the rows a step routes, as in the reference.
 
 It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Without a CUDA device it exits non-zero before any result.
 
 ``--profile-out PATH`` adds one more engine run of phase 3, one of
-phase 4's oracle run and one of phase 3q's int8 run under
-``torch.profiler`` and prints where their device time went (attention
-kernels, matrix products, copies, the rest) and the device's busy share
-of the profiled wall time; the per-kernel tables go to PATH and to PATH
-with ``-spec`` and ``-int8`` added to its stem, sorted by device time
-and then by host time.
+phase 4's oracle run, one of phase 3q's int8 run and one of phase 7's
+olmoe run under ``torch.profiler`` and prints where their device time
+went (attention kernels, gather kernels, matrix products, copies, the
+rest) and the device's busy share of the profiled wall time; the
+per-kernel tables go to PATH and to PATH with ``-spec``, ``-int8`` and
+``-olmoe`` added to its stem, sorted by device time and then by host
+time.
 """
 
 from __future__ import annotations
@@ -146,11 +179,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
+from repro_torch.kernels import moe_gather  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (dense, rms_norm, swiglu,  # noqa: E402
                                        unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
@@ -170,10 +205,15 @@ H, HKV, D, PAGE = 24, 8, 128, 16
 ATOL, RTOL = 4e-3, 1e-2          # per element, on bf16 outputs
 ROW_TOL = 1e-2                   # relative L2 error of each output row
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
+L2_BYTES = 50 * 2**20            # H100 SXM L2, published
+ROTATE_BYTES = 4 * L2_BYTES      # what cold_ms flushes and cycles through
+MAX_SETS = 512                   # input sets (and calls) a cold_ms batch
+SLEEP_CYCLES_PER_CALL = 200_000  # ~0.1 ms of device sleep per queued call
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12               # H100 SXM f32 on the CUDA cores (no TF32)
 F32_TOL = 5e-6                   # max |err| / max |ref|, the reference's bar
 ARCH = "phi4-mini-3.8b"
+MOE_ARCH = "olmoe-1b-7b"
 # 448 of the 8 * 128 pages a roomy pool would need (0.875 GiB of bf16 KV):
 # at 512 this load preempted once, at 448 four times (CPU rehearsal at
 # the smoke width with full-width page bytes; scheduling does not depend
@@ -224,6 +264,42 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
+    """Median device time of one ``fn(*inputs)`` in ms, on inputs out of
+    L2, for work shorter than its own host call.  Each batch first
+    reads :data:`ROTATE_BYTES` to flush L2, then runs
+    ``max(calls, len(sets))`` calls that cycle through ``sets`` (copies
+    of the inputs), so every set is read once after the flush, or again
+    only after the others' bytes, at least :data:`ROTATE_BYTES` less
+    one set, have evicted it; every output stays alive, so each call
+    writes fresh memory.  The stream sleeps on the device while the host
+    enqueues the batch, so the events time the calls back to back, not
+    the host's pace.  Raises if the host outran the sleep."""
+    n = max(calls, len(sets))
+    flush = torch.zeros(ROTATE_BYTES // 4, dtype=torch.int32, device="cuda")
+    for inputs in sets[:3]:
+        fn(*inputs)
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(n * SLEEP_CYCLES_PER_CALL)
+        start.record()
+        t0 = time.perf_counter()
+        outs = [fn(*sets[j % len(sets)]) for j in range(n)]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        require(host_ms < slept.elapsed_time(start), "cold_ms: the host "
+                f"took {host_ms:.1f} ms to enqueue {n} calls, longer than "
+                "the device's sleep")
+        times.append(start.elapsed_time(end) / n)
+        del outs
     return statistics.median(times)
 
 
@@ -815,6 +891,155 @@ def run_dense_path(dev, outs) -> dict:
     return launches
 
 
+#: phase 2g: (entry point, dtype, what the case is, shape); f32 at the
+#: reference's test shapes (``tests/test_kernels.py:164-183``), bf16 at
+#: olmoe-1b-7b's full width with the indices its MoE block computes from
+#: a normal draw (``moe="dispatch"``: a row per capacity slot of B rows
+#: of S tokens, from the tokens with a zero row appended; ``"combine"``:
+#: a row per (token, choice) pair of their expert outputs), and the paged-KV fetch ``decode_attention.py:200-205``
+#: names: 128 of a 448-frame pool's frames of 16 rows of 8 x 128.
+GATHER_CASES = (
+    ("rows", torch.float32, "reference N64 d128 M32 rpb8",
+     dict(N=64, d=128, M=32, rpb=8)),
+    ("rows", torch.float32, "reference N128 d256 M64 rpb16",
+     dict(N=128, d=256, M=64, rpb=16)),
+    ("rows", torch.float32, "reference N32 d128 M8 rpb8",
+     dict(N=32, d=128, M=8, rpb=8)),
+    ("blocks", torch.float32, "reference (64, 128), 6 blocks of 8",
+     dict(N=64, d=128, Mb=6, rows=8)),
+    ("rows", torch.bfloat16, "olmoe decode dispatch, 8 x 64 experts x 1",
+     dict(moe="dispatch", B=8, S=1)),
+    ("rows", torch.bfloat16, "olmoe prefill dispatch, 2 x 64 experts x 40",
+     dict(moe="dispatch", B=2, S=256)),
+    ("rows", torch.bfloat16, "olmoe prefill combine, 2 x 256 tokens x top-8",
+     dict(moe="combine", B=2, S=256)),
+    ("blocks", torch.bfloat16, "paged-KV fetch, 128 frames of 448",
+     dict(N=448 * PAGE, d=HKV * D, Mb=128, rows=PAGE)),
+)
+_GATHER_SOURCE = {"rows": "moe_gather.py:70", "blocks": "moe_gather.py:104"}
+
+
+def gather_inputs(i: int, dev):
+    """Case ``i`` of :data:`GATHER_CASES`: (inputs, call, plain, bytes,
+    shape of the work), with inputs drawn from a generator seeded by
+    ``i`` (phase 6 draws them again).  ``call(*inputs, impl=...)`` runs
+    the entry point; ``plain(*inputs)`` is ``torch.index_select``, its
+    plain version and the one PyTorch call that computes the function.
+    The bytes are the bound's: each distinct source row read once, each
+    output row written once, and the indices."""
+    kind, dt, _, c = GATHER_CASES[i]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200 + i)
+    el = torch.tensor([], dtype=dt).element_size()
+    if kind == "blocks":
+        N, d, Mb, rows = c["N"], c["d"], c["Mb"], c["rows"]
+        src = torch.randn(N, d, generator=gen, device=dev).to(dt)
+        bidx = torch.randperm(N // rows, generator=gen, device=dev)[:Mb]
+        bidx = bidx.to(torch.int32)
+        row_bytes = rows * d * el
+        return ((src, bidx),
+                (lambda s, b, impl="auto": moe_gather.gather_blocks(
+                    s, b, block_rows=rows, impl=impl)),
+                (lambda s, b: torch.index_select(
+                    s.view(N // rows, rows, d), 0, b)),
+                (torch.unique(bidx).numel() + Mb) * row_bytes + 4 * Mb,
+                dict(N=N, d=d, Mb=Mb, block_rows=rows))
+    if "moe" in c:
+        cfg = get_config(MOE_ARCH)
+        B, S, d, E = c["B"], c["S"], cfg.d_model, cfg.num_experts
+        x = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+        router = {"w": torch.randn(d, E, generator=gen, device=dev) * d ** -0.5}
+        plan = moe.dispatch({"router": router}, cfg, x)
+        if c["moe"] == "dispatch":         # as moe_block: a zero row appended
+            src = torch.cat([x.reshape(B * S, d), x.new_zeros(1, d)])
+            idx = plan.tokens
+        else:
+            src = torch.randn(B * E * plan.capacity, d, generator=gen,
+                              device=dev).to(dt)
+            idx = plan.slots
+        rpb = moe.rows_per_block(idx.shape[0])
+    else:
+        N, d, M, rpb = c["N"], c["d"], c["M"], c["rpb"]
+        src = torch.randn(N, d, generator=gen, device=dev).to(dt)
+        idx = torch.randint(0, N, (M,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    M, d = idx.shape[0], src.shape[1]
+    return ((src, idx),
+            (lambda s, x, impl="auto": ops.gather_rows(
+                s, x, impl=impl, rows_per_block=rpb)),
+            (lambda s, x: torch.index_select(s, 0, x)),
+            (torch.unique(idx).numel() + M) * d * el + 4 * M,
+            dict(N=src.shape[0], d=d, M=M, rows_per_block=rpb))
+
+
+def check_gathers(dev):
+    """Phase 2g: every case of :data:`GATHER_CASES`, kernel against plain
+    version bitwise, both timed cold (:func:`cold_ms`) and held to the
+    byte bound; returns one ``{"kernels": [...]}`` row per gather entry
+    point (its first case's numbers, every case under ``cases``) and
+    each case's kernel output, on the host, for phase 6."""
+    rows, outs = {}, []
+    for i, (kind, dt, label, _) in enumerate(GATHER_CASES):
+        inputs, call, plain, nbytes, shape = gather_inputs(i, dev)
+        out, ref = call(*inputs, impl="cuda"), call(*inputs, impl="torch")
+        torch.cuda.synchronize()
+        what = f"gather_{kind} {label} ({dt})"
+        require(torch.equal(out, ref), f"{what}: not bitwise the plain "
+                "version")
+        b_ms, b_by = bound(nbytes, 0, dt)
+        n_sets = min(MAX_SETS, -(-ROTATE_BYTES // nbytes))
+        sets = [inputs] + [tuple(t.clone() for t in inputs)
+                           for _ in range(n_sets - 1)]
+        ms = cold_ms(lambda *a: call(*a, impl="cuda"), sets)
+        plain_ms = cold_ms(plain, sets)
+        del sets
+        require(min(ms, plain_ms) >= b_ms, f"{what}: {min(ms, plain_ms)} ms "
+                f"under its bound {b_ms} ms: the timing or the bound is wrong")
+        case = {"case": label, **shape, "max_abs_err": 0.0, "bitwise": True,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "sets_span_bytes": n_sets * nbytes}
+        print(f"[gather] {what}: kernel_ms {ms:.4f} index_select_ms "
+              f"{plain_ms:.4f} (plain version and library call) bound_ms "
+              f"{b_ms:.4f} ({b_by}, {nbytes} B); {n_sets} input sets spanning "
+              f"{n_sets * nbytes / 2**20:.1f} MiB; "
+              f"{shape}, bitwise")
+        outs.append(out.cpu())
+        name = f"gather_{kind}_{'f32' if dt == torch.float32 else 'bf16'}"
+        if name not in rows:
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/moe_gather.cu",
+                "replaces": f"src/repro/kernels/{_GATHER_SOURCE[kind]}",
+                "launches": None,
+                **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                "library": "torch.index_select", "cases": []}
+        rows[name]["cases"].append(case)
+    return list(rows.values()), outs
+
+
+def run_gather_path(dev, outs) -> dict:
+    """Phase 6, the gathers: every case of phase 2g once through its
+    entry point (``ops.gather_rows``, ``moe_gather.gather_blocks``) as a
+    user calls it, with the default impl; each output must be bitwise
+    phase 2g's kernel output.  Returns the launch counts of this run."""
+    for k in ops.GATHER_KERNELS:
+        k.launches = 0
+    for i, (kind, dt, label, _) in enumerate(GATHER_CASES):
+        inputs, call = gather_inputs(i, dev)[:2]
+        out = call(*inputs)
+        torch.cuda.synchronize()
+        require(torch.equal(out.cpu(), outs[i]),
+                f"gather_{kind} {label} ({dt}): the default impl's output is "
+                "not phase 2g's kernel output")
+    launches = {k.name: k.launches for k in ops.GATHER_KERNELS}
+    print(f"[gather] entry-point launches in phase 6: {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched on its path")
+    return launches
+
+
 class OracleProposer:
     """Drafts the continuation a plain run emitted: right wherever the
     verify step's argmax equals the decode step's."""
@@ -966,6 +1191,114 @@ def check_steps(cfg, params, dev):
               f"{d:.3e}{' (bitwise)' if d == 0 else ''}")
 
 
+def serve_moe(dev):
+    """Phase 7: the 12 requests of phase 3 with its engine settings on
+    olmoe-1b-7b at full width (random bf16 weights from the seed), then
+    on a roomy pool; returns (cfg, params, kernel launches of the
+    preempting run)."""
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = cast_params(init_params(cfg, gen, dev), torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    print(f"[moe] {MOE_ARCH} params ready in {time.perf_counter() - t0:.3f}s,"
+          f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    kernels = (*ops.KERNELS, *ops.GATHER_KERNELS)
+    reset_peak()
+    for k in kernels:
+        k.launches = 0
+    eng, out, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
+                           clock=time.perf_counter)
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(v) for v in out.values())
+    ttft = [r.ttft for r in eng.finished.values()]
+    print(f"[moe] {len(out)} requests, {n_tok} tokens in {wall:.2f}s "
+          f"({n_tok / wall:.1f} tok/s), mean TTFT {np.mean(ttft):.3f}s, "
+          f"steps {eng.stats['steps']} (mixed {eng.stats['mixed_steps']}), "
+          f"peak memory {peak:.2f} GiB")
+    print(f"[moe] preemptions {eng.stats['preemptions']} resumes "
+          f"{eng.stats['resumes']} chunks {eng.stats['chunks']}; pager "
+          f"{dict(eng.pager.stats)}; kernel launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    require(len(out) == N_REQUESTS, f"moe: {len(out)} of {N_REQUESTS} "
+            "finished")
+    require(all(len(v) == NEW_TOKENS for v in out.values()),
+            "moe: token counts")
+    require(all(0 <= t < cfg.padded_vocab for v in out.values() for t in v),
+            "moe: token ids out of the vocabulary")
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL,
+              moe_gather.KERNELS[torch.bfloat16]):
+        require(launches[k.name] > 0,
+                f"kernel {k.name} never launched on the MoE path")
+    require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
+            "moe: the pool never preempted/resumed")
+    print(f"[moe] tokens digest {tokens_digest(out)}")
+    del eng
+    pps = ENGINE["max_len"] // ENGINE["page_size"]
+    roomy, rout, r_wall = serve(cfg, params, "cuda",
+                                ENGINE["max_batch"] * pps)
+    same = sum(a == b for r in out for a, b in zip(out[r], rout[r]))
+    print(f"[moe] roomy pool: preemptions {roomy.stats['preemptions']}, "
+          f"steps {roomy.stats['steps']}, {n_tok / r_wall:.1f} tok/s; "
+          f"tokens equal to the preempting run: {same}/{n_tok}")
+    require(same == n_tok, "moe: the roomy pool's tokens differ from the "
+            "preempting run's")
+    return cfg, params, launches
+
+
+def check_moe_steps(cfg, params, dev):
+    """Phase 7s: one full-width prefill chunk over the engine's batch of
+    rows, then one decode step over the pool it filled, kernels against
+    plain versions on identical fresh caches; then one layer's MoE block
+    with its gathers on the kernel against the same block with them
+    plain, bitwise, at a decode step's and a chunk's shapes."""
+    rng = np.random.default_rng(SEED + 2)
+    B, T = ENGINE["max_batch"], 256
+    per_row = -(-(T + 1) // PAGE)
+    n_frames = B * per_row + 1
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)).to(dev)
+    rows = torch.full((B, 32), n_frames - 1, dtype=torch.int32, device=dev)
+    rows[:, :per_row] = torch.arange(B * per_row, dtype=torch.int32,
+                                     device=dev).reshape(B, per_row)
+    chunk = {"tokens": toks, "page_rows": rows,
+             "offset": torch.zeros(B, dtype=torch.int32, device=dev),
+             "length": torch.tensor([256, 217, 256, 100, 1, 256, 180, 33],
+                                    dtype=torch.int32, device=dev)}
+    res = {}
+    for impl in ("cuda", "torch"):
+        cache = init_paged_cache(cfg, B, 512, n_frames, PAGE, device=dev)
+        cl, cache = prefill_chunk(params, cfg, cache, chunk, impl=impl)
+        cache.kv["page_table"].copy_(rows)
+        cache = cache._replace(pos=chunk["length"].clone())
+        dl, _ = decode_step(params, cfg, cache, toks[:, -1:], impl=impl)
+        res[impl] = (cl.float(), dl.float())
+    for i, name in enumerate(("chunk", "decode")):
+        a, b = res["cuda"][i], res["torch"][i]
+        require(a.shape == (B, cfg.padded_vocab), f"moe {name}: {a.shape}")
+        require(torch.isfinite(a).all(), f"moe {name} logits: non-finite")
+        rel = float((a - b).norm() / b.norm())
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        print(f"[moe:steps] {name} logits kernels vs plain: rel err "
+              f"{rel:.3e}, argmax agreement {same:.2f}")
+        require(rel < 0.05, f"moe {name} logits rel err {rel}")
+    mlp = params["layers"]["mlp"]
+    layer = {"router": {"w": mlp["router"]["w"][0]},
+             **{n: mlp[n][0] for n in ("gate", "up", "down")}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for nrows, S in ((B, 1), (2, T)):
+        x = torch.randn(nrows, S, cfg.d_model, generator=gen,
+                        device=dev).bfloat16()
+        out, _ = moe.moe_block(layer, cfg, x, impl="cuda")
+        plain, _ = moe.moe_block(layer, cfg, x, impl="torch")
+        require(torch.isfinite(out.float()).all(), "moe block: non-finite")
+        require(torch.equal(out, plain), f"moe block ({nrows} x {S}): the "
+                "kernel gathers' output is not bitwise the plain gathers'")
+        print(f"[moe:steps] moe_block {nrows} x {S} x {cfg.d_model}: kernel "
+              "gathers bitwise the plain gathers")
+
+
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
 _ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
               "a": "int8", "f": "f32"}
@@ -1000,6 +1333,8 @@ def ptxas_summary(log: str):
 def _kind(name: str) -> str:
     if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
         return "attention kernels"
+    if "gather_rows_kernel" in name or "gather_blocks_kernel" in name:
+        return "gather kernels"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products"
     if name.startswith("Memcpy") or name.startswith("Memset"):
@@ -1007,21 +1342,20 @@ def _kind(name: str) -> str:
     return "other kernels"
 
 
-def profile_engine(cfg, params, path: str, spec_factory) -> None:
-    """One more (warm) run of phase 3, of phase 4's oracle run and of
-    phase 3q's int8 run under ``torch.profiler``: device time by kind of
-    kernel, and the device's busy share of the wall time."""
+def _suffixed(path: Path, tag: str) -> Path:
+    return path.with_name(f"{path.stem}-{tag}{path.suffix}")
+
+
+def profile_engine(cfg, params, runs) -> None:
+    """One more (warm) engine run of each of ``runs`` — (tag, proposer
+    factory, kv_quant, table path) — under ``torch.profiler``: device
+    time by kind of kernel, and the device's busy share of the wall
+    time; the per-kernel table goes to the path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = Path(path)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    for tag, factory, kv_quant, table in (
-            ("plain", None, "none", out),
-            ("spec:oracle", spec_factory, "none",
-             out.with_name(f"{out.stem}-spec{out.suffix}")),
-            ("quant:int8", None, "int8",
-             out.with_name(f"{out.stem}-int8{out.suffix}"))):
+    for tag, factory, kv_quant, table in runs:
+        table.parent.mkdir(parents=True, exist_ok=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
@@ -1066,7 +1400,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # 1. build
-    every = (*ops.KERNELS, *ops.DENSE_KERNELS, *ops.SSM_KERNELS)
+    every = (*ops.KERNELS, *ops.DENSE_KERNELS, *ops.SSM_KERNELS,
+             *ops.GATHER_KERNELS)
     secs = build_all(every)
     sources = {k.source.name: k.build_log for k in every}
     print(f"[build] {len(every)} entry points from {len(sources)} "
@@ -1096,6 +1431,9 @@ def main(argv=None) -> int:
     dense_rows, paged_cases, dense_outs = check_dense(dev)
     for r in rows:
         r["cases"] = paged_cases.get(r["name"], [])
+
+    # 2g. the indexed gathers vs their plain versions, bitwise
+    gather_entries, gather_outs = check_gathers(dev)
 
     # 3. the engine at full width
     cfg = get_config(ARCH)
@@ -1316,12 +1654,33 @@ def main(argv=None) -> int:
     # 5. full-width step check against the plain versions
     check_steps(cfg, params, dev)
     if args.profile_out:
-        profile_engine(cfg, params, args.profile_out, oracle)
+        out_path = Path(args.profile_out)
+        profile_engine(cfg, params, (
+            ("plain", None, "none", out_path),
+            ("spec:oracle", oracle, "none", _suffixed(out_path, "spec")),
+            ("quant:int8", None, "int8", _suffixed(out_path, "int8"))))
 
     # 6. the kernel-level entry points as a user calls them
     dense_launches = run_dense_path(dev, dense_outs)
     for r in dense_rows:
         r["launches"] = dense_launches[r["name"]]
+    gather_launches = run_gather_path(dev, gather_outs)
+
+    # 7. the MoE family on the engine: olmoe-1b-7b at full width, in the
+    #    memory phi4's weights leave
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cfg, moe_params, moe_launches = serve_moe(dev)
+    for r in gather_entries:
+        r["launches"] = (moe_launches[r["name"]]
+                         if r["name"] == moe_gather.KERNELS[torch.bfloat16].name
+                         else gather_launches[r["name"]])
+    # 7s. full-width MoE step check and the MoE block's gathers
+    check_moe_steps(moe_cfg, moe_params, dev)
+    if args.profile_out:
+        profile_engine(moe_cfg, moe_params, (
+            ("olmoe", None, "none", _suffixed(out_path, "olmoe")),))
 
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
@@ -1333,7 +1692,7 @@ def main(argv=None) -> int:
         rows[3 * i]["launches"] = plain[dec_mod.KERNELS[dt].name]
         rows[3 * i + 1]["launches"] = plain[pre_mod.KERNELS[dt].name]
         rows[3 * i + 2]["launches"] = spec[dec_mod.VERIFY_KERNELS[dt].name]
-    print(json.dumps({"kernels": rows + dense_rows}))
+    print(json.dumps({"kernels": rows + dense_rows + gather_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

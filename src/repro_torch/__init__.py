@@ -7,7 +7,8 @@ paging, the serving policy) is copied here; the tensor code is rewritten
 on PyTorch, and the TPU kernels on the serving path are hand-written
 CUDA for Hopper (``kernels/csrc``).
 
-This slice serves the dense ``phi4-mini-3.8b`` decoder through the paged,
-chunked-prefill engine (:mod:`repro_torch.serve`).  Entry points place
-their tensors on ``cuda`` unless the caller passes ``device="cpu"``.
+It serves the dense ``phi4-mini-3.8b`` and the MoE ``olmoe-1b-7b``
+decoders through the paged, chunked-prefill engine
+(:mod:`repro_torch.serve`).  Entry points place their tensors on
+``cuda`` unless the caller passes ``device="cpu"``.
 """

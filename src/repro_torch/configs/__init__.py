@@ -2,8 +2,9 @@
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_smoke(arch_id)`` returns a reduced same-family config for CPU tests.
-Only the dense ``phi4-mini-3.8b`` is registered: the other architectures
-arrive with their model families.
+Registered: the dense ``phi4-mini-3.8b`` and the MoE ``olmoe-1b-7b``
+(64 experts top-8 on every layer); the other architectures arrive with
+their model families.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -29,13 +29,28 @@ import torch
 
 __all__ = ["CudaKernel", "build_all", "check_operand", "kernel_per_dtype",
            "dense_kernels", "check_dense", "check_heads", "scale_pointers",
-           "kernel_chunk", "state_slice", "BUILD_DIR", "NVCC_FLAGS",
-           "POOL_DTYPES", "DENSE_DTYPES", "HEAD_DIMS"]
+           "kernel_chunk", "state_slice", "resolve_impl", "BUILD_DIR",
+           "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES", "HEAD_DIMS", "IMPLS"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+#: a wrapper's ``impl``: the kernel, the plain version, or by device
+IMPLS = ("auto", "torch", "cuda")
+
+
+def resolve_impl(impl: str, x) -> str:
+    """``impl`` itself, or for ``"auto"`` the kernel (``"cuda"``) when
+    ``x`` lies on a CUDA device and the plain version (``"torch"``)
+    otherwise; ValueError for an unknown name."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r}; expected {IMPLS}")
+    if impl != "auto":
+        return impl
+    return "cuda" if x.is_cuda else "torch"
 
 
 def _nvcc() -> str:

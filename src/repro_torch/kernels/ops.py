@@ -15,9 +15,9 @@ implementations dequantize with them, the kernels as they load each
 element, the plain versions on the gathered view.
 
 The kernel-level entry points :func:`matmul`, :func:`flash_attention`,
-:func:`decode_attention`, :func:`wkv6` and :func:`ssd` are the
-reference's (``kernels/ops.py``), with its signatures, layouts and
-keyword names, on f32 or bf16 operands.
+:func:`decode_attention`, :func:`wkv6`, :func:`ssd` and
+:func:`gather_rows` are the reference's (``kernels/ops.py``), with its
+signatures, layouts and keyword names, on f32 or bf16 operands.
 """
 
 from __future__ import annotations
@@ -30,15 +30,16 @@ from repro_torch.kernels import amu_matmul as _amu
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba2 as _mamba2
+from repro_torch.kernels import moe_gather as _gather
 from repro_torch.kernels import rwkv6 as _rwkv6
+from repro_torch.kernels.build import IMPLS, resolve_impl
 from repro_torch.kernels.kv_quant import QUANT_DTYPES
 
 __all__ = ["matmul", "flash_attention", "decode_attention",
            "paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention", "wkv6", "ssd", "resolve_impl",
-           "KERNELS", "DENSE_KERNELS", "SSM_KERNELS", "IMPLS"]
-
-IMPLS = ("auto", "torch", "cuda")
+           "paged_prefill_attention", "wkv6", "ssd", "gather_rows",
+           "resolve_impl", "KERNELS", "DENSE_KERNELS", "SSM_KERNELS",
+           "GATHER_KERNELS", "IMPLS"]
 
 #: every CUDA kernel on the serving path, one entry per pool dtype
 #: (build, launch counts): decode, prefill, verify
@@ -51,14 +52,10 @@ DENSE_KERNELS = (*_amu.KERNELS.values(), *_flash.DENSE_KERNELS.values(),
 #: the CUDA kernels of the linear-recurrence entry points, one entry per
 #: dtype (f32, bf16): wkv6 (RWKV-6), ssd (Mamba2)
 SSM_KERNELS = (*_rwkv6.KERNELS.values(), *_mamba2.KERNELS.values())
-
-
-def resolve_impl(impl: str, x) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown kernel impl {impl!r}; expected {IMPLS}")
-    if impl != "auto":
-        return impl
-    return "cuda" if x.is_cuda else "torch"
+#: the CUDA kernels of the indexed gathers, one entry per dtype (f32,
+#: bf16): gather_rows (MoE dispatch and combine), gather_blocks
+GATHER_KERNELS = (*_gather.KERNELS.values(),
+                  *_gather.BLOCK_KERNELS.values())
 
 
 def matmul(x, w, *, impl: str = "auto", bm: Optional[int] = None,
@@ -185,3 +182,10 @@ def ssd(x, dt, A, B, C, D, *, impl: str = "auto", chunk: int = 128):
     if resolve_impl(impl, x) == "torch":
         return _mamba2.ssd_torch(x, dt, A, B, C, D, chunk=chunk)
     return _mamba2.ssd_cuda(x, dt, A, B, C, D, chunk=chunk)
+
+
+def gather_rows(src, idx, *, impl: str = "auto", **kw):
+    """Row gather out[i] = src[idx[i]]: src (N, d) f32 or bf16, idx (M,)
+    int32; ``rows_per_block`` (default 8) must divide M.  A gather moves
+    bits only: kernel and plain version give the same output."""
+    return _gather.gather_rows(src, idx, impl=impl, **kw)

@@ -1,6 +1,7 @@
 """Plain oracles for the port's kernels: torch copies of the JAX
 package's ``kernels/ref.py`` (``matmul_ref``, ``attention_ref``,
-``decode_attention_ref``, ``wkv6_ref``, ``ssd_ref``, lines 22-72).
+``decode_attention_ref``, ``wkv6_ref``, ``ssd_ref``, ``gather_rows_ref``,
+lines 22-76).
 
 Deliberately naive — full materialisation, no chunking — so they stay
 obviously correct.  Operands are widened to f32 and the result is cast
@@ -14,7 +15,7 @@ import math
 import torch
 
 __all__ = ["matmul_ref", "attention_ref", "decode_attention_ref",
-           "wkv6_ref", "ssd_ref"]
+           "wkv6_ref", "ssd_ref", "gather_rows_ref"]
 
 
 def matmul_ref(x, w):
@@ -67,3 +68,8 @@ def ssd_ref(x, dt, A, B, C, D):
     from repro_torch.models.ssm import ssd_sequential
     y, _ = ssd_sequential(x, dt, A, B, C, D)
     return y
+
+
+def gather_rows_ref(src, idx):
+    """Row gather: out[i] = src[idx[i]].  src: (N, d); idx: (M,) int32."""
+    return src.index_select(0, idx)

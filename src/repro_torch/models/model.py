@@ -1,5 +1,11 @@
-"""Dense decoder on the paged KV pool: the serving subset of
+"""Dense and MoE decoders on the paged KV pool: the serving subset of
 ``repro.models.model``.
+
+The MoE family runs with an expert block on every layer
+(``moe_every == 1``, no shared expert): the reference's plain layer
+stack with :func:`repro_torch.models.moe.moe_block` in place of the
+SwiGLU MLP.  The grouped stack of ``moe_every > 1`` (llama4) is not
+ported.
 
 Parameters are a nested dict of tensors with the JAX package's path
 names, the layer stack stacked on axis 0 (``params["layers"]["attn"]
@@ -11,7 +17,7 @@ stacked pool; the attention blocks update those views in place.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,29 +27,43 @@ from repro_torch.models.attention import (init_paged_kv_cache,
                                           paged_prefill_block,
                                           paged_verify_block)
 from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
+from repro_torch.models.moe import moe_block, moe_init
 
 Params = Dict[str, Any]
 
 __all__ = ["init_params", "cast_params", "PagedCache", "init_paged_cache",
-           "decode_step", "verify_step", "prefill_chunk", "torch_dtype"]
+           "decode_step", "verify_step", "prefill_chunk", "torch_dtype",
+           "family_ported"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def family_ported(cfg: ModelConfig) -> bool:
+    """A dense decoder, or an MoE one with an expert block on every layer
+    and no shared expert."""
+    if cfg.family == "dense":
+        return not cfg.num_experts
+    return (cfg.family == "moe" and cfg.num_experts > 0
+            and cfg.moe_every == 1 and not cfg.shared_expert)
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts:
+    if not family_ported(cfg):
         raise NotImplementedError(
-            f"family {cfg.family!r} (experts={cfg.num_experts}) is not "
-            "ported yet; the port serves dense decoders")
+            f"family {cfg.family!r} (experts={cfg.num_experts}, moe_every="
+            f"{cfg.moe_every}, shared_expert={cfg.shared_expert}) is not "
+            "ported yet; the port serves dense decoders and MoE ones with "
+            "an expert block on every layer and no shared expert")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random parameters with the JAX ``init_params`` shapes and scales
     (dense weights ~ N(0, 1/d_in), embeddings ~ N(0, 0.02²), norm scales
-    1), drawn from ``generator`` on ``device`` in ``cfg.param_dtype``."""
+    1, the MoE layers' as :func:`~repro_torch.models.moe.moe_init`),
+    drawn from ``generator`` on ``device`` in ``cfg.param_dtype``."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     L, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
@@ -72,7 +92,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "attn_norm": ones(L, d),
             "attn": attn,
             "mlp_norm": ones(L, d),
-            "mlp": {"gate": w(d, ff), "up": w(d, ff), "down": w(ff, d)},
+            "mlp": (moe_init(cfg, generator, device, dtype, layers=L)
+                    if cfg.num_experts else
+                    {"gate": w(d, ff), "up": w(d, ff), "down": w(ff, d)}),
         },
     }
     if not cfg.tie_embeddings:
@@ -80,18 +102,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def cast_params(params: Params, compute_dtype: torch.dtype,
+def cast_params(params: Params, compute_dtype: Optional[torch.dtype],
                 device) -> Params:
     """Move ``params`` to ``device`` and cast the matrix weights (dense
-    ``w``/``b``, embedding tables) to ``compute_dtype`` — the cast the JAX
-    package repeats inside every ``dense`` call, done once.  Norm scales
-    keep their dtype (the norms read them in f32).  Tensors already in
-    place are returned as they are, not copied."""
+    ``w``/``b``, embedding tables, the MoE expert stacks ``gate``/``up``/
+    ``down``) to ``compute_dtype`` — the cast the JAX package repeats
+    inside every ``dense`` and expert einsum, done once.  Norm scales and
+    the MoE router keep their dtype (the norms and the routing compute
+    in f32).  Tensors already in place are returned as they are, not
+    copied."""
     out = {}
     for name, leaf in params.items():
-        if isinstance(leaf, dict):
+        if name == "router":
+            out[name] = cast_params(leaf, None, device)
+        elif isinstance(leaf, dict):
             out[name] = cast_params(leaf, compute_dtype, device)
-        elif name in ("w", "b", "table"):
+        elif compute_dtype is not None and name in ("w", "b", "table",
+                                                    "gate", "up", "down"):
             out[name] = leaf.to(device=device, dtype=compute_dtype)
         else:
             out[name] = leaf.to(device=device)
@@ -131,12 +158,15 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                     cache: PagedCache, attn: Callable, cdt) -> torch.Tensor:
-    """The dense layer stack shared by one-token decode, speculative
-    verify and chunked prefill; ``attn(p, h, k_layer, v_layer, scales)``
-    runs one attention block on the pre-normed hidden ``h`` against that
-    layer's pool view (``scales`` the layer's (k, v) scale rows of a
-    quantized pool, else None)."""
+                     cache: PagedCache, attn: Callable, cdt,
+                     impl: str) -> torch.Tensor:
+    """The dense or MoE layer stack shared by one-token decode,
+    speculative verify and chunked prefill; ``attn(p, h, k_layer,
+    v_layer, scales)`` runs one attention block on the pre-normed hidden
+    ``h`` against that layer's pool view (``scales`` the layer's (k, v)
+    scale rows of a quantized pool, else None).  An MoE layer's expert
+    block gathers through ``impl``, each row of ``x`` its own sequence,
+    as in the reference."""
     kv = cache.kv
     kp, vp = kv["k_pages"], kv["v_pages"]
     ks, vs = kv.get("k_scales"), kv.get("v_scales")
@@ -147,7 +177,11 @@ def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
         x = x + attn(lp["attn"], rms_norm(lp["attn_norm"], x, cfg.norm_eps),
                      kp[l], vp[l], scales)
         h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h, cdt)
+        if cfg.num_experts:
+            m, _ = moe_block(lp["mlp"], cfg, h, compute_dtype=cdt, impl=impl)
+        else:
+            m = swiglu(lp["mlp"], h, cdt)
+        x = x + m
     return x
 
 
@@ -177,7 +211,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PagedCache,
                                             compute_dtype=cdt, impl=impl,
                                             scales=scales)
 
-    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
     return _logits(params, cfg, x, cdt)[:, 0], cache._replace(pos=pos + 1)
 
 
@@ -193,7 +227,7 @@ def verify_step(params: Params, cfg: ModelConfig, cache: PagedCache,
     Logits row ``s`` predicts the token at position ``pos + s + 1``.
     ``cache.pos`` is NOT advanced: how many rows commit is decided on the
     host after the argmax comparison, and the engine writes the rewound
-    positions back.  Paged cache, dense family, no SWA only."""
+    positions back.  Paged cache, dense or MoE family, no SWA only."""
     if not isinstance(cache, PagedCache):
         raise ValueError("verify_step requires a PagedCache")
     _check_family(cfg)
@@ -209,7 +243,7 @@ def verify_step(params: Params, cfg: ModelConfig, cache: PagedCache,
                                   compute_dtype=cdt, impl=impl,
                                   scales=scales)
 
-    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
     return _logits(params, cfg, x, cdt), cache
 
 
@@ -239,7 +273,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
                                    length, positions, compute_dtype=cdt,
                                    impl=impl, scales=scales)
 
-    x = _decode_families(params, cfg, x, cache, attn, cdt)
+    x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
     idx = torch.clamp(length - 1, 0, T - 1).long()
     x_last = x[torch.arange(C, device=x.device), idx][:, None]
     return _logits(params, cfg, x_last, cdt)[:, 0], cache

@@ -51,8 +51,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_quant import KVQuantConfig
-from repro_torch.models.model import (cast_params, init_paged_cache,
-                                      torch_dtype)
+from repro_torch.models.model import (cast_params, family_ported,
+                                      init_paged_cache, torch_dtype)
 from repro_torch.obs import (MetricsRegistry, Tracer, to_chrome_trace,
                              write_chrome_trace, write_metrics)
 from repro_torch.paging import (DeadlineQueue, EventKind, EventLoop, PagePool,
@@ -114,8 +114,9 @@ def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
         "offload_finished": pg.offload_finished,
         "chunk_tokens unset (whole-prompt dense prefill)":
             not ck.chunk_tokens,
-        f"family {cfg.family!r} with {cfg.num_experts} experts":
-            cfg.family != "dense" or bool(cfg.num_experts),
+        f"family {cfg.family!r} with {cfg.num_experts} experts, moe_every "
+        f"{cfg.moe_every}, shared_expert {cfg.shared_expert}":
+            not family_ported(cfg),
     }
     missing = [name for name, on in unported.items() if on]
     if missing:

@@ -21,7 +21,11 @@ configs (G 5 and 12, head dims 16, 32 and 80).  The linear recurrences
 (wkv6, ssd) are held to their plain chunked versions in f32 at the
 reference's kernel-vs-chunked bar, < 1e-5, and to the sequential
 oracles at < 1e-4 (``tests/test_kernels.py:117-158``), in bf16 at the
-bars above.
+bars above.  The indexed gathers (gather_rows, gather_blocks) only move
+bits, so they are held to their plain versions bitwise, the reference's
+bar (``tests/test_kernels.py:174``, ``:183``), on the 16-byte vector path
+and the element path; the MoE block must give the same bits with its
+gathers on the kernel as with them plain, and the same bits twice.
 """
 
 import dataclasses
@@ -32,8 +36,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import amu_matmul, mamba2, ops, ref, rwkv6
+from repro_torch.kernels import (amu_matmul, mamba2, moe_gather, ops, ref,
+                                 rwkv6)
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize
+from repro_torch.models import moe
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
                                       PagingConfig, SpeculationConfig)
@@ -506,3 +512,106 @@ def test_ssm_kernels_match_plain(full_f32, dtype, kind, B, T, H, W, N,
         _assert_agree(out, plain)
     with pytest.raises(ValueError, match="not a multiple"):
         call("cuda", T // 2 + 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,M,rpb", [
+    (64, 128, 32, 8), (128, 256, 64, 16), (32, 128, 8, 8),  # reference's
+    (9, 2048, 512, 8),                 # olmoe decode dispatch
+    (50, 3, 12, 4),                    # rows of 3 elements: element path
+    (40, 7, 6, 1),
+])
+def test_gather_rows_kernel_bitwise_plain(dev, dtype, N, d, M, rpb):
+    gen = torch.Generator(device=dev).manual_seed(N + M)
+    src = torch.randn(N, d, generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, N, (M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kernel = moe_gather.KERNELS[dtype]
+    before = kernel.launches
+    out = ops.gather_rows(src, idx, rows_per_block=rpb)
+    assert kernel.launches == before + 1
+    assert torch.equal(out, ops.gather_rows(src, idx, impl="torch",
+                                            rows_per_block=rpb))
+    # a source view that starts 4 bytes into its storage: element path
+    off = torch.randn(N * d + 1, generator=gen, device=dev).to(dtype)[1:]
+    off = off.view(N, d)
+    assert torch.equal(ops.gather_rows(off, idx, impl="cuda",
+                                       rows_per_block=rpb), off[idx.long()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,Mb,rows", [(64, 128, 6, 8),
+                                         (448 * 16, 1024, 128, 16),
+                                         (30, 5, 4, 3)])
+def test_gather_blocks_kernel_bitwise_plain(dev, dtype, N, d, Mb, rows):
+    gen = torch.Generator(device=dev).manual_seed(Mb)
+    src = torch.randn(N, d, generator=gen, device=dev).to(dtype)
+    bidx = torch.randint(0, N // rows, (Mb,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    kernel = moe_gather.BLOCK_KERNELS[dtype]
+    before = kernel.launches
+    out = moe_gather.gather_blocks(src, bidx, block_rows=rows)
+    assert kernel.launches == before + 1
+    assert torch.equal(out, moe_gather.gather_blocks(src, bidx,
+                                                     block_rows=rows,
+                                                     impl="torch"))
+
+
+def test_gather_kernels_reject_what_they_do_not_take(dev):
+    src = torch.zeros(16, 8, device=dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="idx"):
+        ops.gather_rows(src, idx.long())
+    with pytest.raises(TypeError, match="src"):
+        ops.gather_rows(src.half(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gather_rows(src.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="idx is on"):
+        ops.gather_rows(src, idx.cpu())
+
+
+@pytest.mark.parametrize("B,S", [(8, 1), (2, 64), (3, 5)])
+def test_moe_block_kernel_gathers_bitwise_plain(dev, B, S):
+    """The MoE block with both gathers on the kernel gives the bits it
+    gives with them plain, and the same bits on a second run (the
+    combine sums in a fixed order, no atomics)."""
+    cfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), d_model=256,
+                              d_ff=128, num_experts=16, experts_per_token=4)
+    gen = torch.Generator(device=dev).manual_seed(B * S)
+    p = moe.moe_init(cfg, gen, dev)
+    p = {**p, **{n: p[n].bfloat16() for n in ("gate", "up", "down")}}
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).bfloat16()
+    kernel = moe_gather.KERNELS[torch.bfloat16]
+    before = kernel.launches
+    out, aux = moe.moe_block(p, cfg, x)
+    assert kernel.launches == before + 2
+    plain, plain_aux = moe.moe_block(p, cfg, x, impl="torch")
+    again, _ = moe.moe_block(p, cfg, x)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, plain) and torch.equal(aux, plain_aux)
+    assert torch.equal(out, again)
+
+
+def test_moe_engine_serves_through_the_kernels(dev):
+    """The olmoe SMOKE config with 128-wide heads on an oversubscribed
+    pool: every request finished, the paged kernels and the bf16 row
+    gather launched, and a roomy pool gives the same tokens."""
+    cfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), head_dim=128)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    kernels = [decode_attention.KERNEL, flash_attention.KERNEL,
+               moe_gather.KERNELS[torch.bfloat16]]
+    counts = [k.launches for k in kernels]
+    outs = []
+    for pages in (10, None):
+        eng = Engine(cfg, params, EngineConfig(
+            max_batch=3, max_len=64, device="cuda",
+            paging=PagingConfig(page_size=4, device_pages=pages),
+            chunking=ChunkingConfig(chunk_tokens=8, chunk_slots=2)))
+        rng = np.random.default_rng(2)
+        for n in (13, 6, 17, 9, 20, 5):
+            eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=7)
+        outs.append(eng.run())
+        assert sorted(len(v) for v in outs[-1].values()) == [7] * 6
+        assert (eng.stats["preemptions"] > 0) == (pages is not None)
+    assert outs[0] == outs[1]
+    assert all(k.launches > c for k, c in zip(kernels, counts))
