@@ -9,12 +9,16 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    pool, int8 and fp8 frames of the quantized pool), the five of
    the kernel-level entry points (AMU matmul, dense flash attention,
    dense decode attention, and the RWKV-6 and Mamba2 recurrences wkv6
-   and ssd), each with an f32 and a bf16 entry point, and the two
-   indexed gathers of ``moe_gather.cu`` (gather_rows, gather_blocks, f32
-   and bf16) — 23 entry points from 9 sources —
-   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``,
-   one compiler per source, started together, and prints each source's
-   registers and spills per element type (``-Xptxas -v``);
+   and ssd), each with an f32 and a bf16 entry point (the bf16 matmul
+   is a source of its own, ``amu_matmul_sm90.cu``: TMA, mbarriers and
+   wgmma), and the two indexed gathers of ``moe_gather.cu``
+   (gather_rows, gather_blocks, f32 and bf16) — 23 entry points from 10
+   sources — from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
+   ``sm_90a``, one compiler per source, started together, and prints
+   each source's registers and spills per element type (``-Xptxas
+   -v``); the bf16 matmul must spill nowhere, and its SASS
+   (``cuobjdump``) must hold tensor-core products (``HGMMA``) and TMA
+   loads (``UTMALDG``);
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
    int8 and fp8 pools quantized from the same kind of normal draw with
@@ -61,7 +65,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    PyTorch call computes the function (``torch.matmul``,
    ``scaled_dot_product_attention``; none computes WKV6 or SSD) and
    computes each case's bound (f32 operations at the card's FP32
-   CUDA-core rate: TF32 is off);
+   CUDA-core rate: TF32 is off).  The bf16 matmul cases must also give
+   x's columns exactly through a selection matrix w, and are timed as
+   phase 2g times the gathers (``cold_ms``), kernel and ``torch.matmul``
+   alike, with the one-call times beside them;
 2g. holds each gather entry point against its plain version
    (``index_select``) bitwise, the reference's bar: f32 at the
    reference's test shapes, bf16 at olmoe-1b-7b's full width with the
@@ -164,7 +171,9 @@ import argparse
 import gc
 import hashlib
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -175,7 +184,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
@@ -208,7 +218,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 L2_BYTES = 50 * 2**20            # H100 SXM L2, published
 ROTATE_BYTES = 4 * L2_BYTES      # what cold_ms flushes and cycles through
 MAX_SETS = 512                   # input sets (and calls) a cold_ms batch
-SLEEP_CYCLES_PER_CALL = 200_000  # ~0.1 ms of device sleep per queued call
+SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of device sleep per queued call
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12               # H100 SXM f32 on the CUDA cores (no TF32)
 F32_TOL = 5e-6                   # max |err| / max |ref|, the reference's bar
@@ -713,7 +723,9 @@ def dense_inputs(i: int, dev):
     bytes, flops, extra), where ``call(impl)`` runs the ops entry point
     on inputs drawn from generators seeded by ``i`` (phase 6 draws them
     again) and ``extra`` is the sequential oracle of a recurrence, the
-    per-row decode calls of a verify case or a prefill case's lengths."""
+    per-row decode calls of a verify case, a prefill case's lengths or a
+    matmul's operands (x, w), which its call and library call also take
+    as arguments."""
     kind, dt, _, c = DENSE_CASES[i]
     if kind in _PAGED_ROW:
         return paged_inputs(kind, c, i, dev)
@@ -733,9 +745,10 @@ def dense_inputs(i: int, dev):
         M, K, N = c["M"], c["K"], c["N"]
         x, w = rand(M, K), rand(K, N)
         tiles = {t: c[t] for t in ("bm", "bk", "bn") if t in c}
-        return ((lambda impl="auto": ops.matmul(x, w, impl=impl, **tiles)),
-                (lambda: torch.matmul(x, w)), (M * K + K * N + M * N) * el,
-                2 * M * K * N, None)
+        return ((lambda impl="auto", x=x, w=w: ops.matmul(
+                    x, w, impl=impl, **tiles)),
+                (lambda x=x, w=w: torch.matmul(x, w)),
+                (M * K + K * N + M * N) * el, 2 * M * K * N, (x, w))
     if kind == "flash":
         B, H, Hkv, Sq, Skv, D = (c[n] for n in ("B", "H", "Hkv", "Sq",
                                                  "Skv", "D"))
@@ -774,11 +787,45 @@ def _rel(out, ref) -> tuple:
     return err, err / float(r.abs().max())
 
 
+def check_selection(what: str, call, x, w, seed: int) -> None:
+    """A bf16 matmul's w replaced by a selection matrix, w[src[n], n] = 1:
+    every output column must be x's column src[n] bit for bit (a wrong
+    bit of a shared-memory descriptor gives plausible but wrong
+    numbers)."""
+    (K, N), dev = w.shape, w.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randperm(max(K, N), generator=gen, device=dev)[:N] % K
+    sel = torch.zeros_like(w)
+    sel[src, torch.arange(N, device=dev)] = 1
+    bad = (call("cuda", x, sel) != x[:, src]).any(dim=0).sum()
+    require(int(bad) == 0, f"{what}: {int(bad)} of {N} output columns of a "
+            "selection matrix are not x's columns")
+
+
+def cold_matmul(call, lib, operands) -> dict:
+    """A bf16 matmul case timed as phase 2g times the gathers
+    (:func:`cold_ms`: L2 flushed, copies of the operands spanning
+    :data:`ROTATE_BYTES` rotated, the calls queued behind a device sleep,
+    so neither L2 nor the wrapper's host work enters), the kernel and
+    ``torch.matmul`` alike, with each one's one-call :func:`time_ms`
+    beside it."""
+    nbytes = sum(t.numel() * t.element_size() for t in operands)
+    n_sets = min(MAX_SETS, -(-ROTATE_BYTES // nbytes))
+    sets = [operands] + [tuple(t.clone() for t in operands)
+                         for _ in range(n_sets - 1)]
+    return {"ms": cold_ms(lambda x, w: call("cuda", x, w), sets),
+            "library_ms": cold_ms(lib, sets),
+            "one_call_ms": time_ms(lambda: call("cuda")),
+            "library_one_call_ms": time_ms(lib),
+            "sets_span_bytes": n_sets * nbytes}
+
+
 def check_case(i: int, dev):
     """Case ``i``: kernel against plain version at its bar (and a verify
     case's rows against the decode kernel, bitwise; an f32 recurrence
-    against its sequential oracle too), timed; returns (the case's
-    numbers, the kernel output on the host)."""
+    against its sequential oracle too; a bf16 matmul against a selection
+    matrix, exactly), timed; returns (the case's numbers, the kernel
+    output on the host)."""
     kind, dt, label, shape = DENSE_CASES[i]
     call, lib, nbytes, flops, extra = dense_inputs(i, dev)
     out, ref = call("cuda"), call("torch")
@@ -810,19 +857,28 @@ def check_case(i: int, dev):
         require(diff == 0, f"{what}: row s is not bitwise the decode "
                 "kernel at lengths[:, s]")
         acc["vs_decode"] = diff
+    cold = kind == "matmul" and dt == torch.bfloat16
+    if cold:
+        check_selection(what, call, *extra, SEED + 300 + i)
     b_ms, b_by = bound(nbytes, flops, dt)
     case = {"case": label, **shape, "max_abs_err": err, **acc,
-            "ms": time_ms(lambda: call("cuda")),
+            **(cold_matmul(call, lib, extra) if cold else {
+                "ms": time_ms(lambda: call("cuda")),
+                "library_ms": None if lib is None else time_ms(lib)}),
             "plain_ms": time_ms(lambda: call("torch"),
                                 reps=3 if kind in _NO_LIBRARY else 10),
-            "library_ms": None if lib is None else time_ms(lib),
             "bound_ms": b_ms, "bound_by": b_by}
     if kind in _NO_LIBRARY:
         case["library"] = _NO_LIBRARY[kind]
     lib_txt = (_NO_LIBRARY.get(kind, "n/a") if case["library_ms"] is None
                else f"{case['library_ms']:.4f}")
-    print(f"[dense] {what}: kernel_ms {case['ms']:.4f} plain_ms "
-          f"{case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
+    if cold:
+        lib_txt += (f" (cold; one call {case['library_one_call_ms']:.4f}) "
+                    f"kernel/library {case['ms'] / case['library_ms']:.2f}x, "
+                    f"selection matrix exact")
+    print(f"[dense] {what}: kernel_ms {case['ms']:.4f}"
+          + (f" (cold; one call {case['one_call_ms']:.4f})" if cold else "")
+          + f" plain_ms {case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
           f"{b_ms:.4f} ({b_by}) max_abs_err {err:.3e} "
           + " ".join(f"{k} {v:.3e}" for k, v in acc.items()))
     return case, out.cpu()
@@ -835,6 +891,8 @@ def check_dense(dev):
     paged kernels' cases by phase 2's row name, and each case's kernel
     output, on the host, for phase 6."""
     rows, paged, outs = {}, {}, []
+    sources = {k.name: k.source for k in (*ops.DENSE_KERNELS,
+                                          *ops.SSM_KERNELS)}
     for i, (kind, dt, _, _) in enumerate(DENSE_CASES):
         case, out = check_case(i, dev)
         outs.append(out)
@@ -846,7 +904,7 @@ def check_dense(dev):
         if name not in rows:
             rows[name] = {
                 "name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "source": str(sources[name].relative_to(ROOT)),
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": None,
                 **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -1304,16 +1362,17 @@ _ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
               "a": "int8", "f": "f32"}
 
 
-def ptxas_summary(log: str):
+def ptxas_summary(log: str, default: str = "?"):
     """Per element type of one library's ``nvcc -Xptxas -v`` log:
     (instantiations, fewest and most registers, largest spill store in
-    bytes, instantiations that spill)."""
+    bytes, instantiations that spill); ``default`` names the element
+    type of kernels whose template does not."""
     out, elem = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             found = _ELEM.search(m.group(1))
-            elem = _ELEM_NAME[found.group(1)] if found else "?"
+            elem = _ELEM_NAME[found.group(1)] if found else default
             out.setdefault(elem, {"n": 0, "regs": [], "spill": []})
             out[elem]["n"] += 1
             continue
@@ -1328,6 +1387,18 @@ def ptxas_summary(log: str):
     return {e: (v["n"], min(v["regs"], default=0), max(v["regs"], default=0),
                 max(v["spill"], default=0), sum(x > 0 for x in v["spill"]))
             for e, v in out.items()}
+
+
+def sass_counts(library: Path, opcodes) -> dict:
+    """How many instructions of each opcode a library's SASS holds
+    (``cuobjdump --dump-sass``, from the CUDA toolkit beside ``nvcc``)."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
 def _kind(name: str) -> str:
@@ -1406,11 +1477,20 @@ def main(argv=None) -> int:
     sources = {k.source.name: k.build_log for k in every}
     print(f"[build] {len(every)} entry points from {len(sources)} "
           f"sources in {secs:.1f}s")
+    sm90 = mm_mod.KERNELS[torch.bfloat16]
     for name, log in sources.items():
-        for elem, (n, lo, hi, spill, n_spill) in ptxas_summary(log).items():
+        summary = ptxas_summary(log, "bf16" if name == sm90.source.name
+                                else "?")
+        for elem, (n, lo, hi, spill, n_spill) in summary.items():
             print(f"[build] {name} {elem}: {n} instantiations, registers "
                   f"{lo}-{hi}, largest spill store {spill} B "
                   f"({n_spill} spilling)")
+            require(name != sm90.source.name or n_spill == 0,
+                    f"{name}: {n_spill} instantiations spill")
+    sass = sass_counts(sm90.library_path(), ("HGMMA", "UTMALDG"))
+    print(f"[build] {sm90.source.name} SASS: {sass}")
+    require(all(sass.values()), f"{sm90.source.name}: no tensor-core "
+            f"products or no TMA loads in its SASS: {sass}")
 
     # 2. kernels vs plain versions, every element type of the pool
     rng = np.random.default_rng(SEED)

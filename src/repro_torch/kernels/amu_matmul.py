@@ -1,13 +1,23 @@
-"""AMU matmul: the CUDA kernel and its plain version.
+"""AMU matmul: the CUDA kernels and their plain version.
 
-The CUDA kernel (``csrc/amu_matmul.cu``) replaces the TPU kernel
-``amu_matmul`` of ``src/repro/kernels/amu_matmul.py``
-(``_amu_matmul_kernel``, its ``pallas_call`` at line 117): the paper's
-aload / SPM / getfin model inside one kernel, a two-slot shared-memory
-ring per operand filled by ``cp.async`` groups, tile k + 2 issued into
-the slot tile k has just freed.  Its design notes, and the line-by-line
-map to the TPU kernel, are in the source.  One entry point per dtype:
-f32 and bf16 (x, w and out of the same type).
+Two CUDA kernels replace the TPU kernel ``amu_matmul`` of
+``src/repro/kernels/amu_matmul.py`` (``_amu_matmul_kernel``, its
+``pallas_call`` at line 117): the paper's aload / SPM / getfin model
+inside one kernel.  Their design notes, and the line-by-line maps to the
+TPU kernel, are in the sources.  One entry point per dtype (x, w and out
+of the same type):
+
+* bf16, ``csrc/amu_matmul_sm90.cu``: TMA loads into a ring of stages in
+  shared memory, each completing on an mbarrier, issued by one producer
+  thread; consumer warpgroups multiply with ``wgmma`` on the tensor cores.
+  Its tile is the card's (:func:`sm90_tiles`): the reference's tiles are
+  still planned and validated, as below, and change no bit of the result.
+  TMA needs row strides of a multiple of 16 bytes (:func:`check_tma`).
+* f32, ``csrc/amu_matmul.cu``: a two-slot shared-memory ring per operand
+  filled by ``cp.async`` groups, tile k + 2 issued into the slot tile k
+  has just freed, products on the CUDA cores in f32 (``wgmma``'s only f32
+  mode is TF32, about 1e-3 relative, over the reference's 5e-6 bar).  It
+  runs the reference's tiles as below.
 
 Tiles come from the SPM planner (:func:`repro_torch.core.spm.
 plan_matmul_blocks`) as in the reference (``amu_matmul.py:106-112``),
@@ -15,40 +25,58 @@ planned against the card's opt-in shared memory per block — the SPM on
 Hopper.  The planner counts a bm x bn f32 accumulator in that budget,
 which the kernel keeps in registers, so where it finds no tiles within
 it (f32 at 1024^3 and up) the reference's own plan (its default budget)
-stands.  The reference's tiles, planned or given, then map to the
-kernel's launch tile (:func:`launch_tiles`): the tile itself where one
-block holds it, else the largest sub-tile one block holds; a bk step
+stands.  For f32 the reference's tiles, planned or given, then map to
+the kernel's launch tile (:func:`launch_tiles`): the tile itself where
+one block holds it, else the largest sub-tile one block holds; a bk step
 whose two slots do not fit is split into sub-steps (:func:`k_substep`).
 Each output element sums its K products in order whatever the tiles, so
 the tiles change no bit of the result.
 
 :func:`amu_matmul_torch` is the plain version, the reference's
 ``matmul_ref``: an f32 product cast to x's dtype.  The CPU tests run it,
-and ``chip_smoke.py`` holds the kernel against it on the card.
+and ``chip_smoke.py`` holds the kernels against it on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.spm import plan_matmul_blocks
-from repro_torch.kernels.build import (DENSE_DTYPES, check_operand,
-                                      dense_kernels)
+from repro_torch.kernels.build import (DENSE_DTYPES, CudaKernel,
+                                      check_operand)
 from repro_torch.kernels.ref import matmul_ref
 
 __all__ = ["amu_matmul_torch", "amu_matmul_cuda", "plan_tiles",
-           "launch_tiles", "k_substep", "KERNELS"]
+           "launch_tiles", "k_substep", "sm90_tiles", "sm90_stages",
+           "sm90_smem_bytes", "check_tma", "KERNELS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# x, w, out, M, K, N, then the f32 kernel's (tm, tn, bks) or the bf16
+# kernel's (bm, bn, stages), and the stream
+_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 #: entry point per dtype of x, w and out
-KERNELS = dense_kernels("amu_matmul.cu", "amu_matmul",
-                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+KERNELS = {torch.float32: CudaKernel("amu_matmul.cu", "amu_matmul_f32",
+                                     _ARGS),
+           torch.bfloat16: CudaKernel("amu_matmul_sm90.cu",
+                                      "amu_matmul_bf16", _ARGS)}
 _MICRO = 8           # a thread's output tile is 8 x 8 (csrc kTM, kTN)
 _MAX_THREADS = 256   # csrc kMaxThreads
-_PIECE = 16          # bytes per cp.async copy
+_PIECE = 16          # bytes per cp.async copy and TMA's base alignment
+
+#: the bf16 kernel's tiles (csrc/amu_matmul_sm90.cu): output rows per
+#: block (one or two consumer warpgroups of 64 rows), output columns per
+#: block (whole 64-column boxes of w, the 128-byte swizzle's span), K per
+#: ring stage, the most stages it keeps, and the slack that aligns the
+#: ring to the swizzle's 1024-byte groups
+SM90_BM = (64, 128)
+SM90_BN = (64, 128, 192, 256)
+SM90_BK = 64
+SM90_MAX_STAGES = 8
+_SM90_ALIGN = 1024
 
 amu_matmul_torch = matmul_ref
 
@@ -61,17 +89,72 @@ def plan_tiles(M: int, K: int, N: int, dtype_bytes: int, vmem_budget: int,
     no tiles fit it, against the reference's default budget; ValueError
     unless they tile (M, K, N)."""
     if bm is None or bk is None or bn is None:
-        try:
-            plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes,
-                                      vmem_budget=vmem_budget)
-        except ValueError:      # the reference's plan: its accumulator
-            plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes)
-        bm = bm or min(plan.block_shapes["x"][0], M)
-        bk = bk or min(plan.block_shapes["x"][1], K)
-        bn = bn or min(plan.block_shapes["w"][1], N)
+        pm, pk, pn = _planned(M, K, N, dtype_bytes, vmem_budget)
+        bm, bk, bn = bm or pm, bk or pk, bn or pn
     if M % bm or K % bk or N % bn:
         raise ValueError(f"dims ({M},{K},{N}) must tile by ({bm},{bk},{bn})")
     return bm, bk, bn
+
+
+@functools.lru_cache(maxsize=256)
+def _planned(M: int, K: int, N: int, dtype_bytes: int,
+             vmem_budget: int) -> Tuple[int, int, int]:
+    """The planner's (bm, bk, bn) for these shapes, cut to them: a pure
+    function of its arguments, kept so a call does not plan again."""
+    try:
+        plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes,
+                                  vmem_budget=vmem_budget)
+    except ValueError:      # the reference's plan: its accumulator
+        plan = plan_matmul_blocks(M, K, N, dtype_bytes=dtype_bytes)
+    return (min(plan.block_shapes["x"][0], M),
+            min(plan.block_shapes["x"][1], K),
+            min(plan.block_shapes["w"][1], N))
+
+
+def sm90_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Shared memory of the bf16 kernel's block: ``stages`` stages of a
+    bm x 64 x tile and a 64 x bn w tile in bf16 with two 8-byte
+    mbarriers each, and 1 KiB to align the ring."""
+    return _SM90_ALIGN + stages * ((bm + bn) * SM90_BK * 2 + 16)
+
+
+def sm90_stages(bm: int, bn: int, smem_bytes: int) -> int:
+    """The bf16 kernel's ring depth for a (bm, bn) tile: the most stages,
+    at most 8, that fit in ``smem_bytes`` (csrc ``Tile::kStages``)."""
+    per_stage = sm90_smem_bytes(bm, bn, 1) - _SM90_ALIGN
+    return min(SM90_MAX_STAGES, (smem_bytes - _SM90_ALIGN) // per_stage)
+
+
+@functools.lru_cache(maxsize=256)
+def sm90_tiles(M: int, N: int, sms: int,
+               smem_bytes: int) -> Tuple[int, int, int]:
+    """(bm, bn, stages) of the bf16 kernel for an (M, N) output on a card
+    of ``sms`` SMs: of the tiles it has, the one whose grid takes the
+    least time, reckoned as the waves of blocks over the SMs times a
+    block's work (bm * bn); of two that tie, the larger tile.  Stages
+    from :func:`sm90_stages`; ValueError where fewer than two fit."""
+    def cost(tile):
+        bm, bn = tile
+        blocks = -(-M // bm) * -(-N // bn)
+        return -(-blocks // sms) * bm * bn, -bm * bn
+
+    bm, bn = min(((bm, bn) for bm in SM90_BM for bn in SM90_BN), key=cost)
+    stages = sm90_stages(bm, bn, smem_bytes)
+    if stages < 2:
+        raise ValueError(f"amu_matmul bf16 kernel: two stages of a ({bm}, "
+                         f"{bn}) tile do not fit in {smem_bytes} bytes")
+    return bm, bn, stages
+
+
+def check_tma(K: int, N: int) -> None:
+    """Raise ValueError unless TMA can read the rows of x (M, K) and w
+    (K, N) in bf16: row strides that are multiples of 16 bytes, K and N
+    multiples of 8 (the bases' 16-byte alignment is checked for both
+    kernels)."""
+    if K % 8 or N % 8:
+        raise ValueError(f"amu_matmul bf16 kernel: TMA needs row strides "
+                         f"of a multiple of 16 bytes, K ({K}) and N ({N}) "
+                         f"multiples of 8")
 
 
 def k_substep(bm: int, bk: int, bn: int, elem_bytes: int,
@@ -120,8 +203,11 @@ def launch_tiles(bm: int, bk: int, bn: int, elem_bytes: int,
 
 def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
                     bk: Optional[int] = None, bn: Optional[int] = None):
-    """Launch the kernel: x (M, K) and w (K, N), both f32 or both bf16,
-    contiguous, on one CUDA device.  Returns (M, N) in x's dtype."""
+    """Launch the kernel of x's dtype: x (M, K) and w (K, N), both f32 or
+    both bf16, contiguous, on one CUDA device.  Returns (M, N) in x's
+    dtype.  The tiles are validated as the reference's (ValueError unless
+    they tile the shapes); the f32 kernel runs them, the bf16 kernel its
+    own (:func:`sm90_tiles`)."""
     if not x.is_cuda:
         raise ValueError("amu_matmul_cuda needs CUDA tensors")
     if x.dtype not in DENSE_DTYPES:
@@ -130,12 +216,16 @@ def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
     check_operand("x", x, x.dtype, 2, x.device)
     check_operand("w", w, x.dtype, 2, x.device)
     (M, K), (K2, N) = x.shape, w.shape
-    if K != K2:
+    if K != K2 or not M * K * N:
         raise ValueError(f"matmul of {tuple(x.shape)} and {tuple(w.shape)}")
-    smem = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
+    props = torch.cuda.get_device_properties(x.device)
+    smem = props.shared_memory_per_block_optin
     bm, bk, bn = plan_tiles(M, K, N, x.element_size(), smem, bm, bk, bn)
-    tm, tn, bks = launch_tiles(bm, bk, bn, x.element_size(), smem)
+    if x.dtype == torch.bfloat16:
+        check_tma(K, N)
+        tile = sm90_tiles(M, N, props.multi_processor_count, smem)
+    else:
+        tile = launch_tiles(bm, bk, bn, x.element_size(), smem)
     for name, t in (("x", x), ("w", w)):
         if t.data_ptr() % _PIECE:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -143,5 +233,5 @@ def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         KERNELS[x.dtype].launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                M, K, N, tm, tn, bks, stream)
+                                M, K, N, *tile, stream)
     return out

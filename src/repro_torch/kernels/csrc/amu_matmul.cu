@@ -1,12 +1,12 @@
-// AMU matmul for Hopper (sm_90a): the paper's programming model inside
-// one CUDA kernel.
+// AMU matmul for Hopper (sm_90a), f32: the paper's programming model
+// inside one CUDA kernel.  (The bf16 instance is amu_matmul_sm90.cu.)
 //
 // Replaces the TPU kernel `_amu_matmul_kernel` / `amu_matmul` of
 // src/repro/kernels/amu_matmul.py (its pallas_call at line 117).  Same
 // function: out = x @ w for x (M, K) and w (K, N) in device memory, f32
 // accumulation, out in x's dtype; one block per (bm, bn) output tile,
-// grid (N / bn, M / bm), the K loop inside the block.  Entry points
-// amu_matmul_f32 and amu_matmul_bf16 (x, w and out of that type).
+// grid (N / bn, M / bm), the K loop inside the block.  Entry point
+// amu_matmul_f32 (x, w and out f32; the template also reads bf16).
 //
 // The AMU structure stays explicit, as on the TPU, not left to a
 // compiler's pipelining.  Line by line against _amu_matmul_kernel:
@@ -48,13 +48,11 @@
 // running over the sub-steps.  Each output element still sums its K
 // products in order, one f32 FMA each.
 //
-// Bound on the card: operations, 2 * M * K * N, above the bf16 ridge at
-// the shapes the main path gives it (M = 512, K and N of 3072 and 8192).
-// This first version multiplies on the CUDA cores in f32 (67 TFLOP/s
-// peak, under a tenth of the bf16 tensor rate), so it sits far from the
-// bf16 bound; wgmma from the shared-memory slots, TMA bulk copies
-// completing on mbarriers in place of the per-thread cp.async pieces,
-// and a producer warp are the known next steps.
+// Bound on the card: operations, 2 * M * K * N, at the CUDA cores' f32
+// rate (67 TFLOP/s; TF32 on the tensor cores would miss the reference's
+// 5e-6 bar).  Each thread sums an 8 x 8 output tile with one f32 FMA per
+// product; a redesign for speed (larger register tiles, TMA copies into
+// a deeper ring) is queued in ROADMAP.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,10 +186,4 @@ extern "C" int amu_matmul_f32(const void* x, const void* w, void* out, int M,
                               int K, int N, int bm, int bn, int bks,
                               void* stream) {
   return launch<float>(x, w, out, M, K, N, bm, bn, bks, stream);
-}
-
-extern "C" int amu_matmul_bf16(const void* x, const void* w, void* out, int M,
-                               int K, int N, int bm, int bn, int bks,
-                               void* stream) {
-  return launch<__nv_bfloat16>(x, w, out, M, K, N, bm, bn, bks, stream);
 }
