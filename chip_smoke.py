@@ -9,16 +9,18 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    pool, int8 and fp8 frames of the quantized pool), the five of
    the kernel-level entry points (AMU matmul, dense flash attention,
    dense decode attention, and the RWKV-6 and Mamba2 recurrences wkv6
-   and ssd), each with an f32 and a bf16 entry point (the bf16 matmul
-   is a source of its own, ``amu_matmul_sm90.cu``: TMA, mbarriers and
-   wgmma), and the two indexed gathers of ``moe_gather.cu``
-   (gather_rows, gather_blocks, f32 and bf16) — 23 entry points from 10
-   sources — from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-   ``sm_90a``, one compiler per source, started together, and prints
-   each source's registers and spills per element type (``-Xptxas
-   -v``); the bf16 matmul must spill nowhere, and its SASS
-   (``cuobjdump``) must hold tensor-core products (``HGMMA``) and TMA
-   loads (``UTMALDG``);
+   and ssd), each with an f32 and a bf16 entry point (three bf16
+   instances are sources of their own on TMA, mbarriers and wgmma: the
+   matmul, ``amu_matmul_sm90.cu``, the dense flash attention,
+   ``flash_attention_sm90.cu``, and the bf16 pool's paged prefill,
+   ``paged_prefill_sm90.cu``), and the two indexed gathers of
+   ``moe_gather.cu`` (gather_rows, gather_blocks, f32 and bf16) — 23
+   entry points from 12 sources — from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a``, one compiler per source, started
+   together, and prints each source's registers and spills per element
+   type (``-Xptxas -v``); the three sm90 libraries must spill nowhere,
+   and their SASS (``cuobjdump``) must hold tensor-core products
+   (``HGMMA``) and TMA loads (``UTMALDG``);
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
    int8 and fp8 pools quantized from the same kind of normal draw with
@@ -32,7 +34,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    several times.  It times kernel and plain version with CUDA events
    (and, for bf16, ``scaled_dot_product_attention`` on the gathered view,
    a yardstick only; no single library call takes a quantized pool with
-   its scales), and computes each instance's bound from these inputs
+   its scales; the bf16 prefill and SDPA both also cold, as phase 2g
+   times the gathers), and computes each instance's bound from these inputs
    (1-byte K/V and the scales read for a quantized pool).  Verify row s
    must be bitwise the decode kernel of the same element type at
    ``lengths[:, s]`` (both are one template);
@@ -68,7 +71,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    CUDA-core rate: TF32 is off).  The bf16 matmul cases must also give
    x's columns exactly through a selection matrix w, and are timed as
    phase 2g times the gathers (``cold_ms``), kernel and ``torch.matmul``
-   alike, with the one-call times beside them;
+   alike, with the one-call times beside them; so are the bf16 dense
+   flash and paged prefill cases, kernel and SDPA alike;
 2g. holds each gather entry point against its plain version
    (``index_select``) bitwise, the reference's bar: f32 at the
    reference's test shapes, bf16 at olmoe-1b-7b's full width with the
@@ -285,13 +289,16 @@ def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
     of the inputs), so every set is read once after the flush, or again
     only after the others' bytes, at least :data:`ROTATE_BYTES` less
     one set, have evicted it; every output stays alive, so each call
-    writes fresh memory.  The stream sleeps on the device while the host
+    writes fresh memory (an untimed batch first leaves the allocator
+    holding their blocks).  The stream sleeps on the device while the host
     enqueues the batch, so the events time the calls back to back, not
     the host's pace.  Raises if the host outran the sleep."""
     n = max(calls, len(sets))
     flush = torch.zeros(ROTATE_BYTES // 4, dtype=torch.int32, device="cuda")
-    for inputs in sets[:3]:
-        fn(*inputs)
+    # warm up with a whole batch, so the allocator holds the blocks of a
+    # batch's outputs and no allocation waits on the device in the batch
+    outs = [fn(*sets[j % len(sets)]) for j in range(n)]
+    del outs
     times = []
     for _ in range(reps):
         flush.sum()
@@ -385,14 +392,20 @@ def kv_bytes(positions: int, frames: int, mode: str) -> int:
 
 def kernel_row(kind: str, mode: str, **fields):
     """One entry of the ``{"kernels": [...]}`` line; bf16 instances keep
-    the names of earlier slices."""
-    src = {"decode": ("paged_decode", "decode_attention.py:254"),
-           "prefill": ("paged_prefill", "flash_attention.py:279"),
-           "verify": ("paged_verify", "decode_attention.py:395")}[kind]
-    name = f"{src[0]}_attention" + ("" if mode == "none" else f"_{mode}")
+    the names of earlier slices, and each row names its instance's
+    source."""
+    stem, replaces, kernels = {
+        "decode": ("paged_decode", "decode_attention.py:254",
+                   dec_mod.KERNELS),
+        "prefill": ("paged_prefill", "flash_attention.py:279",
+                    pre_mod.KERNELS),
+        "verify": ("paged_verify", "decode_attention.py:395",
+                   dec_mod.VERIFY_KERNELS)}[kind]
+    source = kernels[KVQuantConfig(mode).dtype].source
+    name = f"{stem}_attention" + ("" if mode == "none" else f"_{mode}")
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src[0]}.cu",
-            "replaces": f"src/repro/kernels/{src[1]}", "launches": None,
+            "source": str(source.relative_to(ROOT)),
+            "replaces": f"src/repro/kernels/{replaces}", "launches": None,
             **fields}
 
 
@@ -463,23 +476,25 @@ def check_prefill(dev, rng, mode="none"):
               + kv_bytes(int(valid.sum()), n_frames - 1, mode))
     flops = 4 * attended * H * D
     b_ms, b_by = bound(nbytes, flops)
-    lib_ms = None
-    if mode == "none":
+    if mode == "none":     # the wgmma kernel: cold and one call, as SDPA
         kg, vg = gathered(kp, pr), gathered(vp, pr)
         q_pos = off[:, None] + torch.arange(T, device=dev)[None, :]
         kv_pos = torch.arange(pps * PAGE, device=dev)
         mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-        qs = q.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+        times = cold_times(
+            lambda *a: ops.paged_prefill_attention(*a, impl="cuda"), args,
+            lambda *a: sdpa(*a[:3], attn_mask=a[3]),
+            (q.transpose(1, 2), kg, vg, mask))
+    else:
+        times = {"ms": time_ms(lambda: ops.paged_prefill_attention(
+            *args, impl="cuda", **kw)), "library_ms": None}
     return kernel_row(
         "prefill", mode, max_abs_err=max(e for e, _ in errs),
-        row_err=max(r for _, r in errs),
-        ms=time_ms(lambda: ops.paged_prefill_attention(*args, impl="cuda",
-                                                       **kw)),
+        row_err=max(r for _, r in errs), **times,
         plain_ms=time_ms(lambda: ops.paged_prefill_attention(
             *args, impl="torch", **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def check_verify(dev, rng, mode="none"):
@@ -662,9 +677,13 @@ def paged_inputs(kind: str, c: dict, i: int, dev):
         qs = q.transpose(1, 2)
         attended = sum(int(n) * int(o) + int(n) * (int(n) + 1) // 2
                        for o, n in zip(offset, length))
+        cold = (lambda *a: ops.paged_prefill_attention(*a, impl="cuda"),
+                (q, kp, vp, pt, off, ln),
+                lambda *a: sdpa(*a[:3], attn_mask=a[3]), (qs, kg, vg, mask))
         return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
                 2 * 2 * int(length.sum()) * heads * d + kv + 2 * 2 * 4,
-                4 * attended * heads * d, [int(n) for n in length])
+                4 * attended * heads * d,
+                {"lengths": [int(n) for n in length], "cold": cold})
     if kind == "paged_verify":
         call = (lambda impl="auto": ops.paged_verify_attention(
             q, kp, vp, pt, ln, impl=impl))
@@ -723,9 +742,11 @@ def dense_inputs(i: int, dev):
     bytes, flops, extra), where ``call(impl)`` runs the ops entry point
     on inputs drawn from generators seeded by ``i`` (phase 6 draws them
     again) and ``extra`` is the sequential oracle of a recurrence, the
-    per-row decode calls of a verify case, a prefill case's lengths or a
-    matmul's operands (x, w), which its call and library call also take
-    as arguments."""
+    per-row decode calls of a verify case, a matmul's operands (x, w),
+    which its call and library call also take as arguments, or for the
+    bf16 attention kernels ``{"cold": (kernel, operands, library call,
+    its operands)}`` for :func:`cold_times` (and a prefill case's
+    ``lengths``)."""
     kind, dt, _, c = DENSE_CASES[i]
     if kind in _PAGED_ROW:
         return paged_inputs(kind, c, i, dev)
@@ -759,14 +780,22 @@ def dense_inputs(i: int, dev):
                   .transpose(1, 2).contiguous() for t in (k, v))
         q_pos = off + torch.arange(Sq, device=dev)
         mask = torch.arange(kvv, device=dev)[None, :] <= q_pos[:, None]
-        lib = ((lambda: sdpa(qs, ks, vs, is_causal=True)) if off == 0
-               and Sq == kvv else (lambda: sdpa(qs, ks, vs, attn_mask=mask)))
+        if off == 0 and Sq == kvv:
+            lib_ops, lib_call = (qs, ks, vs), (
+                lambda *a: sdpa(*a, is_causal=True))
+        else:
+            lib_ops, lib_call = (qs, ks, vs, mask), (
+                lambda *a: sdpa(*a[:3], attn_mask=a[3]))
         pairs = sum(min(off + t + 1, kvv) for t in range(Sq))
+        cold = None if dt != torch.bfloat16 else (
+            lambda *a: ops.flash_attention(*a, causal=True, impl="cuda",
+                                           q_offset=off, kv_valid=kvv),
+            (q, k, v), lib_call, lib_ops)
         return ((lambda impl="auto": ops.flash_attention(
                     q, k, v, causal=True, impl=impl, q_offset=off,
-                    kv_valid=kvv)), lib,
+                    kv_valid=kvv)), (lambda: lib_call(*lib_ops)),
                 (2 * B * Sq * H * D + 2 * B * kvv * Hkv * D) * el,
-                4 * B * H * D * pairs, None)
+                4 * B * H * D * pairs, {"cold": cold})
     B, H, Hkv, Skv, D, valid = (c[n] for n in ("B", "H", "Hkv", "Skv", "D",
                                                 "valid"))
     q, k, v = rand(B, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
@@ -802,22 +831,30 @@ def check_selection(what: str, call, x, w, seed: int) -> None:
             "selection matrix are not x's columns")
 
 
-def cold_matmul(call, lib, operands) -> dict:
-    """A bf16 matmul case timed as phase 2g times the gathers
-    (:func:`cold_ms`: L2 flushed, copies of the operands spanning
-    :data:`ROTATE_BYTES` rotated, the calls queued behind a device sleep,
-    so neither L2 nor the wrapper's host work enters), the kernel and
-    ``torch.matmul`` alike, with each one's one-call :func:`time_ms`
-    beside it."""
+def _rotated(operands) -> tuple:
+    """``operands`` and copies of them spanning :data:`ROTATE_BYTES`
+    (at most :data:`MAX_SETS` sets), and the bytes they span."""
     nbytes = sum(t.numel() * t.element_size() for t in operands)
     n_sets = min(MAX_SETS, -(-ROTATE_BYTES // nbytes))
-    sets = [operands] + [tuple(t.clone() for t in operands)
-                         for _ in range(n_sets - 1)]
-    return {"ms": cold_ms(lambda x, w: call("cuda", x, w), sets),
-            "library_ms": cold_ms(lib, sets),
-            "one_call_ms": time_ms(lambda: call("cuda")),
-            "library_one_call_ms": time_ms(lib),
-            "sets_span_bytes": n_sets * nbytes}
+    return ([operands] + [tuple(t.clone() for t in operands)
+                          for _ in range(n_sets - 1)], n_sets * nbytes)
+
+
+def cold_times(kernel, operands, library, lib_operands) -> dict:
+    """A bf16 case timed as phase 2g times the gathers (:func:`cold_ms`:
+    L2 flushed, copies of the operands spanning :data:`ROTATE_BYTES`
+    rotated, the calls queued behind a device sleep, so neither L2 nor
+    the wrapper's host work enters), the kernel and the library call
+    alike, with each one's one-call :func:`time_ms` beside it."""
+    sets, span = _rotated(operands)
+    lib_sets, _ = _rotated(lib_operands)
+    times = {"ms": cold_ms(kernel, sets),
+             "library_ms": cold_ms(library, lib_sets),
+             "one_call_ms": time_ms(lambda: kernel(*operands)),
+             "library_one_call_ms": time_ms(lambda: library(*lib_operands)),
+             "sets_span_bytes": span}
+    del sets, lib_sets
+    return times
 
 
 def check_case(i: int, dev):
@@ -834,7 +871,7 @@ def check_case(i: int, dev):
     require(torch.isfinite(out.float()).all(), f"{what}: non-finite")
     if kind == "paged_prefill":          # rows past lengths: don't-care
         errs = [agree(what, out[c, :m], ref[c, :m])
-                for c, m in enumerate(extra)]
+                for c, m in enumerate(extra["lengths"])]
         err, acc = max(e for e, _ in errs), {"row_err": max(
             r for _, r in errs)}
     elif dt == torch.bfloat16:
@@ -857,12 +894,16 @@ def check_case(i: int, dev):
         require(diff == 0, f"{what}: row s is not bitwise the decode "
                 "kernel at lengths[:, s]")
         acc["vs_decode"] = diff
-    cold = kind == "matmul" and dt == torch.bfloat16
-    if cold:
+    cold = None
+    if kind == "matmul" and dt == torch.bfloat16:
         check_selection(what, call, *extra, SEED + 300 + i)
+        cold = (lambda x, w: call("cuda", x, w), extra,
+                lambda x, w: torch.matmul(x, w), extra)
+    elif isinstance(extra, dict):
+        cold = extra["cold"]
     b_ms, b_by = bound(nbytes, flops, dt)
     case = {"case": label, **shape, "max_abs_err": err, **acc,
-            **(cold_matmul(call, lib, extra) if cold else {
+            **(cold_times(*cold) if cold else {
                 "ms": time_ms(lambda: call("cuda")),
                 "library_ms": None if lib is None else time_ms(lib)}),
             "plain_ms": time_ms(lambda: call("torch"),
@@ -874,8 +915,9 @@ def check_case(i: int, dev):
                else f"{case['library_ms']:.4f}")
     if cold:
         lib_txt += (f" (cold; one call {case['library_one_call_ms']:.4f}) "
-                    f"kernel/library {case['ms'] / case['library_ms']:.2f}x, "
-                    f"selection matrix exact")
+                    f"kernel/library {case['ms'] / case['library_ms']:.2f}x"
+                    + (", selection matrix exact" if kind == "matmul"
+                       else ""))
     print(f"[dense] {what}: kernel_ms {case['ms']:.4f}"
           + (f" (cold; one call {case['one_call_ms']:.4f})" if cold else "")
           + f" plain_ms {case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
@@ -1402,7 +1444,8 @@ def sass_counts(library: Path, opcodes) -> dict:
 
 
 def _kind(name: str) -> str:
-    if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
+    if any(k in name for k in ("paged_attention_kernel", "paged_prefill",
+                                "flash_attention")):
         return "attention kernels"
     if "gather_rows_kernel" in name or "gather_blocks_kernel" in name:
         return "gather kernels"
@@ -1477,20 +1520,23 @@ def main(argv=None) -> int:
     sources = {k.source.name: k.build_log for k in every}
     print(f"[build] {len(every)} entry points from {len(sources)} "
           f"sources in {secs:.1f}s")
-    sm90 = mm_mod.KERNELS[torch.bfloat16]
+    # the TMA / wgmma libraries: bf16 matmul, dense flash, paged prefill
+    sm90 = (mm_mod.KERNELS[torch.bfloat16], pre_mod.DENSE_KERNELS[
+        torch.bfloat16], pre_mod.KERNELS[torch.bfloat16])
+    sm90_names = {k.source.name for k in sm90}
     for name, log in sources.items():
-        summary = ptxas_summary(log, "bf16" if name == sm90.source.name
-                                else "?")
+        summary = ptxas_summary(log, "bf16" if name in sm90_names else "?")
         for elem, (n, lo, hi, spill, n_spill) in summary.items():
             print(f"[build] {name} {elem}: {n} instantiations, registers "
                   f"{lo}-{hi}, largest spill store {spill} B "
                   f"({n_spill} spilling)")
-            require(name != sm90.source.name or n_spill == 0,
+            require(name not in sm90_names or n_spill == 0,
                     f"{name}: {n_spill} instantiations spill")
-    sass = sass_counts(sm90.library_path(), ("HGMMA", "UTMALDG"))
-    print(f"[build] {sm90.source.name} SASS: {sass}")
-    require(all(sass.values()), f"{sm90.source.name}: no tensor-core "
-            f"products or no TMA loads in its SASS: {sass}")
+    for k in sm90:
+        sass = sass_counts(k.library_path(), ("HGMMA", "UTMALDG"))
+        print(f"[build] {k.source.name} SASS: {sass}")
+        require(all(sass.values()), f"{k.source.name}: no tensor-core "
+                f"products or no TMA loads in its SASS: {sass}")
 
     # 2. kernels vs plain versions, every element type of the pool
     rng = np.random.default_rng(SEED)
@@ -1500,7 +1546,12 @@ def main(argv=None) -> int:
                  check_verify(dev, rng, mode)]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[kernel] {r['name']}: kernel_ms {r['ms']:.4f} "
+        if "one_call_ms" in r:
+            lib += (f" (cold; one call {r['library_one_call_ms']:.4f}) "
+                    f"kernel/library {r['ms'] / r['library_ms']:.2f}x")
+        print(f"[kernel] {r['name']}: kernel_ms {r['ms']:.4f}"
+              + (f" (cold; one call {r['one_call_ms']:.4f})"
+                 if "one_call_ms" in r else "") + " "
               f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
               f"max_abs_err {r['max_abs_err']:.3e} "

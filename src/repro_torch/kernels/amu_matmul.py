@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.core.spm import plan_matmul_blocks
 from repro_torch.kernels.build import (DENSE_DTYPES, CudaKernel,
-                                      check_operand)
+                                      check_aligned, check_operand)
 from repro_torch.kernels.ref import matmul_ref
 
 __all__ = ["amu_matmul_torch", "amu_matmul_cuda", "plan_tiles",
@@ -226,9 +226,7 @@ def amu_matmul_cuda(x, w, *, bm: Optional[int] = None,
         tile = sm90_tiles(M, N, props.multi_processor_count, smem)
     else:
         tile = launch_tiles(bm, bk, bn, x.element_size(), smem)
-    for name, t in (("x", x), ("w", w)):
-        if t.data_ptr() % _PIECE:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    check_aligned(x=x, w=w)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -23,14 +23,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "check_operand", "kernel_per_dtype",
-           "dense_kernels", "check_dense", "check_heads", "scale_pointers",
-           "kernel_chunk", "state_slice", "resolve_impl", "BUILD_DIR",
-           "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES", "HEAD_DIMS", "IMPLS"]
+__all__ = ["CudaKernel", "build_all", "check_operand", "check_aligned",
+           "kernel_per_dtype", "dense_kernels", "check_dense", "check_heads",
+           "scale_pointers", "kernel_chunk", "state_slice", "resolve_impl",
+           "BUILD_DIR", "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES",
+           "HEAD_DIMS", "IMPLS"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -164,16 +166,22 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.int8: "int8",
            torch.float8_e4m3fn: "fp8"}
 
 
-def kernel_per_dtype(source: str, stem: str,
+def _source_of(source: Union[str, Mapping[torch.dtype, str]],
+               dt: torch.dtype) -> str:
+    return source if isinstance(source, str) else source[dt]
+
+
+def kernel_per_dtype(source: Union[str, Mapping[torch.dtype, str]],
+                     stem: str,
                      argtypes: Sequence) -> Dict[torch.dtype, CudaKernel]:
-    """One :class:`CudaKernel` per pool dtype over ``source``'s entry
-    points ``{stem}_bf16``, ``_int8`` and ``_fp8``.  ``argtypes`` are the
-    bf16 entry point's; the quantized ones take two more pointers,
-    ``k_scales`` and ``v_scales``, after the first three (q, k_pages,
-    v_pages)."""
+    """One :class:`CudaKernel` per pool dtype over the entry points
+    ``{stem}_bf16``, ``_int8`` and ``_fp8`` of ``source``, one file or a
+    file per dtype.  ``argtypes`` are the bf16 entry point's; the
+    quantized ones take two more pointers, ``k_scales`` and
+    ``v_scales``, after the first three (q, k_pages, v_pages)."""
     p = ctypes.c_void_p
     scaled = list(argtypes[:3]) + [p, p] + list(argtypes[3:])
-    return {dt: CudaKernel(source, f"{stem}_{sfx}",
+    return {dt: CudaKernel(_source_of(source, dt), f"{stem}_{sfx}",
                            argtypes if dt == torch.bfloat16 else scaled)
             for dt, sfx in _SUFFIX.items()}
 
@@ -183,12 +191,12 @@ def kernel_per_dtype(source: str, stem: str,
 DENSE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def dense_kernels(source: str, stem: str,
+def dense_kernels(source: Union[str, Mapping[torch.dtype, str]], stem: str,
                   argtypes: Sequence) -> Dict[torch.dtype, CudaKernel]:
-    """One :class:`CudaKernel` per dense dtype over ``source``'s entry
-    points ``{stem}_f32`` and ``{stem}_bf16``, which take the same
-    arguments."""
-    return {dt: CudaKernel(source, f"{stem}_{sfx}", argtypes)
+    """One :class:`CudaKernel` per dense dtype over the entry points
+    ``{stem}_f32`` and ``{stem}_bf16`` of ``source``, one file or a file
+    per dtype; both take the same arguments."""
+    return {dt: CudaKernel(_source_of(source, dt), f"{stem}_{sfx}", argtypes)
             for dt, sfx in DENSE_DTYPES.items()}
 
 
@@ -258,6 +266,14 @@ def scale_pointers(k_scales, v_scales, device) -> tuple:
     check_operand("k_scales", k_scales, torch.float32, 2, device)
     check_operand("v_scales", v_scales, torch.float32, 2, device)
     return k_scales.data_ptr(), v_scales.data_ptr()
+
+
+def check_aligned(**tensors) -> None:
+    """Raise ValueError unless every tensor's data starts on a 16-byte
+    boundary, as a TMA tensor map's base and a 16-byte copy need."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def check_operand(name: str, t, dtype, ndim: int, device) -> None:

@@ -1,24 +1,24 @@
-// Dense blocked flash attention for Hopper (sm_90a).
+// Dense blocked flash attention for Hopper (sm_90a), f32.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` of
-// src/repro/kernels/flash_attention.py (its pallas_call at line 114).
-// Same function: for batch row b, query t at absolute position
-// q_offset + t and query head h, softmax(q . K^T / sqrt(D)) . V over
-// the KV positions p < kv_valid of KV head h / G that the mask lets
-// through — p <= q_pos when causal, p > q_pos - window when window > 0 —
-// with an f32 online softmax and the output in the operands' type.
-// Entry points flash_attention_f32 and flash_attention_bf16 (q, k, v and
-// out all of that type), head dims 16, 32, 64, 80 and 128 (a thread holds
-// D / 16 float4 chunks of its query row), any G.
+// src/repro/kernels/flash_attention.py (its pallas_call at line 114) for
+// f32 operands; bf16 operands have their own kernel on the tensor cores,
+// flash_attention_sm90.cu (wgmma's only f32 mode is TF32, over the
+// reference's f32 bar).  Same function: for batch row b, query t at
+// absolute position q_offset + t and query head h, softmax(q . K^T /
+// sqrt(D)) . V over the KV positions p < kv_valid of KV head h / G that
+// the mask lets through — p <= q_pos when causal, p > q_pos - window when
+// window > 0 — with an f32 online softmax.  Entry point
+// flash_attention_f32 (q, k, v and out f32), head dims 16, 32, 64, 80 and
+// 128 (a thread holds D / 16 float4 chunks of its query row), any G.
 //
 // Layout: the model layout, read in place (no transposes): q and out
 // (B, Sq, H, D), k and v (B, Skv, Hkv, D).  H = G * Hkv.
 //
-// Design: paged_prefill.cu's, on a dense cache.  One block of 256
-// threads per (64-query tile, query head, batch row).  Four threads share
-// a query row, each holding a quarter of q and of the accumulator in
-// registers.  The block walks the KV axis in tiles of 32 positions: K
-// and V rows are read with 16-byte loads, widened to f32 into shared
+// Design: one block of 256 threads per (64-query tile, query head, batch
+// row).  Four threads share a query row, each holding a quarter of q and
+// of the accumulator in registers.  The block walks the KV axis in tiles
+// of 32 positions: K and V rows are read with 16-byte loads into shared
 // memory, and every query row scores, rescales and accumulates against
 // them.  A tile outside the mask for every query of the block is skipped
 // (`continue`), the TPU kernel's block liveness (lines 51-58):
@@ -31,12 +31,9 @@
 // that leaves it nothing) is don't-care, as in the reference, whose
 // result there depends on its block shapes.
 //
-// Bound on the card: operations.  A causal prompt of S = 2048 does
-// ~4 * S^2 / 2 * D flops per head against ~4 * S * D bytes of q, K, V
-// and out per head: far above the ~295 flop/byte bf16 ridge.  This first
-// version multiplies on the CUDA cores in f32, so it sits far from the
-// tensor-core bound; mma/wgmma tiles for Q.K^T and P.V are the known
-// next step, as for the paged prefill kernel.
+// Bound on the card: operations, at the 67 TFLOP/s f32 rate of the CUDA
+// cores (TF32 off), for the reference benchmark's shapes; the products
+// run on the CUDA cores in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,5 +221,4 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   }
 
 REPRO_FLASH_ENTRY(f32, float)
-REPRO_FLASH_ENTRY(bf16, __nv_bfloat16)
 #undef REPRO_FLASH_ENTRY

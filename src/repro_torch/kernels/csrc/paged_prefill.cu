@@ -1,14 +1,17 @@
-// Paged chunked-prefill flash attention for Hopper (sm_90a).
+// Paged chunked-prefill flash attention for Hopper (sm_90a), the int8
+// and fp8 frames of a quantized pool.
 //
 // Replaces the TPU kernel `_paged_prefill_kernel` / `paged_prefill_flash`
-// of src/repro/kernels/flash_attention.py (its pallas_call at line 279).
-// It computes the same function: C prompt-chunk rows, each a different
-// sequence at its own depth.  Query t of row c sits at absolute position
-// offset[c] + t and attends, causally, to the KV positions below
-// kv_valid = offset[c] + lengths[c] that the row's page table maps
-// (position p lives in frame page_rows[c, p / page] at row p % page),
-// optionally inside a sliding window.  Online softmax in f32, bf16 q and
-// store.  Query rows t >= lengths[c] are don't-care, as on the TPU.
+// of src/repro/kernels/flash_attention.py (its pallas_call at line 279)
+// for a quantized pool; a bf16 pool has its own kernel on the tensor
+// cores, paged_prefill_sm90.cu.  It computes the same function: C
+// prompt-chunk rows, each a different sequence at its own depth.  Query t
+// of row c sits at absolute position offset[c] + t and attends,
+// causally, to the KV positions below kv_valid = offset[c] + lengths[c]
+// that the row's page table maps (position p lives in frame
+// page_rows[c, p / page] at row p % page), optionally inside a sliding
+// window.  Online softmax in f32, bf16 q and store.  Query rows t >=
+// lengths[c] are don't-care, as on the TPU.
 //
 // Layout: q and out (C, T, H, D), the model layout; k_pages / v_pages
 // (N, page, Hkv, D); page_rows (C, pages_per_seq) int32; offset and
@@ -16,15 +19,14 @@
 // any G; head dims 16, 32, 64, 80 and 128 (a thread holds D / 16 float4
 // chunks of its query row, so any multiple of 16 fits the design).
 //
-// Entry points: paged_prefill_attention_bf16 for a bf16 pool, and _int8 /
-// _fp8 for the frames of a quantized pool (element types in
-// kv_types.cuh), which take k_scales / v_scales (N, Hkv) f32: the TPU
-// kernel's quantized instance (its scale BlockSpecs at line 257).  Each
-// staged K or V row is multiplied, element by element, by the scale of
-// the frame it was read from (a 32-position tile straddles two frames at
-// page 16), as the plain version dequantizes its gathered view.  No
-// position at or past the tile's last visible one is read, scale
-// included.
+// Entry points: paged_prefill_attention_int8 / _fp8 for the frames of a
+// quantized pool (element types in kv_types.cuh), which take k_scales /
+// v_scales (N, Hkv) f32: the TPU kernel's quantized instance (its scale
+// BlockSpecs at line 257).  Each staged K or V row is multiplied, element
+// by element, by the scale of the frame it was read from (a 32-position
+// tile straddles two frames at page 16), as the plain version
+// dequantizes its gathered view.  No position at or past the tile's last
+// visible one is read, scale included.
 //
 // Design: one block of 256 threads per (64-query tile, query head, chunk
 // row).  Four threads share a query row, each holding a quarter of q and
@@ -40,10 +42,11 @@
 //
 // Bound on the card: at the main path's shapes (T = 256 chunk rows over a
 // prefix of up to ~1.5k positions, D = 128) the work is ~4 * T * S * D
-// flops per head against ~4 * S * D bytes of K/V per KV head: operations,
-// at the 989 TFLOP/s bf16 tensor-core rate.  This simple version does its
-// products on the CUDA cores in f32, so it sits far from that bound;
-// moving Q.K^T and P.V onto wgmma/mma tiles is the known next step.
+// flops per head against ~2 * S * D bytes of 1-byte K/V per KV head:
+// operations, at the 989 TFLOP/s bf16 tensor-core rate.  These instances
+// do their products on the CUDA cores in f32, so they sit far from that
+// bound; dequantizing into the bf16 kernel's wgmma tiles as they land is
+// the known next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,8 +203,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-// One entry point's body: element type KV of the pool; k_scales /
-// v_scales are null for bf16.
+// One entry point's body: element type KV of the pool's frames.
 template <typename KV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales, const void* page_rows,
@@ -243,17 +245,6 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }
 
 }  // namespace
-
-extern "C" int paged_prefill_attention_bf16(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* page_rows, const void* offsets, const void* lengths, void* out,
-    int chunk_rows, int T, int num_heads, int num_kv_heads, int head_dim,
-    int page, int pages_per_seq, int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
-                               page_rows, offsets, lengths, out, chunk_rows, T,
-                               num_heads, num_kv_heads, head_dim, page,
-                               pages_per_seq, window, scale, stream);
-}
 
 // The quantized pool's instances: k_scales / v_scales (N, Hkv) f32.
 #define REPRO_QUANT_ENTRY(SUFFIX, ELEM)                                       \

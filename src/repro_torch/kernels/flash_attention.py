@@ -1,13 +1,22 @@
-"""Paged chunked-prefill attention: the CUDA kernel and its plain version.
+"""Paged chunked-prefill attention: the CUDA kernels and their plain version.
 
-The CUDA kernel (``csrc/paged_prefill.cu``) replaces the TPU kernel
-``paged_prefill_flash`` of ``src/repro/kernels/flash_attention.py``
-(``_paged_prefill_kernel``, its ``pallas_call`` at line 279).  At the
-main path's shapes it is bound by operations; its design notes are in the
-source.  It has one entry point per pool element type: bf16, and the
-int8 and fp8 frames of a quantized pool, which take the per-(frame, KV
-head) f32 scales (the TPU kernel's quantized instance, its scale
-BlockSpecs at line 257) and dequantize each K/V element as it is staged.
+Two CUDA kernels replace the TPU kernel ``paged_prefill_flash`` of
+``src/repro/kernels/flash_attention.py`` (``_paged_prefill_kernel``, its
+``pallas_call`` at line 279), one entry point per pool element type.  At
+the main path's shapes it is bound by operations; the design notes are
+in the sources:
+
+* bf16, ``csrc/paged_prefill_sm90.cu``: the producer thread reads the
+  chunk row's page table and issues TMA loads of the pages (boxes of
+  ``gcd(page, 64)`` rows) into a ring of stages on
+  mbarriers; two consumer warpgroups compute Q K^T and P V with
+  ``wgmma``, the online softmax in f32 registers (``csrc/flash_sm90.cuh``,
+  shared with the dense kernel).  Its tiles depend on the head dim alone
+  (:func:`sm90_plan`).
+* int8 and fp8, ``csrc/paged_prefill.cu``: the frames of a quantized
+  pool with their per-(frame, KV head) f32 scales (the TPU kernel's
+  quantized instance, its scale BlockSpecs at line 257), each K/V element
+  dequantized as it is staged, products on the CUDA cores.
 
 :func:`paged_prefill_attention_torch` is the plain PyTorch version of the
 same function: gather each chunk row's page-table view of the pool, then
@@ -15,47 +24,80 @@ run :func:`chunked_attention` with a per-row ``q_offset`` — the
 expressions of the JAX package's XLA path (``kernels/ops.py:171-185``,
 the grouped f32-operand branch of ``models/attention.py::_chunked_core``),
 on the dequantized view of a quantized pool.
-The CPU tests run it, and ``chip_smoke.py`` holds the kernel against it
+The CPU tests run it, and ``chip_smoke.py`` holds the kernels against it
 on the card.
 
-The dense kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``flash_attention`` of the same file (``_flash_kernel``, its
-``pallas_call`` at line 114): blocked flash attention over a dense cache
-with static ``causal``, ``window``, ``q_offset`` and ``kv_valid``, read
-in the model layout, one entry point per dtype (f32, bf16).  Its plain
-version :func:`flash_attention_torch` is :func:`chunked_attention` with
-the scalar ``q_offset`` broadcast over the batch and K/V cut to their
-first ``kv_valid`` positions — the same function.
+The dense kernels replace the TPU kernel ``flash_attention`` of the same
+file (``_flash_kernel``, its ``pallas_call`` at line 114): blocked flash
+attention over a dense cache with static ``causal``, ``window``,
+``q_offset`` and ``kv_valid``, read in the model layout, one entry point
+per dtype: bf16 in ``csrc/flash_attention_sm90.cu`` (the design above,
+TMA maps over q, k and v in place), f32 in ``csrc/flash_attention.cu``
+(CUDA cores: ``wgmma``'s only f32 mode is TF32).  Its plain version
+:func:`flash_attention_torch` is :func:`chunked_attention` with the
+scalar ``q_offset`` broadcast over the batch and K/V cut to their first
+``kv_valid`` positions — the same function.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
-                                      check_heads, check_operand,
-                                      dense_kernels, kernel_per_dtype,
-                                      scale_pointers)
+from repro_torch.kernels.build import (POOL_DTYPES, check_aligned,
+                                      check_dense, check_heads,
+                                      check_operand, dense_kernels,
+                                      kernel_per_dtype, scale_pointers)
 from repro_torch.kernels.decode_attention import NEG_INF, gather_pages
 
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
            "paged_prefill_attention_cuda", "flash_attention_torch",
-           "flash_attention_cuda", "KERNEL", "KERNELS", "DENSE_KERNELS"]
+           "flash_attention_cuda", "sm90_plan", "Sm90Plan",
+           "KERNEL", "KERNELS", "DENSE_KERNELS"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: entry point per pool dtype; the int8/fp8 ones take k_scales, v_scales
 #: after v_pages
-KERNELS = kernel_per_dtype("paged_prefill.cu", "paged_prefill_attention",
-                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _P])
+KERNELS = kernel_per_dtype(
+    {torch.bfloat16: "paged_prefill_sm90.cu", torch.int8: "paged_prefill.cu",
+     torch.float8_e4m3fn: "paged_prefill.cu"}, "paged_prefill_attention",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
 #: the dense kernel's entry point per dtype of q, k, v and out
 DENSE_KERNELS = dense_kernels(
-    "flash_attention.cu", "flash_attention",
+    {torch.float32: "flash_attention.cu",
+     torch.bfloat16: "flash_attention_sm90.cu"}, "flash_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+
+#: the bf16 kernels' tiles (``csrc/flash_sm90.cuh``): query rows a block
+#: (two consumer warpgroups of 64), KV positions a tile, ring stages, the
+#: columns of one TMA box (128 bytes, the swizzle's span), and the slack
+#: that aligns the shared memory to the swizzle's 1024-byte groups
+SM90_BLOCK_Q, SM90_BLOCK_KV, SM90_STAGES, SM90_ATOM = 128, 64, 4, 64
+_SM90_ALIGN = 1024
+
+
+class Sm90Plan(NamedTuple):
+    """The bf16 attention kernels' tiles for one head dim."""
+    d_pad: int          # D padded to whole 64-column boxes
+    block_q: int
+    block_kv: int
+    stages: int
+    smem_bytes: int     # q tile, the ring, 2 * stages + 1 mbarriers
+
+
+def sm90_plan(head_dim: int) -> Sm90Plan:
+    """The bf16 kernels' plan for ``head_dim`` (csrc ``Plan<D>``): a
+    function of the head dim alone, so no batch, chunk row or length
+    changes a tile or the order of a row's sums."""
+    d_pad = -(-head_dim // SM90_ATOM) * SM90_ATOM
+    smem = (_SM90_ALIGN + SM90_BLOCK_Q * d_pad * 2
+            + SM90_STAGES * 2 * SM90_BLOCK_KV * d_pad * 2
+            + (2 * SM90_STAGES + 1) * 8)
+    return Sm90Plan(d_pad, SM90_BLOCK_Q, SM90_BLOCK_KV, SM90_STAGES, smem)
 
 
 def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
@@ -150,6 +192,8 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
         raise ValueError("page_rows / offset / lengths rows do not match q")
     check_heads(H, Hkv, D)
     out = torch.empty_like(q)
+    if k_pages.dtype == torch.bfloat16:
+        check_aligned(q=q, k_pages=k_pages, v_pages=v_pages, out=out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNELS[k_pages.dtype].launch(
@@ -185,6 +229,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     _, Skv, Hkv, _ = k.shape
     check_heads(H, Hkv, D)
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        check_aligned(q=q, k=k, v=v, out=out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         DENSE_KERNELS[q.dtype].launch(
