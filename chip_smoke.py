@@ -20,7 +20,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    together, and prints each source's registers and spills per element
    type (``-Xptxas -v``); the three sm90 libraries must spill nowhere,
    and their SASS (``cuobjdump``) must hold tensor-core products
-   (``HGMMA``) and TMA loads (``UTMALDG``);
+   (``HGMMA``) and TMA loads (``UTMALDG``); nor may the f32 matmul's and
+   the dense decode's (``amu_matmul.cu``, ``decode_attention.cu``);
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
    int8 and fp8 pools quantized from the same kind of normal draw with
@@ -52,7 +53,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    attention shapes (``benchmarks/run.py:490-499``) within the
    reference's own bar, max |err| / max |ref| < 5e-6.  Then the shapes
    that only the repaired wrappers and kernels take: f32 1024^3 with no
-   tiles (the reference's plan, run as sub-tiles), and the attention
+   tiles (the reference's plan, validated, then the card's tile), and
+   8 x 1024 x 1024 (M = 8: predicated rows), and the attention
    kernels at the heads of other registered configs — dense flash and
    decode, paged decode and verify at G = 5 (llama4, 40/8), G = 12
    (command-r-plus, 96/8) and D = 80 (h2o-danube, 32/8), paged prefill
@@ -71,8 +73,13 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    CUDA-core rate: TF32 is off).  The bf16 matmul cases must also give
    x's columns exactly through a selection matrix w, and are timed as
    phase 2g times the gathers (``cold_ms``), kernel and ``torch.matmul``
-   alike, with the one-call times beside them; so are the bf16 dense
-   flash and paged prefill cases, kernel and SDPA alike;
+   alike, with the one-call times beside them; so are the f32 matmul
+   cases, the bf16 dense flash and paged prefill cases and every dense
+   decode case, kernel and SDPA alike.  It prints the f32 matmul's tile
+   (``f32_tiles``), every tile's cold time on each f32 matmul case (each
+   bitwise the wrapper's output), each dense decode case's split count
+   (``decode_splits``), and a sha256 of the f32 matmul cases' outputs,
+   which the tile must not move;
 2g. holds each gather entry point against its plain version
    (``index_select``) bitwise, the reference's bar: f32 at the
    reference's test shapes, bf16 at olmoe-1b-7b's full width with the
@@ -557,9 +564,10 @@ def check_verify(dev, rng, mode="none"):
 #: benchmark's shapes; then the shapes the attention kernels and the f32
 #: matmul took only after their repair (other configs' heads, f32 with
 #: no tiles), and the linear recurrences at the reference benchmark's f32
-#: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16.  The
-#: first case of an entry point heads its row; the paged kernels' cases
-#: join phase 2's rows.
+#: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16; last,
+#: the f32 matmul at M = 8 and at 2048^3, where the tile rule takes its
+#: large tile (appended, so every earlier case keeps its seed).  The first case of an entry point heads its row; the paged
+#: kernels' cases join phase 2's rows.
 DENSE_CASES = (
     ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
      dict(M=512, K=3072, N=8192)),
@@ -614,6 +622,10 @@ DENSE_CASES = (
     ("ssd", torch.bfloat16,
      "zamba2-1.2b B1 T2048 H64 P64 N64 (dt, A, D f32)",
      dict(B=1, T=2048, H=64, P=64, N=64, chunk=128)),
+    ("matmul", torch.float32, "8 x 1024 x 1024, planned tiles (M = 8)",
+     dict(M=8, K=1024, N=1024)),
+    ("matmul", torch.float32, "2048^3, no tiles (the card's 128 x 128)",
+     dict(M=2048, K=2048, N=2048)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
@@ -744,9 +756,9 @@ def dense_inputs(i: int, dev):
     again) and ``extra`` is the sequential oracle of a recurrence, the
     per-row decode calls of a verify case, a matmul's operands (x, w),
     which its call and library call also take as arguments, or for the
-    bf16 attention kernels ``{"cold": (kernel, operands, library call,
-    its operands)}`` for :func:`cold_times` (and a prefill case's
-    ``lengths``)."""
+    bf16 flash and prefill and every dense decode case ``{"cold":
+    (kernel, operands, library call, its operands)}`` for
+    :func:`cold_times` (and a prefill case's ``lengths``)."""
     kind, dt, _, c = DENSE_CASES[i]
     if kind in _PAGED_ROW:
         return paged_inputs(kind, c, i, dev)
@@ -806,7 +818,10 @@ def dense_inputs(i: int, dev):
                 q, k, v, valid_len=valid, impl=impl, bkv=c["bkv"])),
             (lambda: sdpa(qs, ks, vs)),
             (2 * B * H * D + 2 * B * valid * Hkv * D) * el,
-            4 * B * H * valid * D, None)
+            4 * B * H * valid * D, {"cold": (
+                lambda *a: ops.decode_attention(*a, valid_len=valid,
+                                                impl="cuda", bkv=c["bkv"]),
+                (q, k, v), sdpa, (qs, ks, vs))})
 
 
 def _rel(out, ref) -> tuple:
@@ -841,7 +856,7 @@ def _rotated(operands) -> tuple:
 
 
 def cold_times(kernel, operands, library, lib_operands) -> dict:
-    """A bf16 case timed as phase 2g times the gathers (:func:`cold_ms`:
+    """A case timed as phase 2g times the gathers (:func:`cold_ms`:
     L2 flushed, copies of the operands spanning :data:`ROTATE_BYTES`
     rotated, the calls queued behind a device sleep, so neither L2 nor
     the wrapper's host work enters), the kernel and the library call
@@ -855,6 +870,65 @@ def cold_times(kernel, operands, library, lib_operands) -> dict:
              "sets_span_bytes": span}
     del sets, lib_sets
     return times
+
+
+def cold_case(kind: str, call, extra):
+    """(kernel, operands, library call, its operands) of a case timed by
+    :func:`cold_times`: every matmul (the operands are (x, w)), and the
+    cases whose inputs carry ``{"cold": ...}``; None for the others."""
+    if kind == "matmul":
+        return (lambda x, w: call("cuda", x, w), extra,
+                lambda x, w: torch.matmul(x, w), extra)
+    return extra["cold"] if isinstance(extra, dict) else None
+
+
+def launch_shape(kind: str, dt, shape: dict, dev) -> dict:
+    """The card's choice for a case, as its wrapper makes it: the f32
+    matmul's (bm, bn, stages) and a dense decode case's split count."""
+    props = torch.cuda.get_device_properties(dev)
+    if kind == "matmul" and dt == torch.float32:
+        return {"tile": list(mm_mod.f32_tiles(
+            shape["M"], shape["N"], props.multi_processor_count,
+            props.shared_memory_per_block_optin))}
+    if kind == "decode":
+        return {"splits": dec_mod.decode_splits(
+            shape["B"], shape["Hkv"], shape["H"] // shape["Hkv"],
+            min(shape["valid"], shape["Skv"]), props.multi_processor_count)}
+    return {}
+
+
+def f32_tile_times(operands, out) -> dict:
+    """Cold ms (:func:`cold_ms`) of every tile of ``amu_matmul.F32_TILES``
+    on an f32 matmul's operands through the C entry point, keyed
+    ``"BMxBN"``; each tile's output must be bitwise ``out``, the
+    wrapper's.  What phase 2d holds the tile rule's pick against."""
+    x, w = operands
+    (M, K), N = x.shape, w.shape[1]
+    kernel = mm_mod.KERNELS[torch.float32]
+    sets, _ = _rotated(operands)
+    times = {}
+    for bm, bn in mm_mod.F32_TILES:
+        def run(a, b, bm=bm, bn=bn):
+            o = torch.empty(M, N, device=a.device)
+            kernel.launch(a.data_ptr(), b.data_ptr(), o.data_ptr(), M, K, N,
+                          bm, bn, mm_mod.F32_STAGES,
+                          torch.cuda.current_stream(a.device).cuda_stream)
+            return o
+        require(torch.equal(run(x, w), out),
+                f"f32 matmul {M}x{K}x{N}: tile ({bm}, {bn}) moved a bit")
+        times[f"{bm}x{bn}"] = cold_ms(run, sets)
+    del sets
+    return times
+
+
+def f32_matmul_digest(outs) -> str:
+    """sha256 of phase 2d's f32 matmul outputs, in case order: the card's
+    tile may move no bit of them."""
+    h = hashlib.sha256()
+    for (kind, dt, _, _), out in zip(DENSE_CASES, outs):
+        if kind == "matmul" and dt == torch.float32:
+            h.update(out.numpy().tobytes())
+    return h.hexdigest()
 
 
 def check_case(i: int, dev):
@@ -894,15 +968,14 @@ def check_case(i: int, dev):
         require(diff == 0, f"{what}: row s is not bitwise the decode "
                 "kernel at lengths[:, s]")
         acc["vs_decode"] = diff
-    cold = None
     if kind == "matmul" and dt == torch.bfloat16:
         check_selection(what, call, *extra, SEED + 300 + i)
-        cold = (lambda x, w: call("cuda", x, w), extra,
-                lambda x, w: torch.matmul(x, w), extra)
-    elif isinstance(extra, dict):
-        cold = extra["cold"]
+    cold = cold_case(kind, call, extra)
+    tile_ms = (f32_tile_times(extra, out)
+               if kind == "matmul" and dt == torch.float32 else None)
     b_ms, b_by = bound(nbytes, flops, dt)
-    case = {"case": label, **shape, "max_abs_err": err, **acc,
+    case = {"case": label, **shape, **launch_shape(kind, dt, shape, dev),
+            "max_abs_err": err, **acc,
             **(cold_times(*cold) if cold else {
                 "ms": time_ms(lambda: call("cuda")),
                 "library_ms": None if lib is None else time_ms(lib)}),
@@ -911,13 +984,21 @@ def check_case(i: int, dev):
             "bound_ms": b_ms, "bound_by": b_by}
     if kind in _NO_LIBRARY:
         case["library"] = _NO_LIBRARY[kind]
+    if tile_ms:
+        case["tile_ms"] = tile_ms
     lib_txt = (_NO_LIBRARY.get(kind, "n/a") if case["library_ms"] is None
                else f"{case['library_ms']:.4f}")
     if cold:
         lib_txt += (f" (cold; one call {case['library_one_call_ms']:.4f}) "
                     f"kernel/library {case['ms'] / case['library_ms']:.2f}x"
-                    + (", selection matrix exact" if kind == "matmul"
-                       else ""))
+                    + (", selection matrix exact"
+                       if kind == "matmul" and dt == torch.bfloat16 else ""))
+    if "tile" in case or "splits" in case:
+        lib_txt += (f" tile {case['tile']}" if "tile" in case
+                    else f" splits {case['splits']}")
+    if tile_ms:
+        lib_txt += " (every tile cold: " + ", ".join(
+            f"{t} {ms:.4f}" for t, ms in tile_ms.items()) + ")"
     print(f"[dense] {what}: kernel_ms {case['ms']:.4f}"
           + (f" (cold; one call {case['one_call_ms']:.4f})" if cold else "")
           + f" plain_ms {case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
@@ -956,6 +1037,7 @@ def check_dense(dev):
             if "library" in case:
                 rows[name]["library"] = case["library"]
         rows[name]["cases"].append(case)
+    print(f"[dense] f32 matmul outputs sha256 {f32_matmul_digest(outs)}")
     return list(rows.values()), paged, outs
 
 
@@ -1524,19 +1606,31 @@ def main(argv=None) -> int:
     sm90 = (mm_mod.KERNELS[torch.bfloat16], pre_mod.DENSE_KERNELS[
         torch.bfloat16], pre_mod.KERNELS[torch.bfloat16])
     sm90_names = {k.source.name for k in sm90}
+    # and the cp.async rings of the f32 matmul and the dense decode must
+    # not spill either
+    no_spill = sm90_names | {mm_mod.KERNELS[torch.float32].source.name,
+                             dec_mod.DENSE_KERNELS[torch.float32].source.name}
+    f32_name = mm_mod.KERNELS[torch.float32].source.name
     for name, log in sources.items():
-        summary = ptxas_summary(log, "bf16" if name in sm90_names else "?")
+        summary = ptxas_summary(log, "bf16" if name in sm90_names
+                                else "f32" if name == f32_name else "?")
         for elem, (n, lo, hi, spill, n_spill) in summary.items():
             print(f"[build] {name} {elem}: {n} instantiations, registers "
                   f"{lo}-{hi}, largest spill store {spill} B "
                   f"({n_spill} spilling)")
-            require(name not in sm90_names or n_spill == 0,
+            require(name not in no_spill or n_spill == 0,
                     f"{name}: {n_spill} instantiations spill")
     for k in sm90:
         sass = sass_counts(k.library_path(), ("HGMMA", "UTMALDG"))
         print(f"[build] {k.source.name} SASS: {sass}")
         require(all(sass.values()), f"{k.source.name}: no tensor-core "
                 f"products or no TMA loads in its SASS: {sass}")
+    # the f32 matmul's fmaf beside its copies, shared loads and the
+    # integer ops that address and mask the copies (both instances)
+    f32_lib = mm_mod.KERNELS[torch.float32]
+    print(f"[build] {f32_lib.source.name} SASS: " + str(sass_counts(
+        f32_lib.library_path(), ("FFMA", "LDS", "LDGSTS", "SEL", "ISETP",
+                                 "IMAD", "IADD3", "LEA", "SHF"))))
 
     # 2. kernels vs plain versions, every element type of the pool
     rng = np.random.default_rng(SEED)

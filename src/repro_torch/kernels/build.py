@@ -134,11 +134,23 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        err = self._entry()(*args)
+        self._check(self.symbol, self._entry()(*args))
+        self.launches += 1
+
+    def query(self, symbol: str, argtypes: Sequence, *args) -> None:
+        """Call another C function of this kernel's library, one that
+        launches nothing (an occupancy query, say): nothing is counted;
+        raises on a CUDA error as :meth:`launch` does."""
+        self._entry()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        self._check(symbol, fn(*args))
+
+    def _check(self, symbol: str, err: int) -> None:
         if err != 0:
             msg = self._lib.repro_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+            raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

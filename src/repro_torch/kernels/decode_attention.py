@@ -33,8 +33,12 @@ The dense decode kernel (``csrc/decode_attention.cu``) replaces the TPU
 kernel ``decode_attention`` of the same file (``_decode_kernel``, its
 ``pallas_call`` at line 109): one query token per sequence over a dense
 (B, Skv, Hkv, D) cache, one scalar ``valid_len`` for the batch, one entry
-point per dtype (f32, bf16).  Its plain version
-:func:`decode_attention_torch` is the reference's
+point per dtype (f32, bf16).  It splits the positions over blocks
+(flash-decoding): :func:`decode_splits` picks the number of ranges,
+:func:`split_ranges` says which positions each covers, and a second
+kernel enqueued by the same call merges the ranges' f32 partial states
+from a workspace the wrapper allocates (``csrc/split_kv.cuh``).  Its
+plain version :func:`decode_attention_torch` is the reference's
 ``decode_attention_ref``.
 """
 
@@ -42,11 +46,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (POOL_DTYPES, check_dense,
-                                      check_heads, check_operand,
+from repro_torch.kernels.build import (POOL_DTYPES, check_aligned,
+                                      check_dense, check_heads,
+                                      check_operand,
                                       dense_kernels, kernel_per_dtype,
                                       scale_pointers)
 from repro_torch.kernels.ref import decode_attention_ref
@@ -55,8 +61,8 @@ __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
            "paged_decode_attention_torch", "paged_decode_attention_cuda",
            "paged_verify_attention_torch", "paged_verify_attention_cuda",
            "decode_attention_torch", "decode_attention_cuda",
-           "KERNEL", "VERIFY_KERNEL", "KERNELS", "VERIFY_KERNELS",
-           "DENSE_KERNELS"]
+           "decode_splits", "split_ranges", "KERNEL", "VERIFY_KERNEL",
+           "KERNELS", "VERIFY_KERNELS", "DENSE_KERNELS"]
 
 NEG_INF = -1e30
 
@@ -71,10 +77,18 @@ VERIFY_KERNELS = kernel_per_dtype("paged_verify.cu", "paged_verify_attention",
                                    _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
 VERIFY_KERNEL = VERIFY_KERNELS[torch.bfloat16]
-#: the dense kernel's entry point per dtype of q, k, v and out
+#: the dense kernel's entry point per dtype of q, k, v and out: q, k, v,
+#: out, the split workspace, B, Skv, H, Hkv, D, valid_len, splits, scale,
+#: stream
 DENSE_KERNELS = dense_kernels(
     "decode_attention.cu", "decode_attention",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+#: positions per tile of the dense kernel; a range spans at least
+#: SPLIT_MIN_POSITIONS of them (csrc/decode_attention.cu kTile)
+SPLIT_TILE = 64
+SPLIT_MIN_POSITIONS = 256
+#: query heads a dense decode block may hold (csrc kRowCounts)
+_ROW_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 16)
 
 
 def one_token_attention(q, kc, vc, valid, num_kv_heads: int):
@@ -229,9 +243,47 @@ def decode_attention_torch(q, k, v, valid_len=None):
                                 k.shape[1] if valid_len is None else valid_len)
 
 
-def decode_attention_cuda(q, k, v, valid_len=None):
+def _head_blocks(G: int) -> int:
+    """Blocks over a KV head's G query heads (csrc ``rows_for``): the
+    fewest of at most 16 heads each."""
+    blocks = -(-G // _ROW_COUNTS[-1])
+    share = -(-G // blocks)
+    rows = next(r for r in _ROW_COUNTS if r >= share)
+    return -(-G // rows)
+
+
+def decode_splits(B: int, Hkv: int, G: int, valid_len: int,
+                  sms: int) -> int:
+    """Ranges the dense kernel cuts ``valid_len`` positions into, from the
+    shape and the SM count alone: enough blocks for two per SM, each range
+    at least 256 positions (the last may end sooner, at ``valid_len``),
+    one range at ``valid_len`` <= 256; no range empty."""
+    if valid_len <= SPLIT_MIN_POSITIONS:
+        return 1
+    blocks = B * Hkv * _head_blocks(G)
+    want = -(-2 * sms // blocks)
+    splits = max(1, min(want, valid_len // SPLIT_MIN_POSITIONS))
+    tiles = -(-valid_len // SPLIT_TILE)
+    return -(-tiles // -(-tiles // splits))
+
+
+def split_ranges(valid_len: int, splits: int):
+    """The positions [start, end) of each of ``splits`` ranges, as the
+    kernel cuts them: whole tiles of 64, an equal count to each but the
+    last, which ends at ``valid_len``; ranges past it are empty."""
+    tiles = -(-valid_len // SPLIT_TILE)
+    per = max(1, -(-tiles // splits)) * SPLIT_TILE
+    return [(min(s * per, valid_len), min(s * per + per, valid_len))
+            for s in range(splits)]
+
+
+def decode_attention_cuda(q, k, v, valid_len=None, *,
+                          splits: Optional[int] = None):
     """Launch the dense kernel: q (B, H, D), k/v (B, Skv, Hkv, D), all f32
-    or all bf16, contiguous; any G, a head dim of ``HEAD_DIMS``."""
+    or all bf16, contiguous; any G, a head dim of ``HEAD_DIMS``.
+    ``splits`` (default :func:`decode_splits`) is the number of ranges
+    the positions are cut into; with more than one, a workspace of
+    B * H * splits * (D + 2) f32 holds their partial states."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, D), got {tuple(q.shape)}")
     check_dense("decode_attention_cuda", q, k, v)
@@ -239,11 +291,23 @@ def decode_attention_cuda(q, k, v, valid_len=None):
     B, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     check_heads(H, Hkv, D)
+    check_aligned(k=k, v=v)
+    valid = Skv if valid_len is None else min(int(valid_len), Skv)
+    if valid < 0:
+        raise ValueError(f"valid_len must be at least 0, got {valid_len}")
+    if splits is None:
+        splits = decode_splits(
+            B, Hkv, H // Hkv, valid,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    if splits < 1:
+        raise ValueError(f"splits must be at least 1, got {splits}")
     out = torch.empty_like(q)
+    ws = (torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                      device=dev) if splits > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         DENSE_KERNELS[q.dtype].launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Skv,
-            H, Hkv, D, Skv if valid_len is None else int(valid_len),
-            1.0 / math.sqrt(D), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, Skv, H, Hkv, D, valid,
+            splits, 1.0 / math.sqrt(D), stream)
     return out

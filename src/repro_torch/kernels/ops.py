@@ -63,11 +63,12 @@ def matmul(x, w, *, impl: str = "auto", bm: Optional[int] = None,
     """x (M, K) @ w (K, N) with f32 accumulation, in x's dtype.  The
     tiles (bm, bk, bn) default to the SPM planner's, as the reference
     plans them, and must tile the shapes (ValueError otherwise); the
-    f32 kernel runs a tile that one block cannot hold as sub-tiles of it
-    (:func:`repro_torch.kernels.amu_matmul.launch_tiles`), and refuses
-    only a side with no divisor that is a multiple of 8; the bf16 kernel
-    runs tiles of its own (:func:`~repro_torch.kernels.amu_matmul.
-    sm90_tiles`) and needs K and N multiples of 8.  The plain version
+    f32 path refuses a tile with a side that has no divisor that is a
+    multiple of 8 (:func:`repro_torch.kernels.amu_matmul.launch_tiles`).
+    Both kernels then run tiles of their own (:func:`~repro_torch.
+    kernels.amu_matmul.f32_tiles`, :func:`~repro_torch.kernels.
+    amu_matmul.sm90_tiles`), which change no bit of the f32 result; the
+    bf16 kernel needs K and N multiples of 8.  The plain version
     takes no tiles, as the reference's XLA path."""
     if resolve_impl(impl, x) == "torch":
         return _amu.amu_matmul_torch(x, w)
