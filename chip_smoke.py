@@ -20,8 +20,11 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    together, and prints each source's registers and spills per element
    type (``-Xptxas -v``); the three sm90 libraries must spill nowhere,
    and their SASS (``cuobjdump``) must hold tensor-core products
-   (``HGMMA``) and TMA loads (``UTMALDG``); nor may the f32 matmul's and
-   the dense decode's (``amu_matmul.cu``, ``decode_attention.cu``);
+   (``HGMMA``) and TMA loads (``UTMALDG``); nor may the f32 matmul's, the
+   dense decode's and the paged decode's and verify's (``amu_matmul.cu``,
+   ``decode_attention.cu``, ``paged_decode.cu``, ``paged_verify.cu``),
+   and the paged ones' SASS must hold their ring's ``cp.async`` copies
+   (``LDGSTS``, counted);
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
    int8 and fp8 pools quantized from the same kind of normal draw with
@@ -35,11 +38,15 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    several times.  It times kernel and plain version with CUDA events
    (and, for bf16, ``scaled_dot_product_attention`` on the gathered view,
    a yardstick only; no single library call takes a quantized pool with
-   its scales; the bf16 prefill and SDPA both also cold, as phase 2g
-   times the gathers), and computes each instance's bound from these inputs
-   (1-byte K/V and the scales read for a quantized pool).  Verify row s
-   must be bitwise the decode kernel of the same element type at
-   ``lengths[:, s]`` (both are one template);
+   its scales); the bf16 prefill and the decode and verify instances of
+   every pool type are also timed cold, as phase 2g times the gathers
+   (bf16: kernel and SDPA alike, the one-call times beside), and each
+   decode and verify case prints the range length and count its wrapper
+   cut it into (``decode_attention.paged_split_positions``).  It computes
+   each instance's bound from these inputs (1-byte K/V and the scales
+   read for a quantized pool).  Verify row s must be bitwise the decode
+   kernel of the same element type at ``lengths[:, s]`` (both are one
+   template, split over the same ranges);
 2d. holds each kernel-level entry point (``ops.matmul``,
    ``ops.flash_attention``, ``ops.decode_attention``, ``ops.wkv6``,
    ``ops.ssd``, f32 and bf16) against its plain version on the card: in
@@ -74,12 +81,13 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    x's columns exactly through a selection matrix w, and are timed as
    phase 2g times the gathers (``cold_ms``), kernel and ``torch.matmul``
    alike, with the one-call times beside them; so are the f32 matmul
-   cases, the bf16 dense flash and paged prefill cases and every dense
-   decode case, kernel and SDPA alike.  It prints the f32 matmul's tile
-   (``f32_tiles``), every tile's cold time on each f32 matmul case (each
-   bitwise the wrapper's output), each dense decode case's split count
-   (``decode_splits``), and a sha256 of the f32 matmul cases' outputs,
-   which the tile must not move;
+   cases, the bf16 dense flash and paged prefill cases, every dense
+   decode case and the paged decode and verify cases, kernel and SDPA
+   alike.  It prints the f32 matmul's tile (``f32_tiles``), every tile's
+   cold time on each f32 matmul case (each bitwise the wrapper's output),
+   each dense decode case's split count (``decode_splits``), each paged
+   decode and verify case's range length and count, and a sha256 of the
+   f32 matmul cases' outputs, which the tile must not move;
 2g. holds each gather entry point against its plain version
    (``index_select``) bitwise, the reference's bar: f32 at the
    reference's test shapes, bf16 at olmoe-1b-7b's full width with the
@@ -169,8 +177,10 @@ phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ``--profile-out PATH`` adds one more engine run of phase 3, one of
 phase 4's oracle run, one of phase 3q's int8 run and one of phase 7's
 olmoe run under ``torch.profiler`` and prints where their device time
-went (attention kernels, gather kernels, matrix products, copies, the
-rest) and the device's busy share of the profiled wall time; the
+went (attention kernels with the split-KV combine, gather kernels,
+matrix products, copies, the rest), the device seconds and launches of
+each paged decode and verify instance and of the combine, and the
+device's busy share of the profiled wall time; the
 per-kernel tables go to PATH and to PATH with ``-spec``, ``-int8`` and
 ``-olmoe`` added to its stem, sorted by device time and then by host
 time.
@@ -369,18 +379,21 @@ def gathered(pool, table, heads=H):
     return x.repeat_interleave(heads // hkv, dim=2).transpose(1, 2)
 
 
-def make_pools(n_frames, mode, dev):
-    """Random K and V pools of ``n_frames`` frames: bf16, or int8 / fp8
-    frames quantized from the same normal draw with per-(frame, KV head)
-    absmax scales.  Returns (k_pages, v_pages, scale keywords)."""
+def make_pools(n_frames, mode, dev, hkv=HKV, d=D, gen=None):
+    """Random K and V pools of ``n_frames`` frames of ``hkv`` heads of
+    ``d``: bf16, or int8 / fp8 frames quantized from the same normal draw
+    with per-(frame, KV head) absmax scales (from ``gen``, else torch's
+    default generator).  Returns (k_pages, v_pages, scale keywords)."""
     if mode == "none":
-        kp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
-        vp = torch.randn(n_frames, PAGE, HKV, D, device=dev).bfloat16()
+        kp = torch.randn(n_frames, PAGE, hkv, d, generator=gen,
+                         device=dev).bfloat16()
+        vp = torch.randn(n_frames, PAGE, hkv, d, generator=gen,
+                         device=dev).bfloat16()
         return kp, vp, {}
     qcfg = KVQuantConfig(mode)
     pools, scales = [], []
     for _ in range(2):
-        x = torch.randn(n_frames, PAGE, HKV, D, device=dev)
+        x = torch.randn(n_frames, PAGE, hkv, d, generator=gen, device=dev)
         s = x.abs().amax(dim=(1, 3)) * qcfg.inv_qmax           # (N, Hkv)
         pools.append(quantize(x, s[:, None, :, None], qcfg))
         scales.append(s.contiguous())
@@ -416,19 +429,99 @@ def kernel_row(kind: str, mode: str, **fields):
             **fields}
 
 
-def check_decode(dev, rng, mode="none"):
-    lengths = np.array([1, 16, 17, 255, 640, 1000, 1537, 2048], np.int32)
-    B, pps = len(lengths), 2048 // PAGE
+#: phase 2's ragged lengths: decode rows, and the first verify row of
+#: each sequence (row s adds s, capped at the table's 2048)
+DECODE_LENGTHS = (1, 16, 17, 255, 640, 1000, 1537, 2048)
+VERIFY_STARTS = (1, 12, 16, 255, 640, 1000, 1537, 2044)
+
+
+def paged_operands(kind: str, mode: str, rng, dev, heads=H, hkv=HKV, d=D,
+                   gen=None):
+    """Phase 2's decode (``kind`` "decode") or verify (K = 4) inputs at
+    ``heads`` / ``hkv`` heads of ``d``: 8 sequences, a 2048-position
+    table of page 16 over disjoint random frames (numpy ``rng``), the
+    rest on the trash frame, pools of ``mode`` and q from ``gen``.
+    Returns ((q, k_pages, v_pages, page_table, lengths), scale keywords,
+    each sequence's longest length)."""
+    if kind == "verify":
+        lengths = np.minimum(np.array(VERIFY_STARTS, np.int32)[:, None]
+                             + np.arange(SPECULATE_K + 1)[None, :],
+                             2048).astype(np.int32)
+        longest = lengths.max(axis=1)
+    else:
+        lengths = longest = np.array(DECODE_LENGTHS, np.int32)
+    B, pps = len(longest), 2048 // PAGE
     n_frames = B * pps + 1
     table = np.full((B, pps), n_frames - 1, np.int32)
     for b, fr in enumerate(random_frames(rng, n_frames - 1,
-                                         [-(-n // PAGE) for n in lengths])):
+                                         [-(-n // PAGE) for n in longest])):
         table[b, :len(fr)] = fr
-    kp, vp, kw = make_pools(n_frames, mode, dev)
-    q = torch.randn(B, H, D, device=dev).bfloat16()
-    pt = torch.from_numpy(table).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
-    args = (q, kp, vp, pt, ln)
+    kp, vp, kw = make_pools(n_frames, mode, dev, hkv, d, gen)
+    q = torch.randn(*lengths.shape, heads, d, generator=gen,
+                    device=dev).bfloat16()
+    return ((q, kp, vp, torch.from_numpy(table).to(dev),
+             torch.from_numpy(lengths).to(dev)), kw, longest)
+
+
+def paged_call(kind: str):
+    """``ops.paged_decode_attention`` or ``ops.paged_verify_attention``."""
+    return (ops.paged_verify_attention if kind == "verify"
+            else ops.paged_decode_attention)
+
+
+def paged_sdpa(kind: str, args, heads=H):
+    """SDPA on the gathered view of a bf16 case's pool, each row masked by
+    its length: (the call, its operands) — a yardstick only."""
+    q, kp, vp, pt, ln = args
+    kv_pos = torch.arange(pt.shape[1] * PAGE, device=q.device)
+    kg, vg = gathered(kp, pt, heads), gathered(vp, pt, heads)
+    if kind == "verify":
+        mask = (kv_pos[None, None, :] < ln[:, :, None])[:, None]
+        qs = q.transpose(1, 2)
+    else:
+        mask = (kv_pos[None, :] < ln[:, None])[:, None, None, :]
+        qs = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (lambda *a: sdpa(*a[:3], attn_mask=a[3])), (qs, kg, vg, mask)
+
+
+def paged_cold(kind: str, args, kw) -> tuple:
+    """(kernel, operands) of a paged case for :func:`cold_ms`: the scales
+    of a quantized pool ride in the operands, so their copies rotate
+    too."""
+    call, names = paged_call(kind), tuple(kw)
+    return ((lambda *a: call(*a[:5], impl="cuda", **dict(zip(names, a[5:])))),
+            tuple(args) + tuple(kw.values()))
+
+
+def paged_split(args) -> dict:
+    """The range length and count the wrapper cuts a paged case into."""
+    q, kp, _, pt, _ = args
+    span, n, _ = dec_mod.paged_split_plan(
+        tuple(q.shape), tuple(kp.shape), pt.shape[1],
+        dec_mod.sm_count(q.device))
+    return {"split_positions": span, "ranges": n}
+
+
+def paged_times(kind: str, mode: str, args, kw, heads=H) -> dict:
+    """A paged case timed cold (:func:`cold_ms`) beside its one call:
+    the bf16 instances with SDPA alike (:func:`cold_times`), the int8 /
+    fp8 ones alone (no library call takes the pool with its scales)."""
+    kernel, operands = paged_cold(kind, args, kw)
+    if mode == "none":
+        return cold_times(kernel, operands, *paged_sdpa(kind, args, heads))
+    sets, span = _rotated(operands)
+    times = {"ms": cold_ms(kernel, sets),
+             "one_call_ms": time_ms(lambda: kernel(*operands)),
+             "library_ms": None, "sets_span_bytes": span}
+    del sets
+    return times
+
+
+def check_decode(dev, rng, mode="none"):
+    args, kw, _ = paged_operands("decode", mode, rng, dev)
+    q, kp, vp, pt, ln = args
+    lengths = ln.cpu().numpy()
     out = ops.paged_decode_attention(*args, impl="cuda", **kw)
     ref = ops.paged_decode_attention(*args, impl="torch", **kw)
     err, row_err = agree(f"decode kernel ({mode})", out, ref)
@@ -438,21 +531,12 @@ def check_decode(dev, rng, mode="none"):
               + kv_bytes(total, frames, mode))
     flops = 4 * total * H * D
     b_ms, b_by = bound(nbytes, flops)
-    lib_ms = None
-    if mode == "none":      # SDPA takes no quantized pool with scales
-        kg, vg = gathered(kp, pt), gathered(vp, pt)
-        mask = (torch.arange(pps * PAGE, device=dev)[None, :]
-                < ln[:, None])[:, None, None, :]
-        qs = q[:, :, None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
     return kernel_row(
         "decode", mode, max_abs_err=err, row_err=row_err,
-        ms=time_ms(lambda: ops.paged_decode_attention(*args, impl="cuda",
-                                                      **kw)),
+        **paged_times("decode", mode, args, kw), **paged_split(args),
         plain_ms=time_ms(lambda: ops.paged_decode_attention(
             *args, impl="torch", **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def check_prefill(dev, rng, mode="none"):
@@ -509,21 +593,9 @@ def check_verify(dev, rng, mode="none"):
     against the decode kernel of the same element type at
     ``lengths[:, s]``, bitwise."""
     S = SPECULATE_K + 1
-    starts = np.array([1, 12, 16, 255, 640, 1000, 1537, 2044], np.int32)
-    lengths = np.minimum(starts[:, None] + np.arange(S)[None, :],
-                         2048).astype(np.int32)    # 1..5, 16, 17, .., 2048
-    B, pps = len(starts), 2048 // PAGE
-    longest = lengths.max(axis=1)
-    n_frames = B * pps + 1
-    table = np.full((B, pps), n_frames - 1, np.int32)
-    for b, fr in enumerate(random_frames(rng, n_frames - 1,
-                                         [-(-n // PAGE) for n in longest])):
-        table[b, :len(fr)] = fr
-    kp, vp, kw = make_pools(n_frames, mode, dev)
-    q = torch.randn(B, S, H, D, device=dev).bfloat16()
-    pt = torch.from_numpy(table).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
-    args = (q, kp, vp, pt, ln)
+    args, kw, longest = paged_operands("verify", mode, rng, dev)
+    q, kp, vp, pt, ln = args
+    lengths = ln.cpu().numpy()
     out = ops.paged_verify_attention(*args, impl="cuda", **kw)
     ref = ops.paged_verify_attention(*args, impl="torch", **kw)
     err, row_err = agree(f"verify kernel ({mode})", out, ref)
@@ -542,21 +614,12 @@ def check_verify(dev, rng, mode="none"):
               + kv_bytes(int(longest.sum()), frames, mode))
     flops = 4 * int(lengths.sum()) * H * D
     b_ms, b_by = bound(nbytes, flops)
-    lib_ms = None
-    if mode == "none":
-        kg, vg = gathered(kp, pt), gathered(vp, pt)
-        mask = (torch.arange(pps * PAGE, device=dev)[None, None, :]
-                < ln[:, :, None])[:, None]             # (B, 1, S, L)
-        qs = q.transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
     return kernel_row(
         "verify", mode, max_abs_err=err, row_err=row_err,
-        ms=time_ms(lambda: ops.paged_verify_attention(*args, impl="cuda",
-                                                      **kw)),
+        **paged_times("verify", mode, args, kw), **paged_split(args),
         plain_ms=time_ms(lambda: ops.paged_verify_attention(
             *args, impl="torch", **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        bound_ms=b_ms, bound_by=b_by)
 
 
 #: phase 2d: (entry point, dtype, what the case is, shapes); bf16 at
@@ -646,24 +709,33 @@ _NO_LIBRARY = {"wkv6": "no single PyTorch call computes WKV6",
 def paged_inputs(kind: str, c: dict, i: int, dev):
     """A paged case of :data:`DENSE_CASES` at phase 2's lengths and page
     size with the case's heads: (call, library call, bytes, flops, and
-    the verify case's decode call per row or the prefill rows' lengths)."""
+    ``{"cold": ...}`` for :func:`cold_times`, with the prefill rows'
+    lengths or the verify case's decode call per row)."""
     heads, hkv, d = c["H"], c["Hkv"], c["D"]
     rng = np.random.default_rng(SEED + 100 + i)
     gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+    if kind != "paged_prefill":
+        row = kind[len("paged_"):]
+        args, _, longest = paged_operands(row, "none", rng, dev, heads, hkv,
+                                          d, gen)
+        q, kp, vp, pt, ln = args
+        call = (lambda impl="auto": paged_call(row)(*args, impl=impl))
+        lib, lib_ops = paged_sdpa(row, args, heads)
+        extra = {"cold": (lambda *a: paged_call(row)(*a, impl="cuda"), args,
+                          lib, lib_ops)}
+        if row == "verify":
+            extra["decode_rows"] = [
+                (lambda s=s: ops.paged_decode_attention(
+                    q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous()))
+                for s in range(q.shape[1])]
+        kv = 2 * int(longest.sum()) * hkv * d * 2 + pt.numel() * 4
+        return (call, lambda: lib(*lib_ops),
+                q.numel() * 2 * 2 + ln.numel() * 4 + kv,
+                4 * int(ln.sum()) * heads * d, extra)
     pps = 2048 // PAGE
-    if kind == "paged_prefill":
-        offset = np.array([512, 1283], np.int32)
-        length = np.array([256, 131], np.int32)
-        longest, rows_q = offset + length, (2, 256)
-    elif kind == "paged_verify":
-        S = SPECULATE_K + 1
-        starts = np.array([1, 12, 16, 255, 640, 1000, 1537, 2044], np.int32)
-        length = np.minimum(starts[:, None] + np.arange(S)[None, :],
-                            2048).astype(np.int32)
-        longest, rows_q = length.max(axis=1), (len(starts), S)
-    else:
-        length = np.array([1, 16, 17, 255, 640, 1000, 1537, 2048], np.int32)
-        longest, rows_q = length, (len(length),)
+    offset = np.array([512, 1283], np.int32)
+    length = np.array([256, 131], np.int32)
+    longest, rows_q = offset + length, (2, 256)
     n_frames = len(longest) * pps + 1
     table = np.full((len(longest), pps), n_frames - 1, np.int32)
     for b, fr in enumerate(random_frames(rng, n_frames - 1,
@@ -677,42 +749,22 @@ def paged_inputs(kind: str, c: dict, i: int, dev):
     kg, vg = gathered(kp, pt, heads), gathered(vp, pt, heads)
     kv_pos = torch.arange(pps * PAGE, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    frames = sum(-(-int(n) // PAGE) for n in longest)
     kv = 2 * int(longest.sum()) * hkv * d * 2 + pt.numel() * 4
-    decode_rows = None
-    if kind == "paged_prefill":
-        off = torch.from_numpy(offset).to(dev)
-        call = (lambda impl="auto": ops.paged_prefill_attention(
-            q, kp, vp, pt, off, ln, impl=impl))
-        q_pos = off[:, None] + torch.arange(rows_q[1], device=dev)[None, :]
-        mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-        qs = q.transpose(1, 2)
-        attended = sum(int(n) * int(o) + int(n) * (int(n) + 1) // 2
-                       for o, n in zip(offset, length))
-        cold = (lambda *a: ops.paged_prefill_attention(*a, impl="cuda"),
-                (q, kp, vp, pt, off, ln),
-                lambda *a: sdpa(*a[:3], attn_mask=a[3]), (qs, kg, vg, mask))
-        return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
-                2 * 2 * int(length.sum()) * heads * d + kv + 2 * 2 * 4,
-                4 * attended * heads * d,
-                {"lengths": [int(n) for n in length], "cold": cold})
-    if kind == "paged_verify":
-        call = (lambda impl="auto": ops.paged_verify_attention(
-            q, kp, vp, pt, ln, impl=impl))
-        mask = (kv_pos[None, None, :] < ln[:, :, None])[:, None]
-        qs = q.transpose(1, 2)
-        decode_rows = [
-            (lambda s=s: ops.paged_decode_attention(
-                q[:, s].contiguous(), kp, vp, pt, ln[:, s].contiguous()))
-            for s in range(rows_q[1])]
-    else:
-        call = (lambda impl="auto": ops.paged_decode_attention(
-            q, kp, vp, pt, ln, impl=impl))
-        mask = (kv_pos[None, :] < ln[:, None])[:, None, None, :]
-        qs = q[:, :, None]
+    off = torch.from_numpy(offset).to(dev)
+    call = (lambda impl="auto": ops.paged_prefill_attention(
+        q, kp, vp, pt, off, ln, impl=impl))
+    q_pos = off[:, None] + torch.arange(rows_q[1], device=dev)[None, :]
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    qs = q.transpose(1, 2)
+    attended = sum(int(n) * int(o) + int(n) * (int(n) + 1) // 2
+                   for o, n in zip(offset, length))
+    cold = (lambda *a: ops.paged_prefill_attention(*a, impl="cuda"),
+            (q, kp, vp, pt, off, ln),
+            lambda *a: sdpa(*a[:3], attn_mask=a[3]), (qs, kg, vg, mask))
     return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
-            q.numel() * 2 * 2 + ln.numel() * 4 + kv,
-            4 * int(length.sum()) * heads * d, decode_rows)
+            2 * 2 * int(length.sum()) * heads * d + kv + 2 * 2 * 4,
+            4 * attended * heads * d,
+            {"lengths": [int(n) for n in length], "cold": cold})
 
 
 def ssm_inputs(kind: str, c: dict, dt, rand):
@@ -894,6 +946,11 @@ def launch_shape(kind: str, dt, shape: dict, dev) -> dict:
         return {"splits": dec_mod.decode_splits(
             shape["B"], shape["Hkv"], shape["H"] // shape["Hkv"],
             min(shape["valid"], shape["Skv"]), props.multi_processor_count)}
+    if kind in ("paged_decode", "paged_verify"):
+        span = dec_mod.paged_split_positions(
+            len(DECODE_LENGTHS), shape["Hkv"], shape["H"] // shape["Hkv"],
+            2048, props.multi_processor_count)
+        return {"split_positions": span, "ranges": -(-2048 // span)}
     return {}
 
 
@@ -964,7 +1021,7 @@ def check_case(i: int, dev):
         acc["seq_rel_err"] = seq_rel
     if kind == "paged_verify":
         diff = max(float((out[:, s].float() - one().float()).abs().max())
-                   for s, one in enumerate(extra))
+                   for s, one in enumerate(extra["decode_rows"]))
         require(diff == 0, f"{what}: row s is not bitwise the decode "
                 "kernel at lengths[:, s]")
         acc["vs_decode"] = diff
@@ -996,6 +1053,9 @@ def check_case(i: int, dev):
     if "tile" in case or "splits" in case:
         lib_txt += (f" tile {case['tile']}" if "tile" in case
                     else f" splits {case['splits']}")
+    if "split_positions" in case:
+        lib_txt += (f" split_positions {case['split_positions']} ranges "
+                    f"{case['ranges']}")
     if tile_ms:
         lib_txt += " (every tile cold: " + ", ".join(
             f"{t} {ms:.4f}" for t, ms in tile_ms.items()) + ")"
@@ -1527,7 +1587,7 @@ def sass_counts(library: Path, opcodes) -> dict:
 
 def _kind(name: str) -> str:
     if any(k in name for k in ("paged_attention_kernel", "paged_prefill",
-                                "flash_attention")):
+                                "flash_attention", "combine_kernel")):
         return "attention kernels"
     if "gather_rows_kernel" in name or "gather_blocks_kernel" in name:
         return "gather kernels"
@@ -1556,17 +1616,27 @@ def profile_engine(cfg, params, runs) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
                                proposer_factory=factory, kv_quant=kv_quant)
-        kinds = {}
+        kinds, split = {}, {}
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 k = _kind(ev.name)
-                kinds[k] = kinds.get(k, 0.0) + ev.time_range.elapsed_us() / 1e3
+                us = ev.time_range.elapsed_us()
+                kinds[k] = kinds.get(k, 0.0) + us / 1e3
+                if "paged_attention_kernel" in ev.name \
+                        or "combine_kernel" in ev.name:
+                    n, t = split.get(ev.name, (0, 0.0))
+                    split[ev.name] = (n + 1, t + us)
         busy = sum(kinds.values())
         print(f"[profile:{tag}] profiled run: {wall:.3f}s wall, device busy "
               f"{busy / 1e3:.3f}s ({busy / (wall * 1e3):.3f} of wall)")
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
             print(f"[profile:{tag}] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of "
                   f"device time)" if busy else f"[profile:{tag}] {k}: 0")
+        # the paged decode (R = G rows a block) and verify (R = S * G)
+        # instances and the split-KV combine, by kernel name
+        for name, (n, us) in sorted(split.items(), key=lambda kv: -kv[1][1]):
+            print(f"[profile:{tag}] {name}: {us / 1e6:.4f}s over {n} "
+                  f"launches ({us / n:.1f} us each)")
         avg = prof.key_averages()
         table.write_text(avg.table(sort_by="self_cuda_time_total",
                                    row_limit=60) + "\n\n"
@@ -1608,8 +1678,11 @@ def main(argv=None) -> int:
     sm90_names = {k.source.name for k in sm90}
     # and the cp.async rings of the f32 matmul and the dense decode must
     # not spill either
+    # (and, since the split over KV ranges, the paged decode and verify)
+    paged_libs = (dec_mod.KERNEL, dec_mod.VERIFY_KERNEL)
     no_spill = sm90_names | {mm_mod.KERNELS[torch.float32].source.name,
-                             dec_mod.DENSE_KERNELS[torch.float32].source.name}
+                             dec_mod.DENSE_KERNELS[torch.float32].source.name,
+                             *(k.source.name for k in paged_libs)}
     f32_name = mm_mod.KERNELS[torch.float32].source.name
     for name, log in sources.items():
         summary = ptxas_summary(log, "bf16" if name in sm90_names
@@ -1625,6 +1698,11 @@ def main(argv=None) -> int:
         print(f"[build] {k.source.name} SASS: {sass}")
         require(all(sass.values()), f"{k.source.name}: no tensor-core "
                 f"products or no TMA loads in its SASS: {sass}")
+    # the paged kernels' K/V ring: its cp.async copies in the SASS
+    for k in paged_libs:
+        sass = sass_counts(k.library_path(), ("LDGSTS",))
+        print(f"[build] {k.source.name} SASS: {sass}")
+        require(sass["LDGSTS"] > 0, f"{k.source.name}: no cp.async copies")
     # the f32 matmul's fmaf beside its copies, shared loads and the
     # integer ops that address and mask the copies (both instances)
     f32_lib = mm_mod.KERNELS[torch.float32]
@@ -1640,16 +1718,18 @@ def main(argv=None) -> int:
                  check_verify(dev, rng, mode)]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        if "one_call_ms" in r:
+        if r["library_ms"] is not None and "one_call_ms" in r:
             lib += (f" (cold; one call {r['library_one_call_ms']:.4f}) "
                     f"kernel/library {r['ms'] / r['library_ms']:.2f}x")
+        split = (f" split_positions {r['split_positions']} ranges "
+                 f"{r['ranges']}" if "split_positions" in r else "")
         print(f"[kernel] {r['name']}: kernel_ms {r['ms']:.4f}"
               + (f" (cold; one call {r['one_call_ms']:.4f})"
                  if "one_call_ms" in r else "") + " "
               f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
               f"max_abs_err {r['max_abs_err']:.3e} "
-              f"row_err {r.pop('row_err'):.3e}")
+              f"row_err {r.pop('row_err'):.3e}{split}")
 
     # 2d. the kernel-level entry points vs their plain versions, and the
     #     paged kernels at the other configs' heads

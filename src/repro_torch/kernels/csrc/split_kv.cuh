@@ -22,6 +22,13 @@
 // no NaN.  The order is fixed, so two calls give the same bits.  With one
 // range, w = 1 and the result is acc / max(l, 1e-30): the bits of the
 // kernel's own unsplit store.
+//
+// Ranges of a fixed length (the paged kernels, paged_attention.cuh): a
+// row of length L merges only its first ceil(L / range) ranges, the ones
+// below L, and never reads the others, which a block whose rows are all
+// shorter did not write; lengths[row / heads] is the row's length (the
+// (B, S) lengths of a (B, S, H, D) output).  L <= 0 merges none and
+// stores zeros.  Without lengths (the dense decode) every range merges.
 
 #pragma once
 
@@ -51,29 +58,45 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 }
 
 // One warp per row: merge the row's `splits` partials, store D outputs.
+// lengths: null, or the rows' lengths as above with the range length.
 template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(
     float* __restrict__ ws, T* __restrict__ out, int rows, int splits,
-    int D) {
+    int D, const int* __restrict__ lengths, int heads, int range) {
   const int row = blockIdx.x * kCombineWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const Partials p(ws, rows, splits, D);
   const long base = static_cast<long>(row) * splits;
+  int live = splits;
+  if (lengths != nullptr) {
+    const int len = lengths[row / heads];
+    live = len <= 0 ? 0 : min(splits, (len + range - 1) / range);
+  }
   float mx = kEmptyMax;
-  for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, p.m[base + s]);
+  for (int s = lane; s < live; s += 32) mx = fmaxf(mx, p.m[base + s]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  // ranges in order, 32 at a time: lane j holds range s0 + j's weight and
+  // l, shuffled to the warp, so the loop's loads are the acc rows alone,
+  // independent of one another and issued several ahead
   float sum = 0.f, o[kMaxDimsPerLane] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < splits; ++s) {
-    const float wgt = expf(p.m[base + s] - mx);
-    sum += p.l[base + s] * wgt;
-    const float* a = p.acc + (base + s) * D;
+  for (int s0 = 0; s0 < live; s0 += 32) {
+    const int mine = s0 + lane;
+    const float w_lane = mine < live ? expf(p.m[base + mine] - mx) : 0.f;
+    const float l_lane = mine < live ? p.l[base + mine] : 0.f;
+    const int n = min(32, live - s0);
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const float wgt = __shfl_sync(0xffffffffu, w_lane, j);
+      sum += __shfl_sync(0xffffffffu, l_lane, j) * wgt;
+      const float* a = p.acc + (base + s0 + j) * D;
 #pragma unroll
-    for (int i = 0; i < kMaxDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) o[i] += a[d] * wgt;
+      for (int i = 0; i < kMaxDimsPerLane; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) o[i] += a[d] * wgt;
+      }
     }
   }
   const float den = fmaxf(sum, 1e-30f);
@@ -85,13 +108,16 @@ __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(
   }
 }
 
-// Enqueue the combine of `rows` rows on `stream`.
+// Enqueue the combine of `rows` rows on `stream`; with `lengths`, each
+// row merges only its ranges of `range` positions below its length.
 template <typename T>
 cudaError_t launch_combine(float* ws, T* out, int rows, int splits,
-                           int D, cudaStream_t stream) {
+                           int D, cudaStream_t stream,
+                           const int* lengths = nullptr, int heads = 1,
+                           int range = 1) {
   const int blocks = (rows + kCombineWarps - 1) / kCombineWarps;
   combine_kernel<T><<<blocks, kCombineWarps * 32, 0, stream>>>(
-      ws, out, rows, splits, D);
+      ws, out, rows, splits, D, lengths, heads, range);
   return cudaGetLastError();
 }
 

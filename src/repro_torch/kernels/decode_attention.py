@@ -2,7 +2,14 @@
 versions.
 
 Two CUDA kernels, instances of one template (``csrc/paged_attention.cuh``,
-design notes there), both bound by the bytes of K/V they read:
+design notes there), both bound by the bytes of K/V they read and both
+split over the KV positions (flash-decoding): the table's capacity is
+cut into ranges of :func:`paged_split_positions` positions (whole
+64-position tiles, from B, Hkv, G, the capacity and the SM count, never
+from the lengths, which stay on the device), one block per range, and
+the combine of ``csrc/split_kv.cuh``, enqueued by the same call, merges
+each row's ranges below its length from a workspace the wrapper
+allocates:
 
   * ``csrc/paged_decode.cu`` replaces the TPU kernel
     ``paged_decode_attention`` of ``src/repro/kernels/decode_attention.py``
@@ -45,6 +52,7 @@ plain version :func:`decode_attention_torch` is the reference's
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -61,20 +69,22 @@ __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
            "paged_decode_attention_torch", "paged_decode_attention_cuda",
            "paged_verify_attention_torch", "paged_verify_attention_cuda",
            "decode_attention_torch", "decode_attention_cuda",
-           "decode_splits", "split_ranges", "KERNEL", "VERIFY_KERNEL",
+           "decode_splits", "split_ranges", "paged_split_positions",
+           "paged_split_ranges", "paged_split_plan", "sm_count", "KERNEL",
+           "VERIFY_KERNEL",
            "KERNELS", "VERIFY_KERNELS", "DENSE_KERNELS"]
 
 NEG_INF = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: entry point per pool dtype; the int8/fp8 ones take k_scales, v_scales
-#: after v_pages
+#: entry point per pool dtype: q, k_pages, v_pages, page_table, lengths,
+#: out, the split workspace, B, (verify: S,) H, Hkv, D, page,
+#: pages_per_seq, split_positions, scale, stream; the int8/fp8 ones take
+#: k_scales, v_scales after v_pages
 KERNELS = kernel_per_dtype("paged_decode.cu", "paged_decode_attention",
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _P])
+                           [_P] * 7 + [_I] * 7 + [_F, _P])
 VERIFY_KERNELS = kernel_per_dtype("paged_verify.cu", "paged_verify_attention",
-                                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _P])
+                                  [_P] * 7 + [_I] * 8 + [_F, _P])
 KERNEL = KERNELS[torch.bfloat16]
 VERIFY_KERNEL = VERIFY_KERNELS[torch.bfloat16]
 #: the dense kernel's entry point per dtype of q, k, v and out: q, k, v,
@@ -89,6 +99,12 @@ SPLIT_TILE = 64
 SPLIT_MIN_POSITIONS = 256
 #: query heads a dense decode block may hold (csrc kRowCounts)
 _ROW_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 16)
+#: a paged range spans at least this many positions (whole tiles), unless
+#: the table holds fewer; the ranges over the whole table make this many
+#: decode blocks an SM (rows fill part of their table: at phase 2's and
+#: the engine's lengths that leaves two or more live blocks an SM)
+PAGED_SPLIT_MIN_POSITIONS = 128
+PAGED_SPLIT_BLOCKS_PER_SM = 5
 
 
 def one_token_attention(q, kc, vc, valid, num_kv_heads: int):
@@ -176,13 +192,30 @@ def paged_verify_attention_torch(q, k_pages, v_pages, page_table, lengths,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SM count of ``dev`` (a CUDA device), cached per device."""
+    dev = torch.device(dev)
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
 def _launch(kernels, name, q, k_pages, v_pages, page_table, lengths,
-            k_scales, v_scales, *, verify: bool):
+            k_scales, v_scales, *, verify: bool,
+            split_positions: Optional[int]):
     """Check the operands of the decode / verify kernel (bf16 q; a bf16,
-    int8 or fp8 pool, with (N, Hkv) f32 scales for the last two; int32
-    table and lengths; q (B, H, D) and lengths (B,) for decode,
-    q (B, S, H, D) and lengths (B, S) for verify), pick the entry point
-    by pool dtype, allocate the output, launch."""
+    int8 or fp8 pool, 16-byte aligned, with (N, Hkv) f32 scales for the
+    last two; int32 table and lengths; q (B, H, D) and lengths (B,) for
+    decode, q (B, S, H, D) and lengths (B, S) for verify), pick the
+    entry point by pool dtype and the range length (default
+    :func:`paged_split_positions`), allocate the output and, with more
+    than one range, the workspace of B * S * H * n_ranges * (D + 2) f32;
+    launch."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     dev = q.device
@@ -206,33 +239,46 @@ def _launch(kernels, name, q, k_pages, v_pages, page_table, lengths,
                          f"{tuple(lengths.shape)} do not match q "
                          f"{tuple(q.shape)}")
     check_heads(H, Hkv, D)
+    check_aligned(k_pages=k_pages, v_pages=v_pages)
+    pps = page_table.shape[1]
+    split_positions, _, ws_size = paged_split_plan(
+        tuple(q.shape), tuple(k_pages.shape), pps, sm_count(dev),
+        split_positions)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rows = (q.shape[1],) if verify else ()
+    ws = (torch.empty(ws_size, dtype=torch.float32, device=dev)
+          if ws_size else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         kernels[k_pages.dtype].launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             *scale_ptrs, page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, *rows, H, Hkv, D, page, page_table.shape[1],
-            1.0 / math.sqrt(D), stream)
+            out.data_ptr(), None if ws is None else ws.data_ptr(), B, *rows,
+            H, Hkv, D, page, pps, split_positions, 1.0 / math.sqrt(D),
+            stream)
     return out
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
-                                k_scales=None, v_scales=None):
-    """Launch the decode kernel: q (B, H, D) bf16, lengths (B,) int32."""
+                                k_scales=None, v_scales=None, *,
+                                split_positions: Optional[int] = None):
+    """Launch the decode kernel: q (B, H, D) bf16, lengths (B,) int32.
+    ``split_positions`` (default :func:`paged_split_positions`) forces the
+    range length, a multiple of 64."""
     return _launch(KERNELS, "paged_decode_attention_cuda", q, k_pages,
                    v_pages, page_table, lengths, k_scales, v_scales,
-                   verify=False)
+                   verify=False, split_positions=split_positions)
 
 
 def paged_verify_attention_cuda(q, k_pages, v_pages, page_table, lengths,
-                                k_scales=None, v_scales=None):
+                                k_scales=None, v_scales=None, *,
+                                split_positions: Optional[int] = None):
     """Launch the verify kernel: q (B, S, H, D) bf16, lengths (B, S)
-    int32."""
+    int32; ``split_positions`` as for decode (row s is bitwise the decode
+    kernel at ``lengths[:, s]`` when both cut alike)."""
     return _launch(VERIFY_KERNELS, "paged_verify_attention_cuda", q,
                    k_pages, v_pages, page_table, lengths, k_scales, v_scales,
-                   verify=True)
+                   verify=True, split_positions=split_positions)
 
 
 def decode_attention_torch(q, k, v, valid_len=None):
@@ -277,6 +323,61 @@ def split_ranges(valid_len: int, splits: int):
             for s in range(splits)]
 
 
+def paged_split_positions(B: int, Hkv: int, G: int, capacity: int,
+                          sms: int) -> int:
+    """Positions per range of the paged decode and verify kernels, a
+    multiple of 64, from the batch, the KV heads, the group size G, the
+    table's capacity (pages_per_seq * page) and the SM count alone —
+    never S or the lengths (they stay on the device), so a verify call
+    and the decode call it is held against cut every row alike.  Enough
+    ranges for :data:`PAGED_SPLIT_BLOCKS_PER_SM` decode blocks an SM over
+    the whole capacity, each at least :data:`PAGED_SPLIT_MIN_POSITIONS`
+    positions; the capacity itself (one range, no combine) where that is
+    all it holds.  On an H100 (132 SMs) a 2048-position table of 8 rows
+    takes 192 at phi4-mini's heads (24/8) and 384 at olmoe's (16/16);
+    ``tools/paged_split_sweep.py`` found no one length fastest at every
+    case of one shape, and these within 2-26% of each case's fastest
+    (6% at the engine's decode, 8% at phase 2's bf16 decode)."""
+    tiles = max(1, -(-capacity // SPLIT_TILE))
+    blocks = B * Hkv * _head_blocks(G)
+    want = -(-PAGED_SPLIT_BLOCKS_PER_SM * sms // blocks)
+    per = max(PAGED_SPLIT_MIN_POSITIONS // SPLIT_TILE, -(-tiles // want))
+    return min(per, tiles) * SPLIT_TILE
+
+
+def paged_split_ranges(capacity: int, split_positions: int):
+    """The positions [start, end) of each range the paged kernels cut a
+    table of ``capacity`` positions into: ``split_positions`` each, the
+    last cut at the capacity.  A row of length L uses the first
+    ceil(L / split_positions) of them."""
+    return [(s, min(s + split_positions, capacity))
+            for s in range(0, max(capacity, 1), split_positions)]
+
+
+def paged_split_plan(q_shape, pool_shape, pages_per_seq: int, sms: int,
+                     split_positions: Optional[int] = None):
+    """How the paged wrappers cut a call: (positions per range, ranges,
+    f32 elements of the workspace, 0 with one range) for q of shape
+    (B, H, D) (decode) or (B, S, H, D) (verify) over a pool of shape
+    (N, page, Hkv, D) and a table of ``pages_per_seq`` entries a row.
+    ``split_positions`` forces the range length (a positive multiple of
+    64; ValueError otherwise); the default, :func:`paged_split_positions`,
+    reads B, Hkv, G and the capacity, not S."""
+    B, H, D = q_shape[0], q_shape[-2], q_shape[-1]
+    _, page, Hkv, _ = pool_shape
+    capacity = pages_per_seq * page
+    if split_positions is None:
+        split_positions = paged_split_positions(B, Hkv, H // Hkv, capacity,
+                                                sms)
+    if split_positions < SPLIT_TILE or split_positions % SPLIT_TILE:
+        raise ValueError(f"split_positions must be a positive multiple of "
+                         f"{SPLIT_TILE}, got {split_positions}")
+    n_ranges = -(-capacity // split_positions)
+    rows = math.prod(q_shape[:-1])
+    return (split_positions, n_ranges,
+            rows * n_ranges * (D + 2) if n_ranges > 1 else 0)
+
+
 def decode_attention_cuda(q, k, v, valid_len=None, *,
                           splits: Optional[int] = None):
     """Launch the dense kernel: q (B, H, D), k/v (B, Skv, Hkv, D), all f32
@@ -296,9 +397,7 @@ def decode_attention_cuda(q, k, v, valid_len=None, *,
     if valid < 0:
         raise ValueError(f"valid_len must be at least 0, got {valid_len}")
     if splits is None:
-        splits = decode_splits(
-            B, Hkv, H // Hkv, valid,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
+        splits = decode_splits(B, Hkv, H // Hkv, valid, sm_count(dev))
     if splits < 1:
         raise ValueError(f"splits must be at least 1, got {splits}")
     out = torch.empty_like(q)

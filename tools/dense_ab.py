@@ -1,17 +1,20 @@
 """Time the f32 matmul and dense decode cases of ``chip_smoke.py`` phase
-2d with the ``repro_torch`` package of a given tree, to compare two trees
-on one card.
+2d, and its paged decode and verify cases (phase 2 in bf16, int8 and
+fp8, phase 2d's G5 / G12 / D80), with the ``repro_torch`` package of a
+given tree, to compare two trees on one card.
 
-    python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent
+    python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent [--only paged]
 
 Imports ``repro_torch`` from ``--src`` before ``chip_smoke`` (whose own
 imports then find it loaded), draws each case's inputs as phase 2d does
 (the same seeds, so two trees see the same operands), holds the kernel
 against its plain version at phase 2d's bars, and times kernel and
-library call cold and one call (``chip_smoke.cold_times``).  Prints one
-JSON line per case and, last, one with the sha256 of the f32 matmul
-outputs in case order (``chip_smoke.f32_matmul_digest`` over the f32
-matmul cases only).  Run a tree in a process of its own, each after the
+library call cold and one call (``chip_smoke.cold_times``; the int8 /
+fp8 paged cases have no library call).  The paged cases go through
+``ops`` alone, which both trees have, and print the range length the
+tree cuts (none before the split).  Prints one JSON line per case and,
+last, one with the sha256 of the f32 matmul outputs in case order
+(``chip_smoke.f32_matmul_digest`` over the f32 matmul cases only).  Run a tree in a process of its own, each after the
 other in one call (parent, change, change, parent) so both meet the
 same card.  Needs a CUDA device; exits 1 without one.
 """
@@ -29,11 +32,59 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def paged_cases(cs, dev, tag: str, smi: str) -> None:
+    """Phase 2's decode and verify in every pool type (inputs seeded per
+    case, so two trees see the same operands) and phase 2d's paged
+    decode and verify cases: each held at phase 2's bars, timed cold and
+    one call, a JSON line each."""
+    import numpy as np
+
+    split_plan = getattr(cs.dec_mod, "paged_split_plan", None)
+    todo = []
+    for j, (kind, mode) in enumerate((k, m) for k in ("decode", "verify")
+                                     for m in cs.MODES):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 200 + j)
+        args, kw, longest = cs.paged_operands(
+            kind, mode, np.random.default_rng(cs.SEED + 200 + j), dev,
+            gen=gen)
+        todo.append((f"phase 2 {kind} ({mode})", kind, mode, args, kw,
+                     cs.kv_bytes(int(longest.sum()), sum(
+                         -(-int(n) // cs.PAGE) for n in longest), mode)))
+    for i, (kind, _, label, c) in enumerate(cs.DENSE_CASES):
+        if kind in ("paged_decode", "paged_verify"):
+            row = kind[len("paged_"):]
+            args, kw, longest = cs.paged_operands(
+                row, "none", np.random.default_rng(cs.SEED + 100 + i), dev,
+                c["H"], c["Hkv"], c["D"],
+                torch.Generator(device=dev).manual_seed(cs.SEED + 100 + i))
+            todo.append((f"phase 2d {row} {label}", row, "none", args, kw,
+                         2 * int(longest.sum()) * c["Hkv"] * c["D"] * 2))
+    for label, kind, mode, args, kw, kv in todo:
+        q, kp, vp, pt, ln = args
+        call = cs.paged_call(kind)
+        err = cs.agree(label, call(*args, impl="cuda", **kw),
+                       call(*args, impl="torch", **kw))[1]
+        heads = q.shape[-2]
+        times = cs.paged_times(kind, mode, args, kw, heads)
+        b_ms, b_by = cs.bound(q.numel() * 4 + pt.numel() * 4
+                              + ln.numel() * 4 + kv,
+                              4 * int(ln.sum()) * heads * q.shape[-1])
+        split = ({} if split_plan is None else dict(zip(
+            ("split_positions", "ranges"), split_plan(
+                tuple(q.shape), tuple(kp.shape), pt.shape[1],
+                cs.dec_mod.sm_count(dev))[:2])))
+        print(json.dumps({"tag": tag, "card": smi, "case": label,
+                          "row_err": err, "bound_ms": b_ms,
+                          "bound_by": b_by, **split, **times}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the src directory holding repro_torch")
     ap.add_argument("--tag", required=True, help="names the tree")
+    ap.add_argument("--only", choices=("dense", "paged"), default=None,
+                    help="time only the dense or only the paged cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dense_ab: no CUDA device", file=sys.stderr)
@@ -48,6 +99,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    if args.only != "dense":
+        paged_cases(cs, dev, args.tag, smi)
+    if args.only == "paged":
+        return 0
     outs = []
     for i, (kind, dt, label, shape) in enumerate(cs.DENSE_CASES):
         if kind not in ("matmul", "decode") or (
