@@ -23,8 +23,12 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    (``HGMMA``) and TMA loads (``UTMALDG``); nor may the f32 matmul's, the
    dense decode's and the paged decode's and verify's (``amu_matmul.cu``,
    ``decode_attention.cu``, ``paged_decode.cu``, ``paged_verify.cu``),
-   and the paged ones' SASS must hold their ring's ``cp.async`` copies
-   (``LDGSTS``, counted);
+   nor the f32 dense flash's and the gathers' (``flash_attention.cu``,
+   ``moe_gather.cu``); the paged ones' SASS must hold their ring's
+   ``cp.async`` copies (``LDGSTS``, counted), the f32 flash's its TF32
+   tensor-core products (``HMMA.1688.F32.TF32``) and ``LDGSTS``, the
+   gathers' 16-byte loads and stores (``LDG.E.128``, ``STG.E.128``), all
+   counted;
 2. holds each instance against its plain PyTorch version on the card at
    the main path's shapes (H=24, Hkv=8, D=128, page 16; a bf16 pool, then
    int8 and fp8 pools quantized from the same kind of normal draw with
@@ -58,7 +62,12 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    — within the bars of phase 2; in f32 at the quickstart's product
    (256 x 512 @ 512 x 256, 128^3 tiles) and the reference benchmark's
    attention shapes (``benchmarks/run.py:490-499``) within the
-   reference's own bar, max |err| / max |ref| < 5e-6.  Then the shapes
+   reference's own bar, max |err| / max |ref| < 5e-6, and the f32 dense
+   flash also at phi4's full width (the causal 2048-token prompt and the
+   chunk at 1792, appended last), cold beside SDPA, with its plan
+   (``flash_attention.f32_flash_plan``), SDPA's kernel names from the
+   profiler, and its bound at both rates (CUDA cores, and three TF32
+   products on the tensor cores: the least is the row's).  Then the shapes
    that only the repaired wrappers and kernels take: f32 1024^3 with no
    tiles (the reference's plan, validated, then the card's tile), and
    8 x 1024 x 1024 (M = 8: predicated rows), and the attention
@@ -93,8 +102,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    reference's test shapes, bf16 at olmoe-1b-7b's full width with the
    indices its MoE block computes from a normal draw (dispatch into the
    capacity slots of 8 rows of one token and of two 256-token chunks,
-   the combine of those chunks), and ``gather_blocks`` at the paged-KV
-   fetch (128 of 448 frames of 16 rows of 8 x 128); it times the kernel
+   the combine of those chunks and, appended last, of the 8 tokens),
+   and ``gather_blocks`` at the paged-KV fetch (128 of 448 frames of 16
+   rows of 8 x 128), each row gather with its plan
+   (``moe_gather.gather_plan``: route, piece, blocks); it times the kernel
    and ``index_select`` (the plain version, and the one PyTorch call
    that computes the function) on inputs out of L2, the calls queued
    back to back behind a device sleep (a call's host cost exceeds these
@@ -179,7 +190,8 @@ phase 4's oracle run, one of phase 3q's int8 run and one of phase 7's
 olmoe run under ``torch.profiler`` and prints where their device time
 went (attention kernels with the split-KV combine, gather kernels,
 matrix products, copies, the rest), the device seconds and launches of
-each paged decode and verify instance and of the combine, and the
+each paged decode and verify instance, of the combine and of each row
+gather kernel, and the
 device's busy share of the profiled wall time; the
 per-kernel tables go to PATH and to PATH with ``-spec``, ``-int8`` and
 ``-olmoe`` added to its stem, sorted by device time and then by host
@@ -242,6 +254,9 @@ MAX_SETS = 512                   # input sets (and calls) a cold_ms batch
 SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of device sleep per queued call
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12               # H100 SXM f32 on the CUDA cores (no TF32)
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor rate
+#: an f32 product in 3xTF32 (csrc/flash_attention.cu) is three TF32 ones
+TF32_PRODUCTS = 3
 F32_TOL = 5e-6                   # max |err| / max |ref|, the reference's bar
 ARCH = "phi4-mini-3.8b"
 MOE_ARCH = "olmoe-1b-7b"
@@ -309,15 +324,18 @@ def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
     writes fresh memory (an untimed batch first leaves the allocator
     holding their blocks).  The stream sleeps on the device while the host
     enqueues the batch, so the events time the calls back to back, not
-    the host's pace.  Raises if the host outran the sleep."""
+    the host's pace.  A batch the host outran (its enqueue took longer
+    than the sleep, so its calls did not run back to back) is not
+    timed but taken again; raises once ``reps`` batches have been
+    outrun."""
     n = max(calls, len(sets))
     flush = torch.zeros(ROTATE_BYTES // 4, dtype=torch.int32, device="cuda")
     # warm up with a whole batch, so the allocator holds the blocks of a
     # batch's outputs and no allocation waits on the device in the batch
     outs = [fn(*sets[j % len(sets)]) for j in range(n)]
     del outs
-    times = []
-    for _ in range(reps):
+    times, outrun = [], 0
+    while len(times) < reps:
         flush.sum()
         slept, start, end = (torch.cuda.Event(enable_timing=True)
                              for _ in range(3))
@@ -329,11 +347,14 @@ def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
         host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         end.synchronize()
-        require(host_ms < slept.elapsed_time(start), "cold_ms: the host "
-                f"took {host_ms:.1f} ms to enqueue {n} calls, longer than "
-                "the device's sleep")
-        times.append(start.elapsed_time(end) / n)
         del outs
+        if host_ms < slept.elapsed_time(start):
+            times.append(start.elapsed_time(end) / n)
+            continue
+        outrun += 1
+        require(outrun < reps, f"cold_ms: the host outran the device's "
+                f"sleep in {outrun} batches (the last took {host_ms:.1f} ms "
+                f"to enqueue {n} calls)")
     return statistics.median(times)
 
 
@@ -352,13 +373,30 @@ def agree(what: str, out, ref):
     return float(err.max()), float(row.max())
 
 
-def bound(nbytes: float, flops: float, dtype=torch.bfloat16):
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16,
+          rate: float = None):
     """The least time for the work in ms, and what sets it: bytes at the
-    HBM rate, or operations at the peak rate of their type."""
+    HBM rate, or operations at ``rate`` (default the peak rate of their
+    type: bf16 tensor cores, f32 CUDA cores)."""
+    if rate is None:
+        rate = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (FP32_FLOPS if dtype == torch.float32
-                     else BF16_FLOPS) * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def case_bound(kind: str, nbytes: float, flops: float, dtype) -> tuple:
+    """A phase-2d case's bound: :func:`bound` at its type's rate, and for
+    the f32 flash kernel, whose products run on the tensor cores in
+    3xTF32, the least of that and the same work as three TF32 products
+    at :data:`TF32_FLOPS`; returns (ms, by, every route's ms or None)."""
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    if kind != "flash" or dtype != torch.float32:
+        return b_ms, b_by, None
+    t_ms, t_by = bound(nbytes, flops, dtype,
+                       rate=TF32_FLOPS / TF32_PRODUCTS)
+    routes = {"cuda_cores_ms": b_ms, "tf32x3_ms": t_ms}
+    return (t_ms, t_by, routes) if t_ms < b_ms else (b_ms, b_by, routes)
 
 
 def random_frames(rng, n_frames, counts):
@@ -629,7 +667,8 @@ def check_verify(dev, rng, mode="none"):
 #: no tiles), and the linear recurrences at the reference benchmark's f32
 #: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16; last,
 #: the f32 matmul at M = 8 and at 2048^3, where the tile rule takes its
-#: large tile (appended, so every earlier case keeps its seed).  The first case of an entry point heads its row; the paged
+#: large tile, and the f32 flash kernel at phi4's full width (appended,
+#: so every earlier case keeps its seed).  The first case of an entry point heads its row; the paged
 #: kernels' cases join phase 2's rows.
 DENSE_CASES = (
     ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
@@ -689,6 +728,13 @@ DENSE_CASES = (
      dict(M=8, K=1024, N=1024)),
     ("matmul", torch.float32, "2048^3, no tiles (the card's 128 x 128)",
      dict(M=2048, K=2048, N=2048)),
+    ("flash", torch.float32,
+     "phi4 24/8 heads of 128, causal 2048-token prompt (f32)",
+     dict(B=1, H=24, Hkv=8, Sq=2048, Skv=2048, D=128, q_offset=0,
+          kv_valid=2048)),
+    ("flash", torch.float32, "256-token chunk at 1792 (f32)",
+     dict(B=1, H=24, Hkv=8, Sq=256, Skv=2048, D=128, q_offset=1792,
+          kv_valid=2048)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
@@ -808,7 +854,7 @@ def dense_inputs(i: int, dev):
     again) and ``extra`` is the sequential oracle of a recurrence, the
     per-row decode calls of a verify case, a matmul's operands (x, w),
     which its call and library call also take as arguments, or for the
-    bf16 flash and prefill and every dense decode case ``{"cold":
+    flash and prefill and every dense decode case ``{"cold":
     (kernel, operands, library call, its operands)}`` for
     :func:`cold_times` (and a prefill case's ``lengths``)."""
     kind, dt, _, c = DENSE_CASES[i]
@@ -851,10 +897,9 @@ def dense_inputs(i: int, dev):
             lib_ops, lib_call = (qs, ks, vs, mask), (
                 lambda *a: sdpa(*a[:3], attn_mask=a[3]))
         pairs = sum(min(off + t + 1, kvv) for t in range(Sq))
-        cold = None if dt != torch.bfloat16 else (
-            lambda *a: ops.flash_attention(*a, causal=True, impl="cuda",
-                                           q_offset=off, kv_valid=kvv),
-            (q, k, v), lib_call, lib_ops)
+        cold = (lambda *a: ops.flash_attention(*a, causal=True, impl="cuda",
+                                               q_offset=off, kv_valid=kvv),
+                (q, k, v), lib_call, lib_ops)
         return ((lambda impl="auto": ops.flash_attention(
                     q, k, v, causal=True, impl=impl, q_offset=off,
                     kv_valid=kvv)), (lambda: lib_call(*lib_ops)),
@@ -896,6 +941,22 @@ def check_selection(what: str, call, x, w, seed: int) -> None:
     bad = (call("cuda", x, sel) != x[:, src]).any(dim=0).sum()
     require(int(bad) == 0, f"{what}: {int(bad)} of {N} output columns of a "
             "selection matrix are not x's columns")
+
+
+def library_kernels(call) -> list:
+    """The names of the CUDA kernels one ``call()`` launches, from
+    ``torch.profiler`` (after a warm-up call): which kernel a library
+    call takes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted({ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA})
 
 
 def _rotated(operands) -> tuple:
@@ -942,6 +1003,10 @@ def launch_shape(kind: str, dt, shape: dict, dev) -> dict:
         return {"tile": list(mm_mod.f32_tiles(
             shape["M"], shape["N"], props.multi_processor_count,
             props.shared_memory_per_block_optin))}
+    if kind == "flash" and dt == torch.float32 \
+            and hasattr(pre_mod, "f32_flash_plan"):
+        return {"warps_q": pre_mod.f32_flash_plan(
+            shape["B"], shape["H"], shape["Sq"], props.multi_processor_count)}
     if kind == "decode":
         return {"splits": dec_mod.decode_splits(
             shape["B"], shape["Hkv"], shape["H"] // shape["Hkv"],
@@ -1030,7 +1095,7 @@ def check_case(i: int, dev):
     cold = cold_case(kind, call, extra)
     tile_ms = (f32_tile_times(extra, out)
                if kind == "matmul" and dt == torch.float32 else None)
-    b_ms, b_by = bound(nbytes, flops, dt)
+    b_ms, b_by, routes = case_bound(kind, nbytes, flops, dt)
     case = {"case": label, **shape, **launch_shape(kind, dt, shape, dev),
             "max_abs_err": err, **acc,
             **(cold_times(*cold) if cold else {
@@ -1041,6 +1106,11 @@ def check_case(i: int, dev):
             "bound_ms": b_ms, "bound_by": b_by}
     if kind in _NO_LIBRARY:
         case["library"] = _NO_LIBRARY[kind]
+    if routes:
+        case["bound_routes_ms"] = routes
+    if kind == "flash" and dt == torch.float32:
+        case["library_kernels"] = library_kernels(lib)
+        print(f"[dense] {what}: SDPA's kernels {case['library_kernels']}")
     if tile_ms:
         case["tile_ms"] = tile_ms
     lib_txt = (_NO_LIBRARY.get(kind, "n/a") if case["library_ms"] is None
@@ -1053,6 +1123,11 @@ def check_case(i: int, dev):
     if "tile" in case or "splits" in case:
         lib_txt += (f" tile {case['tile']}" if "tile" in case
                     else f" splits {case['splits']}")
+    if "warps_q" in case:
+        lib_txt += f" warps_q {case['warps_q']}"
+    if routes:
+        lib_txt += (f" (bound by route: CUDA cores {routes['cuda_cores_ms']:.4f}"
+                    f", 3xTF32 {routes['tf32x3_ms']:.4f})")
     if "split_positions" in case:
         lib_txt += (f" split_positions {case['split_positions']} ranges "
                     f"{case['ranges']}")
@@ -1139,7 +1214,8 @@ def run_dense_path(dev, outs) -> dict:
 #: a normal draw (``moe="dispatch"``: a row per capacity slot of B rows
 #: of S tokens, from the tokens with a zero row appended; ``"combine"``:
 #: a row per (token, choice) pair of their expert outputs), and the paged-KV fetch ``decode_attention.py:200-205``
-#: names: 128 of a 448-frame pool's frames of 16 rows of 8 x 128.
+#: names: 128 of a 448-frame pool's frames of 16 rows of 8 x 128; last
+#: (appended, so every earlier case keeps its seed) the decode combine.
 GATHER_CASES = (
     ("rows", torch.float32, "reference N64 d128 M32 rpb8",
      dict(N=64, d=128, M=32, rpb=8)),
@@ -1157,6 +1233,8 @@ GATHER_CASES = (
      dict(moe="combine", B=2, S=256)),
     ("blocks", torch.bfloat16, "paged-KV fetch, 128 frames of 448",
      dict(N=448 * PAGE, d=HKV * D, Mb=128, rows=PAGE)),
+    ("rows", torch.bfloat16, "olmoe decode combine, 8 tokens x top-8",
+     dict(moe="combine", B=8, S=1)),
 )
 _GATHER_SOURCE = {"rows": "moe_gather.py:70", "blocks": "moe_gather.py:104"}
 
@@ -1213,6 +1291,21 @@ def gather_inputs(i: int, dev):
             dict(N=src.shape[0], d=d, M=M, rows_per_block=rpb))
 
 
+def gather_route(kind: str, inputs) -> dict:
+    """The row gather's plan for a case's inputs (``moe_gather.
+    gather_plan``: route, piece bytes, threads a block, blocks); {} for a
+    block gather, or a tree without the plan."""
+    plan = getattr(moe_gather, "gather_plan", None)
+    if kind != "rows" or plan is None:
+        return {}
+    src, idx = inputs
+    p = plan(idx.shape[0], src.shape[1] * src.element_size(),
+             dec_mod.sm_count(src.device), elem_bytes=src.element_size(),
+             aligned=src.data_ptr() % 16 == 0)
+    return {"gather_route": p.route, "piece_bytes": p.piece_bytes,
+            "threads": p.threads, "blocks": p.blocks}
+
+
 def check_gathers(dev):
     """Phase 2g: every case of :data:`GATHER_CASES`, kernel against plain
     version bitwise, both timed cold (:func:`cold_ms`) and held to the
@@ -1236,15 +1329,17 @@ def check_gathers(dev):
         del sets
         require(min(ms, plain_ms) >= b_ms, f"{what}: {min(ms, plain_ms)} ms "
                 f"under its bound {b_ms} ms: the timing or the bound is wrong")
-        case = {"case": label, **shape, "max_abs_err": 0.0, "bitwise": True,
+        case = {"case": label, **shape, **gather_route(kind, inputs),
+                "max_abs_err": 0.0, "bitwise": True,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "sets_span_bytes": n_sets * nbytes}
         print(f"[gather] {what}: kernel_ms {ms:.4f} index_select_ms "
-              f"{plain_ms:.4f} (plain version and library call) bound_ms "
+              f"{plain_ms:.4f} kernel/library {ms / plain_ms:.2f}x "
+              f"(plain version and library call) bound_ms "
               f"{b_ms:.4f} ({b_by}, {nbytes} B); {n_sets} input sets spanning "
               f"{n_sets * nbytes / 2**20:.1f} MiB; "
-              f"{shape}, bitwise")
+              f"{shape}, {gather_route(kind, inputs)}, bitwise")
         outs.append(out.cpu())
         name = f"gather_{kind}_{'f32' if dt == torch.float32 else 'bf16'}"
         if name not in rows:
@@ -1589,7 +1684,7 @@ def _kind(name: str) -> str:
     if any(k in name for k in ("paged_attention_kernel", "paged_prefill",
                                 "flash_attention", "combine_kernel")):
         return "attention kernels"
-    if "gather_rows_kernel" in name or "gather_blocks_kernel" in name:
+    if "gather_rows" in name or "gather_blocks_kernel" in name:
         return "gather kernels"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products"
@@ -1623,7 +1718,8 @@ def profile_engine(cfg, params, runs) -> None:
                 us = ev.time_range.elapsed_us()
                 kinds[k] = kinds.get(k, 0.0) + us / 1e3
                 if "paged_attention_kernel" in ev.name \
-                        or "combine_kernel" in ev.name:
+                        or "combine_kernel" in ev.name \
+                        or "gather_rows" in ev.name:
                     n, t = split.get(ev.name, (0, 0.0))
                     split[ev.name] = (n + 1, t + us)
         busy = sum(kinds.values())
@@ -1633,7 +1729,7 @@ def profile_engine(cfg, params, runs) -> None:
             print(f"[profile:{tag}] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of "
                   f"device time)" if busy else f"[profile:{tag}] {k}: 0")
         # the paged decode (R = G rows a block) and verify (R = S * G)
-        # instances and the split-KV combine, by kernel name
+        # instances, the split-KV combine and the row gathers, by name
         for name, (n, us) in sorted(split.items(), key=lambda kv: -kv[1][1]):
             print(f"[profile:{tag}] {name}: {us / 1e6:.4f}s over {n} "
                   f"launches ({us / n:.1f} us each)")
@@ -1680,13 +1776,18 @@ def main(argv=None) -> int:
     # not spill either
     # (and, since the split over KV ranges, the paged decode and verify)
     paged_libs = (dec_mod.KERNEL, dec_mod.VERIFY_KERNEL)
+    # (and, since their redesign, the f32 dense flash and the gathers)
+    flash_lib = pre_mod.DENSE_KERNELS[torch.float32]
+    gather_lib = moe_gather.KERNELS[torch.bfloat16]
     no_spill = sm90_names | {mm_mod.KERNELS[torch.float32].source.name,
                              dec_mod.DENSE_KERNELS[torch.float32].source.name,
-                             *(k.source.name for k in paged_libs)}
-    f32_name = mm_mod.KERNELS[torch.float32].source.name
+                             *(k.source.name for k in paged_libs),
+                             flash_lib.source.name, gather_lib.source.name}
+    f32_names = {mm_mod.KERNELS[torch.float32].source.name,
+                 flash_lib.source.name}
     for name, log in sources.items():
         summary = ptxas_summary(log, "bf16" if name in sm90_names
-                                else "f32" if name == f32_name else "?")
+                                else "f32" if name in f32_names else "?")
         for elem, (n, lo, hi, spill, n_spill) in summary.items():
             print(f"[build] {name} {elem}: {n} instantiations, registers "
                   f"{lo}-{hi}, largest spill store {spill} B "
@@ -1703,6 +1804,19 @@ def main(argv=None) -> int:
         sass = sass_counts(k.library_path(), ("LDGSTS",))
         print(f"[build] {k.source.name} SASS: {sass}")
         require(sass["LDGSTS"] > 0, f"{k.source.name}: no cp.async copies")
+    # the f32 flash kernel's TF32 tensor-core products and cp.async ring,
+    # and the gathers' 16-byte copies
+    sass = sass_counts(flash_lib.library_path(),
+                       ("HMMA.1688.F32.TF32", "HMMA", "LDGSTS", "FFMA",
+                        "LDS.128", "LOP3.LUT", "MUFU.EX2"))
+    print(f"[build] {flash_lib.source.name} SASS: {sass}")
+    require(sass["HMMA.1688.F32.TF32"] > 0 and sass["LDGSTS"] > 0,
+            f"{flash_lib.source.name}: no TF32 HMMA or no cp.async copies")
+    sass = sass_counts(gather_lib.library_path(),
+                       ("LDG.E.128", "STG.E.128"))
+    print(f"[build] {gather_lib.source.name} SASS: {sass}")
+    require(sass["LDG.E.128"] > 0 and sass["STG.E.128"] > 0,
+            f"{gather_lib.source.name}: no 16-byte loads or stores")
     # the f32 matmul's fmaf beside its copies, shared loads and the
     # integer ops that address and mask the copies (both instances)
     f32_lib = mm_mod.KERNELS[torch.float32]

@@ -17,34 +17,51 @@
 // gather only moves bits, so the two types differ only in the element
 // width and every output bit is a source bit.
 //
-// Design: a block loads its own indices from global memory (the
-// scalar prefetch).  gather_rows runs one block per rows_per_block
-// output rows with one warp per row (32 * min(rows_per_block, 8)
-// threads; with more rows a warp takes every 8th); a warp copies its
-// row with 16-byte loads and stores, neighbouring lanes on neighbouring
-// addresses, where the row's bytes and both base pointers are multiples
-// of 16 (the wrapper decides), and element by element otherwise.
+// Design of gather_rows: the grid comes from the work and the SM count
+// (moe_gather.gather_plan, mirrored by `plan_of` below), not from the
+// TPU's rows_per_block, which is only checked (M % rows_per_block, as
+// the reference asserts).  Each output row of row_bytes bytes is cut
+// into pieces of one fixed byte count, a thread a piece, and each
+// thread loads its row's index straight into a register (the TPU
+// kernel's scalar prefetch, the paper's access-pattern register).  Two
+// routes:
+//   * vec (16-byte aligned rows and pointers): a 16-byte piece a thread,
+//     consecutive threads on consecutive pieces of a row, so a 4 KB row
+//     is 256 threads' work and every load of the gather is in flight at
+//     once; blocks of 256 threads, fewer (to 32) where that would leave
+//     SMs without a block;
+//   * elem (a row's bytes or a base pointer off the 16-byte grid): an
+//     element a thread.
+// What the plan rests on (tools/gather_sweep.py, cold, on an H100):
+// warps of 2 KB pieces with four 16-byte loads a lane in flight and the
+// block's indices staged in shared memory behind a barrier ran slower
+// than index_select at olmoe's 4 KB rows; and a TMA route, one
+// cp.async.bulk global -> shared a 4 KB row completing on an mbarrier
+// and one shared -> global after it (aload / getfin on Hopper), was no
+// faster than the vec route at any shape of the sweep, olmoe's prefill
+// dispatch and combine included, and slower at its decode shapes, so
+// the vec route takes every aligned gather.
 // gather_blocks runs one block of 256 threads per output block, whose
-// block_rows * d elements are one contiguous run in src and in out.
+// block_rows * d elements are one contiguous run in src and in out,
+// 16-byte vectors where aligned.
 //
 // Bound on the card: bytes — each distinct source row read once, every
 // output row written once, and the indices: (U + M) * d * itemsize +
 // 4 * M for U distinct indices.  No arithmetic.
-// This simple version keeps one 16-byte load per lane in flight per
-// loop step; overlapping the next row's load with this row's store
-// (cp.async or TMA bulk copies, the paper's aload / getfin pipeline) is
-// the known next step.  Indices are not checked, as the TPU kernel's
-// DMA does not check them: an index outside [0, N) is outside the
-// contract.
+// Indices are not checked, as the TPU kernel's DMA does not check them:
+// an index outside [0, N) is outside the contract.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxRowWarps = 8;
-constexpr int kBlockThreads = 256;
+constexpr int kBlockThreads = 256;       // gather_blocks
+// gather_rows' plan (moe_gather.gather_plan mirrors these)
+constexpr int kMaxThreads = 256;         // most threads a block
+constexpr int kMinThreads = 32;
 
 // Copy n elements of T from s to o with the threads lane, lane + step,
 // ...: as 16-byte vectors when vec (n * sizeof(T) a multiple of 16, s
@@ -65,20 +82,6 @@ __device__ __forceinline__ void copy_run(const T* __restrict__ s,
 }
 
 template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ src,
-                                   const int* __restrict__ idx,
-                                   T* __restrict__ out, int d, int rpb,
-                                   bool vec) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int warps = blockDim.x / kWarp;
-  for (int r = warp; r < rpb; r += warps) {
-    const long long i = static_cast<long long>(blockIdx.x) * rpb + r;
-    const long long row = idx[i];
-    copy_run(src + row * d, out + i * d, d, vec, lane, kWarp);
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kBlockThreads) gather_blocks_kernel(
     const T* __restrict__ src, const int* __restrict__ block_idx,
     T* __restrict__ out, long long block_elems, bool vec) {
@@ -92,18 +95,84 @@ bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
+// The plan of a gather of M rows of row_bytes bytes (moe_gather.
+// gather_plan): its route (vec or elem), pieces a row, pieces, threads
+// a block and blocks.
+struct Plan {
+  bool vec;
+  long long per_row;
+  long long pieces;
+  long long threads;
+  long long blocks;
+};
+
+Plan plan_of(long long M, long long row_bytes, long long elem_bytes, int sms,
+             bool aligned) {
+  Plan p;
+  p.vec = aligned && row_bytes % 16 == 0;
+  p.per_row = row_bytes / (p.vec ? 16 : elem_bytes);
+  p.pieces = M * p.per_row;
+  p.threads = kMaxThreads;
+  while (p.threads > kMinThreads
+         && (p.pieces + p.threads - 1) / p.threads < sms)
+    p.threads /= 2;
+  p.blocks = (p.pieces + p.threads - 1) / p.threads;
+  return p;
+}
+
+// Thread u copies piece u, a W (16 bytes, or one element's bits) of row
+// u / per_row.
+template <typename W>
+__global__ void __launch_bounds__(kMaxThreads) gather_rows_kernel(
+    const W* __restrict__ src, const int* __restrict__ idx,
+    W* __restrict__ out, unsigned per_row, unsigned pieces) {
+  const unsigned u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= pieces) return;
+  const unsigned row = u / per_row, col = u - row * per_row;
+  out[u] = __ldg(src + static_cast<long long>(__ldg(idx + row)) * per_row
+                 + col);
+}
+
+// The plan's sm count: the current device's, read once per device.
+int sm_count() {
+  static int cache[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cache[dev] > 0) return cache[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+      != cudaSuccess)
+    return 0;
+  if (dev < 64) cache[dev] = n;
+  return n;
+}
+
 template <typename T>
 int launch_rows(const void* src, const void* idx, void* out, int N, int d,
                 int M, int rpb, void* stream) {
   if (N <= 0 || d <= 0 || M <= 0 || rpb <= 0 || M % rpb)
     return cudaErrorInvalidValue;
-  const bool vec = (static_cast<long long>(d) * sizeof(T)) % 16 == 0
-                   && aligned16(src) && aligned16(out);
-  const int threads = kWarp * (rpb < kMaxRowWarps ? rpb : kMaxRowWarps);
-  gather_rows_kernel<T><<<M / rpb, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(src), static_cast<const int*>(idx),
-      static_cast<T*>(out), d, rpb, vec);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const Plan p = plan_of(M, static_cast<long long>(d) * sizeof(T), sizeof(T),
+                         sms, aligned16(src) && aligned16(out));
+  if (p.pieces > 0xffffffffLL) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto blocks = static_cast<unsigned>(p.blocks);
+  const auto threads = static_cast<int>(p.threads);
+  const auto per_row = static_cast<unsigned>(p.per_row);
+  const auto pieces = static_cast<unsigned>(p.pieces);
+  using Bits = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                         unsigned int>::type;
+  if (p.vec) {
+    gather_rows_kernel<uint4><<<blocks, threads, 0, s>>>(
+        static_cast<const uint4*>(src), static_cast<const int*>(idx),
+        static_cast<uint4*>(out), per_row, pieces);
+  } else {
+    gather_rows_kernel<Bits><<<blocks, threads, 0, s>>>(
+        static_cast<const Bits*>(src), static_cast<const int*>(idx),
+        static_cast<Bits*>(out), per_row, pieces);
+  }
   return cudaGetLastError();
 }
 

@@ -33,7 +33,9 @@ attention over a dense cache with static ``causal``, ``window``,
 ``q_offset`` and ``kv_valid``, read in the model layout, one entry point
 per dtype: bf16 in ``csrc/flash_attention_sm90.cu`` (the design above,
 TMA maps over q, k and v in place), f32 in ``csrc/flash_attention.cu``
-(CUDA cores: ``wgmma``'s only f32 mode is TF32).  Its plain version
+(``mma.sync`` TF32 tensor-core products in 3xTF32, hi/lo split operands,
+which keep the reference's f32 bar; rows a block and the KV split inside
+it from :func:`f32_flash_plan`).  Its plain version
 :func:`flash_attention_torch` is :func:`chunked_attention` with the
 scalar ``q_offset`` broadcast over the batch and K/V cut to their first
 ``kv_valid`` positions — the same function.
@@ -43,19 +45,23 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.build import (POOL_DTYPES, check_aligned,
-                                      check_dense, check_heads,
-                                      check_operand, dense_kernels,
-                                      kernel_per_dtype, scale_pointers)
-from repro_torch.kernels.decode_attention import NEG_INF, gather_pages
+from repro_torch.kernels.build import (POOL_DTYPES, CudaKernel,
+                                      check_aligned, check_dense,
+                                      check_heads, check_operand,
+                                      dense_kernels, kernel_per_dtype,
+                                      scale_pointers)
+from repro_torch.kernels.decode_attention import (NEG_INF, gather_pages,
+                                                  sm_count)
 
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
            "paged_prefill_attention_cuda", "flash_attention_torch",
            "flash_attention_cuda", "sm90_plan", "Sm90Plan",
+           "f32_flash_plan", "f32_flash_smem", "f32_flash_stages",
+           "F32_FLASH_WARPS_Q",
            "KERNEL", "KERNELS", "DENSE_KERNELS"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -66,11 +72,22 @@ KERNELS = kernel_per_dtype(
      torch.float8_e4m3fn: "paged_prefill.cu"}, "paged_prefill_attention",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
 KERNEL = KERNELS[torch.bfloat16]
-#: the dense kernel's entry point per dtype of q, k, v and out
+_DENSE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F]
+#: the dense kernel's entry point per dtype of q, k, v and out: q, k, v,
+#: out, B, Sq, Skv, H, Hkv, D, causal, window, q_offset, kv_valid, scale,
+#: (f32: the plan's warps_q,) stream
 DENSE_KERNELS = dense_kernels(
     {torch.float32: "flash_attention.cu",
      torch.bfloat16: "flash_attention_sm90.cu"}, "flash_attention",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+    _DENSE_ARGS + [_P])
+DENSE_KERNELS[torch.float32] = CudaKernel(
+    "flash_attention.cu", "flash_attention_f32", _DENSE_ARGS + [_I, _P])
+
+#: the f32 kernel's block (csrc/flash_attention.cu): warps, query rows a
+#: warp, positions a ring stage; warps_q, the warps along the queries,
+#: from :func:`f32_flash_plan`
+F32_FLASH_WARPS, F32_FLASH_ROWS, F32_FLASH_BLOCK_KV = 4, 16, 32
+F32_FLASH_WARPS_Q = (4, 2, 1)
 
 #: the bf16 kernels' tiles (``csrc/flash_sm90.cuh``): query rows a block
 #: (two consumer warpgroups of 64), KV positions a tile, ring stages, the
@@ -98,6 +115,42 @@ def sm90_plan(head_dim: int) -> Sm90Plan:
             + SM90_STAGES * 2 * SM90_BLOCK_KV * d_pad * 2
             + (2 * SM90_STAGES + 1) * 8)
     return Sm90Plan(d_pad, SM90_BLOCK_Q, SM90_BLOCK_KV, SM90_STAGES, smem)
+
+
+def f32_flash_plan(B: int, H: int, Sq: int, sms: int) -> int:
+    """warps_q of the f32 kernel (csrc ``launch_d``): how many of a
+    block's 4 warps stack along the queries, 16 rows each, the others
+    splitting each stage's positions between them.  The most rows a
+    block (4, 2, then 1) whose q-tiles x heads x batch fill ``sms`` SMs,
+    else 1: fewer rows a block only where blocks would leave SMs idle,
+    since each block reads the K/V it walks for its own rows; then fewer
+    while that leaves the block count as it is (short Sq), which splits
+    the positions at no cost in reads."""
+    def blocks(wq):
+        return -(-Sq // (F32_FLASH_ROWS * wq)) * H * B
+
+    wq = next((w for w in F32_FLASH_WARPS_Q[:-1] if blocks(w) >= sms),
+              F32_FLASH_WARPS_Q[-1])
+    while wq > 1 and blocks(wq // 2) == blocks(wq):
+        wq //= 2
+    return wq
+
+
+def f32_flash_stages(head_dim: int) -> int:
+    """The f32 kernel's ring depth: 3, 2 at D 128 (two blocks an SM)."""
+    return 2 if head_dim >= 128 else 3
+
+
+def f32_flash_smem(head_dim: int) -> int:
+    """Dynamic shared memory of an f32 block in bytes (csrc ``Layout``):
+    the q tile and the ring of K and V stages, with padded rows, or the
+    warps' partial states, which reuse them, if larger."""
+    d = head_dim
+    k_row = d if d % 32 == 16 else d + 16
+    rows = F32_FLASH_WARPS * F32_FLASH_ROWS
+    ring = f32_flash_stages(d) * F32_FLASH_BLOCK_KV * (k_row + d + 4)
+    parts = rows * (d + 4 + 2)
+    return 4 * max(rows * k_row + ring, parts)
 
 
 def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
@@ -218,9 +271,12 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         q_offset: int = 0, kv_valid=None):
+                         q_offset: int = 0, kv_valid=None,
+                         warps_q: Optional[int] = None):
     """Launch the dense kernel: q (B, Sq, H, D), k/v (B, Skv, Hkv, D), all
-    f32 or all bf16, contiguous, any G, a head dim of ``HEAD_DIMS``."""
+    f32 or all bf16, contiguous, 16-byte aligned, any G, a head dim of
+    ``HEAD_DIMS``.  ``warps_q`` forces the f32 kernel's plan (default
+    :func:`f32_flash_plan`)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
     check_dense("flash_attention_cuda", q, k, v)
@@ -229,13 +285,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     _, Skv, Hkv, _ = k.shape
     check_heads(H, Hkv, D)
     out = torch.empty_like(q)
-    if q.dtype == torch.bfloat16:
-        check_aligned(q=q, k=k, v=v, out=out)
+    check_aligned(q=q, k=k, v=v, out=out)
+    plan = ()
+    if q.dtype == torch.float32:
+        if warps_q is None:
+            warps_q = f32_flash_plan(B, H, Sq, sm_count(dev))
+        if warps_q not in F32_FLASH_WARPS_Q:
+            raise ValueError(f"warps_q must be one of {F32_FLASH_WARPS_Q}, "
+                             f"got {warps_q}")
+        plan = (warps_q,)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         DENSE_KERNELS[q.dtype].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, Hkv, D, int(causal), int(window), int(q_offset),
             Skv if kv_valid is None else int(kv_valid), 1.0 / math.sqrt(D),
-            stream)
+            *plan, stream)
     return out

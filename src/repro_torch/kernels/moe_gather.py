@@ -13,7 +13,11 @@ replace the two TPU kernels of ``src/repro/kernels/moe_gather.py``:
     rows of source block ``block_idx[i]``.
 
 Their design notes and bound are in the source.  One entry point per
-dtype of src and out (f32, bf16); the indices are int32.  Coalescing for
+dtype of src and out (f32, bf16); the indices are int32.  The row
+gather's grid comes from :func:`gather_plan` (the work and the SM count;
+the source mirrors it): rows cut into pieces of a fixed byte count, a
+thread a 16-byte piece, element by element where a row's bytes or a
+base pointer are off the 16-byte grid.  Coalescing for
 semi-sorted indices happens upstream, in
 :class:`repro_torch.core.patterns.GatherPattern`, as in the reference.
 
@@ -29,6 +33,7 @@ kernel reads whatever lies there.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +43,7 @@ from repro_torch.kernels.ref import gather_rows_ref
 
 __all__ = ["gather_rows", "gather_blocks", "gather_rows_torch",
            "gather_blocks_torch", "gather_rows_cuda", "gather_blocks_cuda",
-           "KERNELS", "BLOCK_KERNELS"]
+           "gather_plan", "GatherPlan", "KERNELS", "BLOCK_KERNELS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
@@ -48,6 +53,36 @@ KERNELS = dense_kernels("moe_gather.cu", "gather_rows", _ARGS)
 BLOCK_KERNELS = dense_kernels("moe_gather.cu", "gather_blocks", _ARGS)
 
 gather_rows_torch = gather_rows_ref
+
+#: csrc/moe_gather.cu's plan: the most and fewest threads a block
+MAX_THREADS, MIN_THREADS = 256, 32
+
+
+class GatherPlan(NamedTuple):
+    """How the row gather cuts M rows of ``row_bytes`` bytes."""
+    route: str          # "vec" (16-byte pieces) or "elem" (an element each)
+    piece_bytes: int    # bytes a piece, a thread's copy
+    per_row: int        # pieces a row
+    pieces: int         # M * per_row
+    threads: int        # threads a block
+    blocks: int
+
+
+def gather_plan(M: int, row_bytes: int, sms: int, *, elem_bytes: int = 2,
+                aligned: bool = True) -> GatherPlan:
+    """The row gather's plan (csrc ``plan_of``).  Route: elem, a piece an
+    element of ``elem_bytes``, where the row's bytes or a base pointer
+    (``aligned``) are off the 16-byte grid, else vec, a piece 16 bytes.
+    A block: the most threads, 256 down to 32, that still give every one
+    of ``sms`` SMs a block."""
+    vec = aligned and row_bytes % 16 == 0
+    piece = 16 if vec else elem_bytes
+    pieces = M * (row_bytes // piece)
+    threads = MAX_THREADS
+    while threads > MIN_THREADS and -(-pieces // threads) < sms:
+        threads //= 2
+    return GatherPlan("vec" if vec else "elem", piece, row_bytes // piece,
+                      pieces, threads, -(-pieces // threads))
 
 
 def gather_blocks_torch(src, block_idx, block_rows: int = 8):

@@ -1,16 +1,19 @@
 """Time the f32 matmul and dense decode cases of ``chip_smoke.py`` phase
 2d, and its paged decode and verify cases (phase 2 in bf16, int8 and
-fp8, phase 2d's G5 / G12 / D80), with the ``repro_torch`` package of a
-given tree, to compare two trees on one card.
+fp8, phase 2d's G5 / G12 / D80), or its f32 dense flash cases, or the
+gather cases of phase 2g, with the ``repro_torch`` package of a given
+tree, to compare two trees on one card.
 
-    python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent [--only paged]
+    python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent \
+        [--only paged|flash_f32|gather]
 
 Imports ``repro_torch`` from ``--src`` before ``chip_smoke`` (whose own
 imports then find it loaded), draws each case's inputs as phase 2d does
 (the same seeds, so two trees see the same operands), holds the kernel
 against its plain version at phase 2d's bars, and times kernel and
 library call cold and one call (``chip_smoke.cold_times``; the int8 /
-fp8 paged cases have no library call).  The paged cases go through
+fp8 paged cases have no library call; a gather case against
+``index_select``, bitwise, as phase 2g times it).  The paged cases go through
 ``ops`` alone, which both trees have, and print the range length the
 tree cuts (none before the split).  Prints one JSON line per case and,
 last, one with the sha256 of the f32 matmul outputs in case order
@@ -78,13 +81,63 @@ def paged_cases(cs, dev, tag: str, smi: str) -> None:
                           "bound_by": b_by, **split, **times}), flush=True)
 
 
+def flash_f32_cases(cs, dev, tag: str, smi: str) -> None:
+    """Phase 2d's f32 flash cases through ``ops`` (which both trees
+    have): each within the reference's bar, timed cold beside SDPA, a
+    JSON line each with the sha256 of the kernel's output."""
+    import hashlib
+
+    for i, (kind, dt, label, shape) in enumerate(cs.DENSE_CASES):
+        if kind != "flash" or dt != torch.float32:
+            continue
+        call, _, nbytes, flops, extra = cs.dense_inputs(i, dev)
+        out, ref = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        err = cs._rel(out, ref)[1]
+        cs.require(err < cs.F32_TOL, f"{label}: {err:.3e}")
+        times = cs.cold_times(*extra["cold"])
+        b_ms, b_by = cs.bound(nbytes, flops, dt)
+        print(json.dumps({
+            "tag": tag, "card": smi, "case": label, "rel_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **cs.launch_shape(kind, dt, shape, dev), **times,
+            "kernel_over_library": times["ms"] / times["library_ms"],
+            "sha256": hashlib.sha256(out.cpu().numpy().tobytes())
+            .hexdigest()}), flush=True)
+
+
+def gather_cases(cs, dev, tag: str, smi: str) -> None:
+    """Phase 2g's cases: bitwise ``index_select``, the kernel and
+    ``index_select`` timed cold as phase 2g times them, a JSON line
+    each."""
+    for i, (kind, dt, label, _) in enumerate(cs.GATHER_CASES):
+        inputs, call, plain, nbytes, shape = cs.gather_inputs(i, dev)
+        cs.require(torch.equal(call(*inputs, impl="cuda"),
+                               call(*inputs, impl="torch")),
+                   f"{label}: not bitwise")
+        n_sets = min(cs.MAX_SETS, -(-cs.ROTATE_BYTES // nbytes))
+        sets = [inputs] + [tuple(t.clone() for t in inputs)
+                           for _ in range(n_sets - 1)]
+        ms = cs.cold_ms(lambda *a: call(*a, impl="cuda"), sets)
+        lib_ms = cs.cold_ms(plain, sets)
+        del sets
+        print(json.dumps({
+            "tag": tag, "card": smi, "case": f"gather_{kind} {label}",
+            "dtype": str(dt), **shape, **cs.gather_route(kind, inputs),
+            "ms": ms, "library_ms": lib_ms,
+            "kernel_over_library": ms / lib_ms,
+            "bound_ms": cs.bound(nbytes, 0, dt)[0]}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the src directory holding repro_torch")
     ap.add_argument("--tag", required=True, help="names the tree")
-    ap.add_argument("--only", choices=("dense", "paged"), default=None,
-                    help="time only the dense or only the paged cases")
+    ap.add_argument("--only", default=None,
+                    choices=("dense", "paged", "flash_f32", "gather"),
+                    help="time only the dense (f32 matmul, dense decode), "
+                    "the paged, the f32 flash or the gather cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dense_ab: no CUDA device", file=sys.stderr)
@@ -99,6 +152,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    if args.only == "flash_f32":
+        flash_f32_cases(cs, dev, args.tag, smi)
+        return 0
+    if args.only == "gather":
+        gather_cases(cs, dev, args.tag, smi)
+        return 0
     if args.only != "dense":
         paged_cases(cs, dev, args.tag, smi)
     if args.only == "paged":
