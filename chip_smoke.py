@@ -14,8 +14,9 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    matmul, ``amu_matmul_sm90.cu``, the dense flash attention,
    ``flash_attention_sm90.cu``, and the bf16 pool's paged prefill,
    ``paged_prefill_sm90.cu``), and the two indexed gathers of
-   ``moe_gather.cu`` (gather_rows, gather_blocks, f32 and bf16) — 23
-   entry points from 12 sources — from ``src/repro_torch/kernels/csrc``
+   ``moe_gather.cu`` (gather_rows, gather_blocks, f32 and bf16; one
+   kernel) — 23 entry points from 12 sources — from
+   ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a``, one compiler per source, started
    together, and prints each source's registers and spills per element
    type (``-Xptxas -v``); the three sm90 libraries must spill nowhere,
@@ -24,7 +25,11 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    dense decode's and the paged decode's and verify's (``amu_matmul.cu``,
    ``decode_attention.cu``, ``paged_decode.cu``, ``paged_verify.cu``),
    nor the f32 dense flash's and the gathers' (``flash_attention.cu``,
-   ``moe_gather.cu``); the paged ones' SASS must hold their ring's
+   ``moe_gather.cu``), nor the int8 / fp8 paged prefill's
+   (``paged_prefill.cu``, on the sm90 block), whose SASS must hold
+   ``HGMMA``, ``UTMALDG`` (q) and ``LDGSTS`` (its 1-byte rows), counted
+   with its byte permutes and conversions; the paged ones' SASS must
+   hold their ring's
    ``cp.async`` copies (``LDGSTS``, counted), the f32 flash's its TF32
    tensor-core products (``HMMA.1688.F32.TF32``) and ``LDGSTS``, the
    gathers' 16-byte loads and stores (``LDG.E.128``, ``STG.E.128``), all
@@ -42,9 +47,9 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    several times.  It times kernel and plain version with CUDA events
    (and, for bf16, ``scaled_dot_product_attention`` on the gathered view,
    a yardstick only; no single library call takes a quantized pool with
-   its scales); the bf16 prefill and the decode and verify instances of
-   every pool type are also timed cold, as phase 2g times the gathers
-   (bf16: kernel and SDPA alike, the one-call times beside), and each
+   its scales); the prefill, decode and verify instances of every pool
+   type are also timed cold, as phase 2g times the gathers (bf16: kernel
+   and SDPA alike; the one-call times beside), and each
    decode and verify case prints the range length and count its wrapper
    cut it into (``decode_attention.paged_split_positions``).  It computes
    each instance's bound from these inputs (1-byte K/V and the scales
@@ -74,8 +79,9 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    kernels at the heads of other registered configs — dense flash and
    decode, paged decode and verify at G = 5 (llama4, 40/8), G = 12
    (command-r-plus, 96/8) and D = 80 (h2o-danube, 32/8), paged prefill
-   at D = 80 — at the phase-2 bars, verify row s bitwise the decode
-   kernel.  Then wkv6 and ssd at the reference benchmark's f32 shapes
+   at D = 80 (bf16, and, appended last, int8 and fp8) — at the phase-2
+   bars, verify row s bitwise the decode kernel.  Then wkv6 and ssd at
+   the reference benchmark's f32 shapes
    (``benchmarks/run.py:500-511``: B1 T256 H2 K64, and P64 N64, chunk
    64) within its kernel-vs-chunked bar, < 1e-5, and within 1e-4 of the
    sequential oracles (``tests/test_kernels.py:117-158``), and in bf16
@@ -92,7 +98,8 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    alike, with the one-call times beside them; so are the f32 matmul
    cases, the bf16 dense flash and paged prefill cases, every dense
    decode case and the paged decode and verify cases, kernel and SDPA
-   alike.  It prints the f32 matmul's tile (``f32_tiles``), every tile's
+   alike, and the int8 / fp8 prefill, wkv6 and ssd cases, which no
+   library call computes, the kernel alone.  It prints the f32 matmul's tile (``f32_tiles``), every tile's
    cold time on each f32 matmul case (each bitwise the wrapper's output),
    each dense decode case's split count (``decode_splits``), each paged
    decode and verify case's range length and count, and a sha256 of the
@@ -104,8 +111,9 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    capacity slots of 8 rows of one token and of two 256-token chunks,
    the combine of those chunks and, appended last, of the 8 tokens),
    and ``gather_blocks`` at the paged-KV fetch (128 of 448 frames of 16
-   rows of 8 x 128), each row gather with its plan
-   (``moe_gather.gather_plan``: route, piece, blocks); it times the kernel
+   rows of 8 x 128), each with its plan (``moe_gather.gather_plan``:
+   route, piece, blocks; a block gather's over its blocks as rows, the
+   view it runs on); it times the kernel
    and ``index_select`` (the plain version, and the one PyTorch call
    that computes the function) on inputs out of L2, the calls queued
    back to back behind a device sleep (a call's host cost exceeds these
@@ -190,8 +198,8 @@ phase 4's oracle run, one of phase 3q's int8 run and one of phase 7's
 olmoe run under ``torch.profiler`` and prints where their device time
 went (attention kernels with the split-KV combine, gather kernels,
 matrix products, copies, the rest), the device seconds and launches of
-each paged decode and verify instance, of the combine and of each row
-gather kernel, and the
+each paged decode, verify and prefill instance, of the combine and of
+each gather kernel, and the
 device's busy share of the profiled wall time; the
 per-kernel tables go to PATH and to PATH with ``-spec``, ``-int8`` and
 ``-olmoe`` added to its stem, sorted by device time and then by host
@@ -439,13 +447,13 @@ def make_pools(n_frames, mode, dev, hkv=HKV, d=D, gen=None):
                                 "v_scales": scales[1]}
 
 
-def kv_bytes(positions: int, frames: int, mode: str) -> int:
+def kv_bytes(positions: int, frames: int, mode: str, hkv=HKV, d=D) -> int:
     """Bytes of K and V that ``positions`` pool rows of every KV head in
     ``frames`` distinct frames take: 2-byte elements for bf16, 1-byte
     ones and a scale pair per (frame, KV head) for a quantized pool."""
     if mode == "none":
-        return 2 * positions * HKV * D * 2
-    return 2 * positions * HKV * D + 2 * frames * HKV * 4
+        return 2 * positions * hkv * d * 2
+    return 2 * positions * hkv * d + 2 * frames * hkv * 4
 
 
 def kernel_row(kind: str, mode: str, **fields):
@@ -548,12 +556,7 @@ def paged_times(kind: str, mode: str, args, kw, heads=H) -> dict:
     kernel, operands = paged_cold(kind, args, kw)
     if mode == "none":
         return cold_times(kernel, operands, *paged_sdpa(kind, args, heads))
-    sets, span = _rotated(operands)
-    times = {"ms": cold_ms(kernel, sets),
-             "one_call_ms": time_ms(lambda: kernel(*operands)),
-             "library_ms": None, "sets_span_bytes": span}
-    del sets
-    return times
+    return cold_times(kernel, operands, None, None)
 
 
 def check_decode(dev, rng, mode="none"):
@@ -577,47 +580,86 @@ def check_decode(dev, rng, mode="none"):
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_prefill(dev, rng, mode="none"):
-    offset = np.array([512, 1283], np.int32)
-    length = np.array([256, 131], np.int32)
-    C, T, pps = 2, 256, 2048 // PAGE
+#: phase 2's prefill chunk rows: offsets and lengths (C = 2, T = 256)
+PREFILL_OFFSETS, PREFILL_LENGTHS, PREFILL_T = (512, 1283), (256, 131), 256
+
+
+def prefill_operands(mode: str, rng, dev, heads=H, hkv=HKV, d=D, gen=None):
+    """Phase 2's prefill inputs at ``heads`` / ``hkv`` heads of ``d``: two
+    chunk rows of :data:`PREFILL_T` at :data:`PREFILL_OFFSETS` with
+    :data:`PREFILL_LENGTHS`, a 2048-position table of page 16 over
+    disjoint random frames (numpy ``rng``), the rest on the trash frame,
+    pools of ``mode`` and q from ``gen``.  Returns ((q, k_pages, v_pages,
+    page_rows, offset, lengths), scale keywords, the table's frames in
+    use)."""
+    offset = np.array(PREFILL_OFFSETS, np.int32)
+    length = np.array(PREFILL_LENGTHS, np.int32)
+    C, pps = len(offset), 2048 // PAGE
     valid = offset + length
     n_frames = int(sum(-(-v // PAGE) for v in valid)) + 1
     rows = np.full((C, pps), n_frames - 1, np.int32)
     for c, fr in enumerate(random_frames(rng, n_frames - 1,
                                          [-(-v // PAGE) for v in valid])):
         rows[c, :len(fr)] = fr
-    kp, vp, kw = make_pools(n_frames, mode, dev)
-    q = torch.randn(C, T, H, D, device=dev).bfloat16()
-    pr = torch.from_numpy(rows).to(dev)
-    off = torch.from_numpy(offset).to(dev)
-    ln = torch.from_numpy(length).to(dev)
-    args = (q, kp, vp, pr, off, ln)
+    kp, vp, kw = make_pools(n_frames, mode, dev, hkv, d, gen)
+    q = torch.randn(C, PREFILL_T, heads, d, generator=gen,
+                    device=dev).bfloat16()
+    return ((q, kp, vp, torch.from_numpy(rows).to(dev),
+             torch.from_numpy(offset).to(dev),
+             torch.from_numpy(length).to(dev)), kw, n_frames - 1)
+
+
+def prefill_work(args, frames: int, mode: str) -> tuple:
+    """(bytes, flops) of a prefill case: the valid query rows read and
+    their outputs written, the table, offsets and lengths, the K/V
+    positions below each row's extent (1-byte and the frames' scales for
+    a quantized pool); query t sees offset + t + 1 keys."""
+    q, kp, _, pt, off, ln = args
+    heads, d, hkv = q.shape[2], q.shape[3], kp.shape[2]
+    offset, length = off.tolist(), ln.tolist()
+    kv = kv_bytes(sum(o + n for o, n in zip(offset, length)), frames, mode,
+                  hkv, d)
+    attended = sum(n * o + n * (n + 1) // 2 for o, n in zip(offset, length))
+    return (2 * 2 * sum(length) * heads * d + pt.numel() * 4
+            + 2 * len(offset) * 4 + kv, 4 * attended * heads * d)
+
+
+def prefill_cold(args, kw) -> tuple:
+    """(kernel, operands) of a prefill case for :func:`cold_times`: the
+    scales of a quantized pool ride in the operands, so their copies
+    rotate too."""
+    names = tuple(kw)
+    return ((lambda *a: ops.paged_prefill_attention(
+                *a[:6], impl="cuda", **dict(zip(names, a[6:])))),
+            tuple(args) + tuple(kw.values()))
+
+
+def prefill_sdpa(args, heads=H) -> tuple:
+    """SDPA on the gathered view of a bf16 prefill case's pool, causal at
+    each row's offset: (the call, its operands) — a yardstick only; no
+    library call takes a quantized pool with its scales."""
+    q, kp, vp, pt, off, _ = args
+    kv_pos = torch.arange(pt.shape[1] * PAGE, device=q.device)
+    q_pos = off[:, None] + torch.arange(q.shape[1], device=q.device)[None, :]
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return ((lambda *a: sdpa(*a[:3], attn_mask=a[3])),
+            (q.transpose(1, 2), gathered(kp, pt, heads),
+             gathered(vp, pt, heads), mask))
+
+
+def check_prefill(dev, rng, mode="none"):
+    args, kw, frames = prefill_operands(mode, rng, dev)
+    length = PREFILL_LENGTHS
     out = ops.paged_prefill_attention(*args, impl="cuda", **kw)
     ref = ops.paged_prefill_attention(*args, impl="torch", **kw)
     errs = [agree(f"prefill kernel ({mode})", out[c, :length[c]],
-                  ref[c, :length[c]]) for c in range(C)]
-    # work of the valid query rows: query t sees offset + t + 1 keys
-    attended = sum(int(length[c]) * int(offset[c])
-                   + int(length[c]) * (int(length[c]) + 1) // 2
-                   for c in range(C))
-    nbytes = (2 * 2 * int(length.sum()) * H * D + rows.size * 4 + 2 * C * 4
-              + kv_bytes(int(valid.sum()), n_frames - 1, mode))
-    flops = 4 * attended * H * D
-    b_ms, b_by = bound(nbytes, flops)
-    if mode == "none":     # the wgmma kernel: cold and one call, as SDPA
-        kg, vg = gathered(kp, pr), gathered(vp, pr)
-        q_pos = off[:, None] + torch.arange(T, device=dev)[None, :]
-        kv_pos = torch.arange(pps * PAGE, device=dev)
-        mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        times = cold_times(
-            lambda *a: ops.paged_prefill_attention(*a, impl="cuda"), args,
-            lambda *a: sdpa(*a[:3], attn_mask=a[3]),
-            (q.transpose(1, 2), kg, vg, mask))
-    else:
-        times = {"ms": time_ms(lambda: ops.paged_prefill_attention(
-            *args, impl="cuda", **kw)), "library_ms": None}
+                  ref[c, :length[c]]) for c in range(len(length))]
+    b_ms, b_by = bound(*prefill_work(args, frames, mode))
+    # cold and one call, bf16 beside SDPA
+    times = cold_times(*prefill_cold(args, kw),
+                       *(prefill_sdpa(args) if mode == "none"
+                         else (None, None)))
     return kernel_row(
         "prefill", mode, max_abs_err=max(e for e, _ in errs),
         row_err=max(r for _, r in errs), **times,
@@ -667,8 +709,9 @@ def check_verify(dev, rng, mode="none"):
 #: no tiles), and the linear recurrences at the reference benchmark's f32
 #: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16; last,
 #: the f32 matmul at M = 8 and at 2048^3, where the tile rule takes its
-#: large tile, and the f32 flash kernel at phi4's full width (appended,
-#: so every earlier case keeps its seed).  The first case of an entry point heads its row; the paged
+#: large tile, the f32 flash kernel at phi4's full width, and the int8 /
+#: fp8 paged prefill at D 80 (appended, so every earlier case keeps its
+#: seed).  The first case of an entry point heads its row; the paged
 #: kernels' cases join phase 2's rows.
 DENSE_CASES = (
     ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
@@ -735,16 +778,22 @@ DENSE_CASES = (
     ("flash", torch.float32, "256-token chunk at 1792 (f32)",
      dict(B=1, H=24, Hkv=8, Sq=256, Skv=2048, D=128, q_offset=1792,
           kv_valid=2048)),
+    ("paged_prefill", torch.int8, "h2o-danube 32/8 heads of 80 (int8)",
+     dict(H=32, Hkv=8, D=80)),
+    ("paged_prefill", torch.float8_e4m3fn,
+     "h2o-danube 32/8 heads of 80 (fp8)", dict(H=32, Hkv=8, D=80)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
                  "decode": ("decode_attention", "decode_attention.py:109"),
                  "wkv6": ("wkv6", "rwkv6.py:93"),
                  "ssd": ("ssd", "mamba2.py:93")}
-#: the paged kernels' cases join these rows of phase 2
+#: the paged kernels' cases join these rows of phase 2 (a quantized
+#: case the row of its pool's instance)
 _PAGED_ROW = {"paged_decode": "paged_decode_attention",
               "paged_verify": "paged_verify_attention",
               "paged_prefill": "paged_prefill_attention"}
+_MODE_OF = {KVQuantConfig(m).dtype: m for m in MODES}
 #: the reference's bars for the f32 recurrences (tests/test_kernels.py:
 #: 117-158): kernel vs chunked form, and vs the sequential oracle
 SSM_TOL, SSM_SEQ_TOL = 1e-5, 1e-4
@@ -778,45 +827,23 @@ def paged_inputs(kind: str, c: dict, i: int, dev):
         return (call, lambda: lib(*lib_ops),
                 q.numel() * 2 * 2 + ln.numel() * 4 + kv,
                 4 * int(ln.sum()) * heads * d, extra)
-    pps = 2048 // PAGE
-    offset = np.array([512, 1283], np.int32)
-    length = np.array([256, 131], np.int32)
-    longest, rows_q = offset + length, (2, 256)
-    n_frames = len(longest) * pps + 1
-    table = np.full((len(longest), pps), n_frames - 1, np.int32)
-    for b, fr in enumerate(random_frames(rng, n_frames - 1,
-                                         [-(-n // PAGE) for n in longest])):
-        table[b, :len(fr)] = fr
-    kp, vp = (torch.randn(n_frames, PAGE, hkv, d, generator=gen,
-                          device=dev).bfloat16() for _ in range(2))
-    q = torch.randn(*rows_q, heads, d, generator=gen, device=dev).bfloat16()
-    pt = torch.from_numpy(table).to(dev)
-    ln = torch.from_numpy(length).to(dev)
-    kg, vg = gathered(kp, pt, heads), gathered(vp, pt, heads)
-    kv_pos = torch.arange(pps * PAGE, device=dev)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kv = 2 * int(longest.sum()) * hkv * d * 2 + pt.numel() * 4
-    off = torch.from_numpy(offset).to(dev)
+    mode = _MODE_OF[DENSE_CASES[i][1]]
+    args, kw, frames = prefill_operands(mode, rng, dev, heads, hkv, d, gen)
     call = (lambda impl="auto": ops.paged_prefill_attention(
-        q, kp, vp, pt, off, ln, impl=impl))
-    q_pos = off[:, None] + torch.arange(rows_q[1], device=dev)[None, :]
-    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-    qs = q.transpose(1, 2)
-    attended = sum(int(n) * int(o) + int(n) * (int(n) + 1) // 2
-                   for o, n in zip(offset, length))
-    cold = (lambda *a: ops.paged_prefill_attention(*a, impl="cuda"),
-            (q, kp, vp, pt, off, ln),
-            lambda *a: sdpa(*a[:3], attn_mask=a[3]), (qs, kg, vg, mask))
-    return (call, lambda: sdpa(qs, kg, vg, attn_mask=mask),
-            2 * 2 * int(length.sum()) * heads * d + kv + 2 * 2 * 4,
-            4 * attended * heads * d,
-            {"lengths": [int(n) for n in length], "cold": cold})
+        *args, impl=impl, **kw))
+    lib, lib_ops = (prefill_sdpa(args, heads) if mode == "none"
+                    else (None, None))
+    return (call, None if lib is None else (lambda: lib(*lib_ops)),
+            *prefill_work(args, frames, mode),
+            {"lengths": list(PREFILL_LENGTHS),
+             "cold": (*prefill_cold(args, kw), lib, lib_ops)})
 
 
 def ssm_inputs(kind: str, c: dict, dt, rand):
     """A recurrence case of :data:`DENSE_CASES`, drawn as the reference's
     test draws it, the decay path in f32: (call, sequential oracle or
-    None, bytes, flops).  The flops are the chunked form's products."""
+    None, bytes, flops, (kernel, operands) for :func:`cold_times`).  The
+    flops are the chunked form's products."""
     el = torch.tensor([], dtype=dt).element_size()
     B, T, H, n = c["B"], c["T"], c["H"], c["chunk"]
     chunks, cc = T // min(n, T), min(n, T)
@@ -831,7 +858,9 @@ def ssm_inputs(kind: str, c: dict, dt, rand):
                                               chunk=n)),
                 (lambda: kref.wkv6_ref(r, k, v, w, u)) if T <= 256 else None,
                 el * B * T * H * (2 * K + 2 * V) + 4 * (B * T * H * K + H * K),
-                2 * B * H * chunks * per_chunk)
+                2 * B * H * chunks * per_chunk,
+                ((lambda *a: ops.wkv6(*a, impl="cuda", chunk=n)),
+                 (r, k, v, w, u)))
     P, N = c["P"], c["N"]
     x = rand(B, T, H, P).to(dt)
     dts = torch.nn.functional.softplus(rand(B, T, H))
@@ -844,19 +873,21 @@ def ssm_inputs(kind: str, c: dict, dt, rand):
             (lambda: kref.ssd_ref(x, dts, A, Bm, Cm, Dh)) if T <= 256
             else None,
             el * (2 * B * T * H * P + 2 * B * T * N) + 4 * (B * T * H + 2 * H),
-            B * H * chunks * per_chunk)
+            B * H * chunks * per_chunk,
+            ((lambda *a: ops.ssd(*a, impl="cuda", chunk=n)),
+             (x, dts, A, Bm, Cm, Dh)))
 
 
 def dense_inputs(i: int, dev):
     """Case ``i`` of :data:`DENSE_CASES`: (call, library call or None,
     bytes, flops, extra), where ``call(impl)`` runs the ops entry point
     on inputs drawn from generators seeded by ``i`` (phase 6 draws them
-    again) and ``extra`` is the sequential oracle of a recurrence, the
-    per-row decode calls of a verify case, a matmul's operands (x, w),
-    which its call and library call also take as arguments, or for the
-    flash and prefill and every dense decode case ``{"cold":
-    (kernel, operands, library call, its operands)}`` for
-    :func:`cold_times` (and a prefill case's ``lengths``)."""
+    again) and ``extra`` is a matmul's operands (x, w), which its call
+    and library call also take as arguments, or for every other case
+    ``{"cold": (kernel, operands, library call or None, its operands)}``
+    for :func:`cold_times`, with a recurrence's sequential oracle
+    (``seq``, or None), a verify case's per-row decode calls and a
+    prefill case's ``lengths``."""
     kind, dt, _, c = DENSE_CASES[i]
     if kind in _PAGED_ROW:
         return paged_inputs(kind, c, i, dev)
@@ -866,10 +897,11 @@ def dense_inputs(i: int, dev):
         return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
     if kind in _NO_LIBRARY:
-        call, seq, nbytes, flops = ssm_inputs(
+        call, seq, nbytes, flops, cold = ssm_inputs(
             kind, c, dt, lambda *shape: torch.randn(
                 *shape, generator=gen, device=dev))
-        return call, None, nbytes, flops, seq
+        return call, None, nbytes, flops, {"seq": seq,
+                                           "cold": (*cold, None, None)}
     el = torch.tensor([], dtype=dt).element_size()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kind == "matmul":
@@ -973,15 +1005,20 @@ def cold_times(kernel, operands, library, lib_operands) -> dict:
     L2 flushed, copies of the operands spanning :data:`ROTATE_BYTES`
     rotated, the calls queued behind a device sleep, so neither L2 nor
     the wrapper's host work enters), the kernel and the library call
-    alike, with each one's one-call :func:`time_ms` beside it."""
+    alike (``library`` None: there is none), with each one's one-call
+    :func:`time_ms` beside it."""
     sets, span = _rotated(operands)
-    lib_sets, _ = _rotated(lib_operands)
     times = {"ms": cold_ms(kernel, sets),
-             "library_ms": cold_ms(library, lib_sets),
              "one_call_ms": time_ms(lambda: kernel(*operands)),
-             "library_one_call_ms": time_ms(lambda: library(*lib_operands)),
+             "library_ms": None, "library_one_call_ms": None,
              "sets_span_bytes": span}
-    del sets, lib_sets
+    del sets
+    if library is not None:
+        lib_sets, _ = _rotated(lib_operands)
+        times["library_ms"] = cold_ms(library, lib_sets)
+        times["library_one_call_ms"] = time_ms(
+            lambda: library(*lib_operands))
+        del lib_sets
     return times
 
 
@@ -1079,8 +1116,8 @@ def check_case(i: int, dev):
         require(rel < tol, f"{what} disagrees with plain version: max err "
                 f"/ max ref {rel:.3e} (bar {tol})")
         acc = {"rel_err": rel}
-    if kind in _NO_LIBRARY and dt == torch.float32 and extra is not None:
-        seq_rel = _rel(out, extra())[1]
+    if kind in _NO_LIBRARY and dt == torch.float32 and extra["seq"]:
+        seq_rel = _rel(out, extra["seq"]())[1]
         require(seq_rel < SSM_SEQ_TOL, f"{what} disagrees with the "
                 f"sequential oracle: {seq_rel:.3e} (bar {SSM_SEQ_TOL})")
         acc["seq_rel_err"] = seq_rel
@@ -1115,7 +1152,7 @@ def check_case(i: int, dev):
         case["tile_ms"] = tile_ms
     lib_txt = (_NO_LIBRARY.get(kind, "n/a") if case["library_ms"] is None
                else f"{case['library_ms']:.4f}")
-    if cold:
+    if cold and case["library_ms"] is not None:
         lib_txt += (f" (cold; one call {case['library_one_call_ms']:.4f}) "
                     f"kernel/library {case['ms'] / case['library_ms']:.2f}x"
                     + (", selection matrix exact"
@@ -1155,7 +1192,9 @@ def check_dense(dev):
         case, out = check_case(i, dev)
         outs.append(out)
         if kind in _PAGED_ROW:
-            paged.setdefault(_PAGED_ROW[kind], []).append(case)
+            mode = _MODE_OF[dt]
+            paged.setdefault(_PAGED_ROW[kind] + (
+                "" if mode == "none" else f"_{mode}"), []).append(case)
             continue
         src, replaces = _DENSE_SOURCE[kind]
         name = f"{src}_{'f32' if dt == torch.float32 else 'bf16'}"
@@ -1291,15 +1330,17 @@ def gather_inputs(i: int, dev):
             dict(N=src.shape[0], d=d, M=M, rows_per_block=rpb))
 
 
-def gather_route(kind: str, inputs) -> dict:
-    """The row gather's plan for a case's inputs (``moe_gather.
-    gather_plan``: route, piece bytes, threads a block, blocks); {} for a
-    block gather, or a tree without the plan."""
+def gather_route(kind: str, inputs, block_rows: int = 1) -> dict:
+    """The gather's plan for a case's inputs (``moe_gather.gather_plan``:
+    route, piece bytes, threads a block, blocks): a block gather's over
+    rows of ``block_rows`` source rows, since it is the row gather on
+    that view; {} for a tree without the plan."""
     plan = getattr(moe_gather, "gather_plan", None)
-    if kind != "rows" or plan is None:
+    if plan is None:
         return {}
     src, idx = inputs
-    p = plan(idx.shape[0], src.shape[1] * src.element_size(),
+    rows = block_rows if kind == "blocks" else 1
+    p = plan(idx.shape[0], rows * src.shape[1] * src.element_size(),
              dec_mod.sm_count(src.device), elem_bytes=src.element_size(),
              aligned=src.data_ptr() % 16 == 0)
     return {"gather_route": p.route, "piece_bytes": p.piece_bytes,
@@ -1329,7 +1370,8 @@ def check_gathers(dev):
         del sets
         require(min(ms, plain_ms) >= b_ms, f"{what}: {min(ms, plain_ms)} ms "
                 f"under its bound {b_ms} ms: the timing or the bound is wrong")
-        case = {"case": label, **shape, **gather_route(kind, inputs),
+        route = gather_route(kind, inputs, shape.get("block_rows", 1))
+        case = {"case": label, **shape, **route,
                 "max_abs_err": 0.0, "bitwise": True,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1339,7 +1381,7 @@ def check_gathers(dev):
               f"(plain version and library call) bound_ms "
               f"{b_ms:.4f} ({b_by}, {nbytes} B); {n_sets} input sets spanning "
               f"{n_sets * nbytes / 2**20:.1f} MiB; "
-              f"{shape}, {gather_route(kind, inputs)}, bitwise")
+              f"{shape}, {route}, bitwise")
         outs.append(out.cpu())
         name = f"gather_{kind}_{'f32' if dt == torch.float32 else 'bf16'}"
         if name not in rows:
@@ -1684,7 +1726,7 @@ def _kind(name: str) -> str:
     if any(k in name for k in ("paged_attention_kernel", "paged_prefill",
                                 "flash_attention", "combine_kernel")):
         return "attention kernels"
-    if "gather_rows" in name or "gather_blocks_kernel" in name:
+    if "gather_rows_kernel" in name:      # both gathers' one kernel
         return "gather kernels"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products"
@@ -1717,9 +1759,9 @@ def profile_engine(cfg, params, runs) -> None:
                 k = _kind(ev.name)
                 us = ev.time_range.elapsed_us()
                 kinds[k] = kinds.get(k, 0.0) + us / 1e3
-                if "paged_attention_kernel" in ev.name \
-                        or "combine_kernel" in ev.name \
-                        or "gather_rows" in ev.name:
+                if any(k in ev.name for k in (
+                        "paged_attention_kernel", "combine_kernel",
+                        "paged_prefill", "gather_rows_kernel")):
                     n, t = split.get(ev.name, (0, 0.0))
                     split[ev.name] = (n + 1, t + us)
         busy = sum(kinds.values())
@@ -1729,7 +1771,8 @@ def profile_engine(cfg, params, runs) -> None:
             print(f"[profile:{tag}] {k}: {ms / 1e3:.3f}s ({ms / busy:.3f} of "
                   f"device time)" if busy else f"[profile:{tag}] {k}: 0")
         # the paged decode (R = G rows a block) and verify (R = S * G)
-        # instances, the split-KV combine and the row gathers, by name
+        # instances, the split-KV combine, the paged prefill instances
+        # and the gathers, by name
         for name, (n, us) in sorted(split.items(), key=lambda kv: -kv[1][1]):
             print(f"[profile:{tag}] {name}: {us / 1e6:.4f}s over {n} "
                   f"launches ({us / n:.1f} us each)")
@@ -1776,13 +1819,16 @@ def main(argv=None) -> int:
     # not spill either
     # (and, since the split over KV ranges, the paged decode and verify)
     paged_libs = (dec_mod.KERNEL, dec_mod.VERIFY_KERNEL)
-    # (and, since their redesign, the f32 dense flash and the gathers)
+    # (and, since their redesign, the f32 dense flash and the gathers,
+    # and the int8 / fp8 paged prefill)
     flash_lib = pre_mod.DENSE_KERNELS[torch.float32]
     gather_lib = moe_gather.KERNELS[torch.bfloat16]
+    quant_lib = pre_mod.KERNELS[torch.int8]
     no_spill = sm90_names | {mm_mod.KERNELS[torch.float32].source.name,
                              dec_mod.DENSE_KERNELS[torch.float32].source.name,
                              *(k.source.name for k in paged_libs),
-                             flash_lib.source.name, gather_lib.source.name}
+                             flash_lib.source.name, gather_lib.source.name,
+                             quant_lib.source.name}
     f32_names = {mm_mod.KERNELS[torch.float32].source.name,
                  flash_lib.source.name}
     for name, log in sources.items():
@@ -1799,6 +1845,14 @@ def main(argv=None) -> int:
         print(f"[build] {k.source.name} SASS: {sass}")
         require(all(sass.values()), f"{k.source.name}: no tensor-core "
                 f"products or no TMA loads in its SASS: {sass}")
+    # the int8 / fp8 paged prefill: wgmma on the widened tiles, q by TMA,
+    # the 1-byte rows by cp.async
+    sass = sass_counts(quant_lib.library_path(),
+                       ("HGMMA", "UTMALDG", "LDGSTS", "PRMT", "F2FP"))
+    print(f"[build] {quant_lib.source.name} SASS: {sass}")
+    require(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["LDGSTS"] > 0,
+            f"{quant_lib.source.name}: no tensor-core products, TMA loads "
+            f"or cp.async copies in its SASS: {sass}")
     # the paged kernels' K/V ring: its cp.async copies in the SASS
     for k in paged_libs:
         sass = sass_counts(k.library_path(), ("LDGSTS",))

@@ -1,8 +1,12 @@
 // The flash-attention block for Hopper (sm_90a) shared by the dense
-// kernel (flash_attention_sm90.cu) and the paged prefill kernel
-// (paged_prefill_sm90.cu), bf16: the tile plan, the shared-memory layout,
-// and the consumer warpgroups' loop.  The two sources differ only in
-// their producer (which tensor maps, which coordinates) and their masks.
+// kernel (flash_attention_sm90.cu) and the paged prefill kernels
+// (paged_prefill_sm90.cu for a bf16 pool, paged_prefill.cu for the int8
+// and fp8 frames of a quantized pool): the tile plan, the shared-memory
+// layout, and the consumer warpgroups' loop.  The sources differ only in
+// their producer (which tensor maps, which coordinates; the quantized
+// kernel widens its 1-byte frames into the bf16 stages) and their masks,
+// and the quantized kernel scales the score and weight columns
+// (consume's Scales hook, the identity for bf16).
 //
 // A block holds kBlockQ = 128 query rows of one query head: two consumer
 // warpgroups of 64 rows and one producer warpgroup, of which one thread
@@ -97,16 +101,61 @@ struct Smem {
   __device__ unsigned char* v(int stage) const {
     return k(stage) + Plan<D>::kTileBytes;
   }
-  // thread 0: one arrival for a stage's loads, one per consumer warp
-  // freeing it, one for the q tile
-  __device__ void init() const {
+  // thread 0: `producers` arrivals for a stage's loads (one thread issuing
+  // TMA loads, or every thread that fills the stage), one per consumer
+  // warp freeing it, one for the q tile
+  __device__ void init(uint32_t producers = 1) const {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], producers);
       mbar_init(&empty[s], 4 * kConsumers);
     }
     mbar_init(qbar, 1);
     mbar_init_fence();
   }
+};
+
+// The paged prefill's mask: keys below kv_valid, causal, inside the
+// window; a tile at k0 is interior when every query of the block, from
+// first_q to last_q, sees all of it.
+struct PagedMask {
+  int kv_valid, window, first_q, last_q;
+
+  __device__ bool interior(int k0) const {
+    return k0 + kBlockKV <= kv_valid && k0 + kBlockKV - 1 <= first_q
+           && (window <= 0 || k0 > last_q - window);
+  }
+  __device__ bool visible(int p, int q) const {
+    return p < kv_valid && p <= q && (window <= 0 || p > q - window);
+  }
+};
+
+// The TMA map of a paged prefill's q (C, T, H, D) bf16, the model
+// layout, as a 4-D map (D, H, T, C) read in boxes of one head's 64 rows
+// by 64 columns; rows past T and columns past D arrive as zeros.
+inline bool paged_q_map(CUtensorMap* map, const void* q, int D,
+                        int num_heads, int T, int chunk_rows) {
+  const cuuint64_t row = static_cast<cuuint64_t>(num_heads) * D * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(num_heads),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(chunk_rows)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row,
+                                 row * T};
+  const cuuint32_t box[4] = {kAtom, 1, 64, 1};
+  return encode_bf16(map, q, 4, dims, strides, box);
+}
+
+// The column scales of a tile's scores and weights: none for a bf16
+// tile.  A quantized kernel's policy loads this thread's columns' scales
+// of stage `st` (keys / values: issued before a wgmma wait, so the loads
+// overlap the products) and applies them: column j of S times the keys'
+// (before the mask), of P times the values' (before P is rounded to
+// bf16); the row sums add the unscaled weights.
+struct NoScales {
+  struct Cols {};
+  __device__ Cols keys(int) const { return {}; }
+  __device__ Cols values(int) const { return {}; }
+  __device__ void apply(float (&)[kBlockKV / 2], const Cols&) const {}
 };
 
 // The number of KV tiles from `lo` (a multiple of kBlockKV) up to `hi`.
@@ -243,14 +292,17 @@ __device__ __forceinline__ void rescale_and_pack(
 // Software-pipelined by one tile: tile t's Q K^T is issued together with
 // tile t - 1's P V, and tile t's softmax runs while that P V is still on
 // the tensor cores; O is rescaled only after it has retired.  Each row
-// still accumulates O = O * corr_t + P_t V_t in tile order.
-template <int D, class Mask>
+// still accumulates O = O * corr_t + P_t V_t in tile order.  `scales`
+// scales the columns of S and P of the stage a tile is in (NoScales:
+// none), while the stage is held.
+template <int D, class Mask, class Scales = NoScales>
 __device__ __forceinline__ void consume(const Smem<D>& sm, int wg, int lo,
                                         int n_tiles, float scale_log2,
                                         const int (&q_pos)[2],
                                         const Mask& mask,
                                         float (&o)[Plan<D>::kDPad / 2],
-                                        float (&l)[2]) {
+                                        float (&l)[2],
+                                        const Scales& scales = Scales()) {
   const int lane = threadIdx.x % 32;
   float s[kBlockKV / 2], m[2] = {kNegInf, kNegInf}, corr[2];
   uint32_t p[kBlockKV / 16][4];
@@ -267,9 +319,12 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, int wg, int lo,
   wgmma_fence();
   fence_regs(s);
   issue_qk<D>(s, q_addr, smem_u32(sm.k(0)));
+  const auto k0_cols = scales.keys(0);
   wgmma_wait<0>();
   fence_regs(s);
+  scales.apply(s, k0_cols);
   softmax_tile(s, lo, scale_log2, q_pos, mask, m, l, corr);
+  scales.apply(s, scales.values(0));
   rescale_and_pack<D>(o, corr, s, p);
 
   for (int it = 1; it < n_tiles; ++it) {
@@ -280,13 +335,17 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, int wg, int lo,
     fence_regs(o);
     issue_qk<D>(s, q_addr, smem_u32(sm.k(st)));
     issue_pv<D>(o, p, smem_u32(sm.v(prev)));
+    const auto k_cols = scales.keys(st);
     wgmma_wait<1>();                     // Q K^T of this tile retired
     fence_regs(s);
+    scales.apply(s, k_cols);
     softmax_tile(s, lo + it * kBlockKV, scale_log2, q_pos, mask, m, l, corr);
+    const auto v_cols = scales.values(st);
     wgmma_wait<0>();                     // P V of the previous tile too
     fence_regs(o);
     fence_frags(p);
     if (lane == 0) mbar_arrive(&sm.empty[prev]);   // its stage is free
+    scales.apply(s, v_cols);
     rescale_and_pack<D>(o, corr, s, p);
   }
 

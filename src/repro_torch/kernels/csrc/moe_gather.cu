@@ -17,7 +17,7 @@
 // gather only moves bits, so the two types differ only in the element
 // width and every output bit is a source bit.
 //
-// Design of gather_rows: the grid comes from the work and the SM count
+// Design: the grid comes from the work and the SM count
 // (moe_gather.gather_plan, mirrored by `plan_of` below), not from the
 // TPU's rows_per_block, which is only checked (M % rows_per_block, as
 // the reference asserts).  Each output row of row_bytes bytes is cut
@@ -32,6 +32,12 @@
 //     SMs without a block;
 //   * elem (a row's bytes or a base pointer off the 16-byte grid): an
 //     element a thread.
+// gather_blocks is gather_rows over the view (N / block_rows,
+// block_rows * d) of src: a block of block_rows rows is one contiguous
+// row of that view, in src and in out, so it takes the same plan and
+// the same kernel (the paged-KV fetch's 32 KB blocks: 2048 threads each
+// on the vec route; tools/gather_sweep.py times blocks of 8 to 64 KB,
+// and PERF.md says why no bulk-copy route was tried for them).
 // What the plan rests on (tools/gather_sweep.py, cold, on an H100):
 // warps of 2 KB pieces with four 16-byte loads a lane in flight and the
 // block's indices staged in shared memory behind a barrier ran slower
@@ -41,9 +47,6 @@
 // faster than the vec route at any shape of the sweep, olmoe's prefill
 // dispatch and combine included, and slower at its decode shapes, so
 // the vec route takes every aligned gather.
-// gather_blocks runs one block of 256 threads per output block, whose
-// block_rows * d elements are one contiguous run in src and in out,
-// 16-byte vectors where aligned.
 //
 // Bound on the card: bytes — each distinct source row read once, every
 // output row written once, and the indices: (U + M) * d * itemsize +
@@ -58,38 +61,9 @@
 
 namespace {
 
-constexpr int kBlockThreads = 256;       // gather_blocks
-// gather_rows' plan (moe_gather.gather_plan mirrors these)
+// the plan (moe_gather.gather_plan mirrors these)
 constexpr int kMaxThreads = 256;         // most threads a block
 constexpr int kMinThreads = 32;
-
-// Copy n elements of T from s to o with the threads lane, lane + step,
-// ...: as 16-byte vectors when vec (n * sizeof(T) a multiple of 16, s
-// and o 16-byte aligned), else one element at a time.
-template <typename T>
-__device__ __forceinline__ void copy_run(const T* __restrict__ s,
-                                         T* __restrict__ o, long long n,
-                                         bool vec, int lane, int step) {
-  if (vec) {
-    const long long nv = n * static_cast<long long>(sizeof(T)) / 16;
-    const uint4* sv = reinterpret_cast<const uint4*>(s);
-    uint4* ov = reinterpret_cast<uint4*>(o);
-#pragma unroll 4
-    for (long long j = lane; j < nv; j += step) ov[j] = __ldg(sv + j);
-  } else {
-    for (long long j = lane; j < n; j += step) o[j] = s[j];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads) gather_blocks_kernel(
-    const T* __restrict__ src, const int* __restrict__ block_idx,
-    T* __restrict__ out, long long block_elems, bool vec) {
-  const long long b = block_idx[blockIdx.x];
-  copy_run(src + b * block_elems,
-           out + static_cast<long long>(blockIdx.x) * block_elems,
-           block_elems, vec, threadIdx.x, kBlockThreads);
-}
 
 bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
@@ -147,15 +121,14 @@ int sm_count() {
   return n;
 }
 
+// A gather of M rows of row_elems elements of T: its plan, its launch.
 template <typename T>
-int launch_rows(const void* src, const void* idx, void* out, int N, int d,
-                int M, int rpb, void* stream) {
-  if (N <= 0 || d <= 0 || M <= 0 || rpb <= 0 || M % rpb)
-    return cudaErrorInvalidValue;
+int launch_gather(const void* src, const void* idx, void* out,
+                  long long row_elems, long long M, void* stream) {
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
-  const Plan p = plan_of(M, static_cast<long long>(d) * sizeof(T), sizeof(T),
-                         sms, aligned16(src) && aligned16(out));
+  const Plan p = plan_of(M, row_elems * static_cast<long long>(sizeof(T)),
+                         sizeof(T), sms, aligned16(src) && aligned16(out));
   if (p.pieces > 0xffffffffLL) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto blocks = static_cast<unsigned>(p.blocks);
@@ -177,18 +150,22 @@ int launch_rows(const void* src, const void* idx, void* out, int N, int d,
 }
 
 template <typename T>
+int launch_rows(const void* src, const void* idx, void* out, int N, int d,
+                int M, int rpb, void* stream) {
+  if (N <= 0 || d <= 0 || M <= 0 || rpb <= 0 || M % rpb)
+    return cudaErrorInvalidValue;
+  return launch_gather<T>(src, idx, out, d, M, stream);
+}
+
+// Block i of out is row block_idx[i] of src's (N / block_rows,
+// block_rows * d) view.
+template <typename T>
 int launch_blocks(const void* src, const void* block_idx, void* out, int N,
                   int d, int Mb, int block_rows, void* stream) {
   if (N <= 0 || d <= 0 || Mb <= 0 || block_rows <= 0 || N % block_rows)
     return cudaErrorInvalidValue;
-  const long long block_elems = static_cast<long long>(block_rows) * d;
-  const bool vec = (block_elems * static_cast<long long>(sizeof(T))) % 16 == 0
-                   && aligned16(src) && aligned16(out);
-  gather_blocks_kernel<T><<<Mb, kBlockThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(src), static_cast<const int*>(block_idx),
-      static_cast<T*>(out), block_elems, vec);
-  return cudaGetLastError();
+  return launch_gather<T>(src, block_idx, out,
+                          static_cast<long long>(block_rows) * d, Mb, stream);
 }
 
 }  // namespace

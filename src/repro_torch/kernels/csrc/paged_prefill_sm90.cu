@@ -5,22 +5,23 @@
 //
 // Replaces the TPU kernel `_paged_prefill_kernel` / `paged_prefill_flash`
 // of src/repro/kernels/flash_attention.py (its pallas_call at line 279)
-// for a bf16 pool; the int8 / fp8 frames of a quantized pool keep
-// paged_prefill.cu.  Same function: C prompt-chunk rows, each a different
-// sequence at its own depth.  Query t of row c sits at absolute position
-// offset[c] + t and attends, causally, to the KV positions below
-// kv_valid = offset[c] + lengths[c] that the row's page table maps
-// (position p lives in frame page_rows[c, p / page] at row p % page),
-// optionally inside a sliding window.  Query rows t >= lengths[c] are
-// don't-care, as on the TPU.  Entry point paged_prefill_attention_bf16,
-// with paged_prefill.cu's arguments; head dims 16, 32, 64, 80 and 128, any
-// G, any page size.
+// for a bf16 pool; the int8 / fp8 frames of a quantized pool have their
+// own kernel on the same block, paged_prefill.cu.  Same function: C
+// prompt-chunk rows, each a different sequence at its own depth.  Query t
+// of row c sits at absolute position offset[c] + t and attends, causally,
+// to the KV positions below kv_valid = offset[c] + lengths[c] that the
+// row's page table maps (position p lives in frame page_rows[c, p / page]
+// at row p % page), optionally inside a sliding window.  Query rows t >=
+// lengths[c] are don't-care, as on the TPU.  Entry point
+// paged_prefill_attention_bf16, with paged_prefill.cu's arguments less
+// the scales; head dims 16, 32, 64, 80 and 128, any G, any page size.
 //
 // Against _paged_prefill_kernel:
 //
 //   q BlockSpec (C, T, H, D)             -> a 4-D CUtensorMap (D, H, T, C)
 //                                           over the model layout; rows
 //                                           past T arrive as zeros
+//                                           (flash_sm90.cuh: paged_q_map)
 //   k_pages / v_pages in ANY, frames     -> one 3-D map each over the pool
 //     fetched by make_async_copy through    in place, (D, Hkv, N * page):
 //     the scalar-prefetched page table      the producer thread reads the
@@ -57,18 +58,6 @@
 namespace {
 
 using namespace repro_flash;
-
-struct PagedMask {
-  int kv_valid, window, first_q, last_q;
-
-  __device__ bool interior(int k0) const {
-    return k0 + kBlockKV <= kv_valid && k0 + kBlockKV - 1 <= first_q
-           && (window <= 0 || k0 > last_q - window);
-  }
-  __device__ bool visible(int p, int q) const {
-    return p < kv_valid && p <= q && (window <= 0 || p > q - window);
-  }
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) paged_prefill_sm90_kernel(
@@ -163,14 +152,6 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            int page, int pages_per_seq, int window, float scale,
            cudaStream_t stream) {
   const int box_rows = gcd(page, kBlockKV);
-  const cuuint64_t q_row = static_cast<cuuint64_t>(num_heads) * D * 2;
-  const cuuint64_t q_dims[4] = {static_cast<cuuint64_t>(D),
-                                static_cast<cuuint64_t>(num_heads),
-                                static_cast<cuuint64_t>(T),
-                                static_cast<cuuint64_t>(chunk_rows)};
-  const cuuint64_t q_strides[3] = {static_cast<cuuint64_t>(D) * 2, q_row,
-                                   q_row * T};
-  const cuuint32_t q_box[4] = {kAtom, 1, 64, 1};
   // the pool's frame count is not an argument: its row extent is the
   // largest a coordinate can address, and the page table names the rows
   const cuuint64_t kv_dims[3] = {static_cast<cuuint64_t>(D),
@@ -181,7 +162,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<cuuint64_t>(num_kv_heads) * D * 2};
   const cuuint32_t kv_box[3] = {kAtom, 1, static_cast<cuuint32_t>(box_rows)};
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_bf16(&q_map, q, 4, q_dims, q_strides, q_box)
+  if (!paged_q_map(&q_map, q, D, num_heads, T, chunk_rows)
       || !encode_bf16(&k_map, k_pages, 3, kv_dims, kv_strides, kv_box)
       || !encode_bf16(&v_map, v_pages, 3, kv_dims, kv_strides, kv_box))
     return cudaErrorInvalidValue;

@@ -15,8 +15,12 @@ in the sources:
   (:func:`sm90_plan`).
 * int8 and fp8, ``csrc/paged_prefill.cu``: the frames of a quantized
   pool with their per-(frame, KV head) f32 scales (the TPU kernel's
-  quantized instance, its scale BlockSpecs at line 257), each K/V element
-  dequantized as it is staged, products on the CUDA cores.
+  quantized instance, its scale BlockSpecs at line 257), on the same
+  block: the producer warpgroup copies the 1-byte rows and their scales
+  through the page table by ``cp.async`` into a raw ring and widens the
+  codes, exactly, into the bf16 stages the consumers read; the scales
+  multiply the columns of S and of P outside the products (the plan:
+  :func:`quant_prefill_plan`).
 
 :func:`paged_prefill_attention_torch` is the plain PyTorch version of the
 same function: gather each chunk row's page-table view of the pool, then
@@ -60,6 +64,7 @@ from repro_torch.kernels.decode_attention import (NEG_INF, gather_pages,
 __all__ = ["chunked_attention", "paged_prefill_attention_torch",
            "paged_prefill_attention_cuda", "flash_attention_torch",
            "flash_attention_cuda", "sm90_plan", "Sm90Plan",
+           "quant_prefill_plan", "QuantPrefillPlan",
            "f32_flash_plan", "f32_flash_smem", "f32_flash_stages",
            "F32_FLASH_WARPS_Q",
            "KERNEL", "KERNELS", "DENSE_KERNELS"]
@@ -115,6 +120,36 @@ def sm90_plan(head_dim: int) -> Sm90Plan:
             + SM90_STAGES * 2 * SM90_BLOCK_KV * d_pad * 2
             + (2 * SM90_STAGES + 1) * 8)
     return Sm90Plan(d_pad, SM90_BLOCK_Q, SM90_BLOCK_KV, SM90_STAGES, smem)
+
+
+#: the quantized paged prefill's (``csrc/paged_prefill.cu``): the threads
+#: of its producer warpgroup, which copy and widen, and the raw ring's
+#: stages
+QUANT_PRODUCERS, QUANT_RAW_STAGES = 128, 3
+
+
+class QuantPrefillPlan(NamedTuple):
+    """The quantized paged prefill's shared memory for one head dim."""
+    raw_stage_bytes: int   # a tile's 1-byte K and V rows and their scales
+    scale_offset: int      # the bf16 stages' scales, after the barriers
+    raw_offset: int        # the raw ring
+    smem_bytes: int
+
+
+def quant_prefill_plan(head_dim: int) -> QuantPrefillPlan:
+    """The quantized kernel's plan (csrc ``QuantPlan<D>``): the bf16
+    plan's q tile, stages and barriers (:func:`sm90_plan`), each stage's
+    k and v scales, then :data:`QUANT_RAW_STAGES` raw stages; a function
+    of the head dim alone."""
+    bf16 = sm90_plan(head_dim)
+    scale_bytes = 2 * SM90_BLOCK_KV * 4
+    raw_tile = SM90_BLOCK_KV * head_dim          # 1-byte rows of K or V
+    scale_offset = -(-(bf16.smem_bytes - _SM90_ALIGN) // 16) * 16
+    raw_offset = scale_offset + SM90_STAGES * scale_bytes
+    raw_stage = 2 * raw_tile + scale_bytes
+    return QuantPrefillPlan(
+        raw_stage, scale_offset, raw_offset,
+        _SM90_ALIGN + raw_offset + QUANT_RAW_STAGES * raw_stage)
 
 
 def f32_flash_plan(B: int, H: int, Sq: int, sms: int) -> int:
@@ -245,8 +280,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_rows, offset,
         raise ValueError("page_rows / offset / lengths rows do not match q")
     check_heads(H, Hkv, D)
     out = torch.empty_like(q)
-    if k_pages.dtype == torch.bfloat16:
-        check_aligned(q=q, k_pages=k_pages, v_pages=v_pages, out=out)
+    check_aligned(q=q, k_pages=k_pages, v_pages=v_pages, out=out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNELS[k_pages.dtype].launch(

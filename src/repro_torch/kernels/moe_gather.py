@@ -13,11 +13,13 @@ replace the two TPU kernels of ``src/repro/kernels/moe_gather.py``:
     rows of source block ``block_idx[i]``.
 
 Their design notes and bound are in the source.  One entry point per
-dtype of src and out (f32, bf16); the indices are int32.  The row
-gather's grid comes from :func:`gather_plan` (the work and the SM count;
-the source mirrors it): rows cut into pieces of a fixed byte count, a
-thread a 16-byte piece, element by element where a row's bytes or a
-base pointer are off the 16-byte grid.  Coalescing for
+dtype of src and out (f32, bf16); the indices are int32.  Both run one
+kernel whose grid comes from :func:`gather_plan` (the work and the SM
+count; the source mirrors it): rows cut into pieces of a fixed byte
+count, a thread a 16-byte piece, element by element where a row's bytes
+or a base pointer are off the 16-byte grid.  A block gather is the row
+gather over the view ``(N / block_rows, block_rows * d)``: its plan is
+``gather_plan(Mb, block_rows * d * itemsize, ...)``.  Coalescing for
 semi-sorted indices happens upstream, in
 :class:`repro_torch.core.patterns.GatherPattern`, as in the reference.
 

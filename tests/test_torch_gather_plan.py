@@ -11,11 +11,19 @@ Then the plan's copy emulated piece by piece in plain torch, bitwise
 and the Pallas kernel in interpret mode) at the reference's shapes and
 olmoe-1b-7b's.
 
+The block gather is the row gather over the view (N / block_rows,
+block_rows * d): its plan's pieces cover every byte of every block once
+(the paged-KV fetch's 32,768-byte blocks, the reference's 4,096-byte f32
+blocks, an odd 30-byte block), and its emulated copy is bitwise
+``gather_blocks_torch`` and the JAX package's ``gather_blocks`` (the
+Pallas kernel in interpret mode).
+
 Marked ``cuda`` (they skip without a card; run them with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_gather_plan.py``):
 the kernel is bitwise ``index_select`` in f32 and bf16, for unaligned
 rows and pointers too; one launch counted per call; ``gather_blocks``
-unchanged.
+unchanged, and on unaligned blocks (the element route) bitwise its
+plain version, one launch a call.
 """
 
 import numpy as np
@@ -132,6 +140,50 @@ def test_emulated_plan_is_bitwise_the_gather(N, d, M, dtype, aligned):
                                       out.float().numpy())
 
 
+#: (N, d, Mb, block_rows, dtype): the paged-KV fetch (128 of 448 frames
+#: of 16 rows of 8 x 128 bf16: 32,768-byte blocks), the reference's
+#: (64, 128) f32 in blocks of 8 rows (4,096 bytes), and an odd block
+#: byte count (3 rows of 5 bf16: 30 bytes, the element route)
+BLOCK_SHAPES = [(448 * 16, 1024, 128, 16, torch.bfloat16),
+                (64, 128, 6, 8, torch.float32),
+                (48, 5, 20, 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("N,d,Mb,rows,dtype", BLOCK_SHAPES)
+def test_block_plan_is_the_row_plan_over_blocks(N, d, Mb, rows, dtype):
+    import jax.numpy as jnp
+    from repro.kernels import moe_gather as jgather
+
+    el = torch.tensor([], dtype=dtype).element_size()
+    block_bytes = rows * d * el
+    plan = gather_plan(Mb, block_bytes, H100_SMS, elem_bytes=el)
+    assert plan.route == ("vec" if block_bytes % 16 == 0 else "elem")
+    starts, sizes = row_pieces(plan, block_bytes)
+    assert starts[0] == 0 and (sizes > 0).all()
+    assert (starts[1:] == starts[:-1] + sizes[:-1]).all()
+    assert starts[-1] + sizes[-1] == block_bytes
+    assert plan.pieces == Mb * plan.per_row
+    assert (plan.blocks - 1) * plan.threads < plan.pieces \
+        <= plan.blocks * plan.threads
+    if block_bytes == 32768:              # the paged-KV fetch
+        assert plan == moe_gather.GatherPlan("vec", 16, 2048, 262144, 256,
+                                             1024)
+    rng = np.random.default_rng(N + Mb)
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    bidx = rng.permutation(N // rows)[:Mb].astype(np.int32)
+    src, tidx = torch.from_numpy(x).to(dtype), torch.from_numpy(bidx)
+    out = emulate(src.view(N // rows, rows * d), tidx).reshape(-1, d)
+    assert torch.equal(out, moe_gather.gather_blocks_torch(src, tidx, rows))
+    assert torch.equal(out, moe_gather.gather_blocks(src, tidx,
+                                                     block_rows=rows))
+    jsrc = jnp.asarray(x, jnp.float32 if dtype == torch.float32
+                       else jnp.bfloat16)
+    jout = jgather.gather_blocks(jsrc, jnp.asarray(bidx), block_rows=rows,
+                                 interpret=True)
+    np.testing.assert_array_equal(np.asarray(jout, np.float32),
+                                  out.float().numpy())
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -173,3 +225,26 @@ def test_gather_blocks_unchanged(dev, dtype):
     bidx = torch.randperm(448, device=dev)[:128].to(torch.int32)
     out = moe_gather.gather_blocks(src, bidx, block_rows=16)
     assert torch.equal(out, moe_gather.gather_blocks_torch(src, bidx, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_blocks_take_the_element_route(dev, dtype):
+    """Blocks whose bytes (3 rows of 5) or base pointer are off the
+    16-byte grid: the element route, bitwise the plain version, one
+    launch a call."""
+    kernel = moe_gather.BLOCK_KERNELS[dtype]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bidx = torch.randperm(16, generator=gen, device=dev)[:10].to(torch.int32)
+    flat = torch.randn(48 * 8 + 1, generator=gen, device=dev).to(dtype)
+    el = flat.element_size()
+    for src, rows in ((flat[:48 * 5].view(48, 5), 3),
+                      (flat[1:].view(48, 8), 3)):
+        aligned = src.data_ptr() % 16 == 0
+        assert gather_plan(10, rows * src.shape[1] * el, H100_SMS,
+                           elem_bytes=el, aligned=aligned).route == "elem"
+        before = kernel.launches
+        out = moe_gather.gather_blocks(src, bidx, block_rows=rows)
+        assert kernel.launches == before + 1
+        assert torch.equal(out,
+                           moe_gather.gather_blocks_torch(src, bidx, rows))

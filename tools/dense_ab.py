@@ -1,11 +1,13 @@
 """Time the f32 matmul and dense decode cases of ``chip_smoke.py`` phase
 2d, and its paged decode and verify cases (phase 2 in bf16, int8 and
 fp8, phase 2d's G5 / G12 / D80), or its f32 dense flash cases, or the
-gather cases of phase 2g, with the ``repro_torch`` package of a given
-tree, to compare two trees on one card.
+gather cases of phase 2g, or the int8 / fp8 paged prefill cases (phase
+2's and phase 2d's D80) with phase 2g's block gathers, with the
+``repro_torch`` package of a given tree, to compare two trees on one
+card.
 
     python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent \
-        [--only paged|flash_f32|gather]
+        [--only paged|flash_f32|gather|quant_prefill]
 
 Imports ``repro_torch`` from ``--src`` before ``chip_smoke`` (whose own
 imports then find it loaded), draws each case's inputs as phase 2d does
@@ -106,11 +108,14 @@ def flash_f32_cases(cs, dev, tag: str, smi: str) -> None:
             .hexdigest()}), flush=True)
 
 
-def gather_cases(cs, dev, tag: str, smi: str) -> None:
-    """Phase 2g's cases: bitwise ``index_select``, the kernel and
-    ``index_select`` timed cold as phase 2g times them, a JSON line
-    each."""
+def gather_cases(cs, dev, tag: str, smi: str,
+                 kinds=("rows", "blocks")) -> None:
+    """Phase 2g's cases of ``kinds``: bitwise ``index_select``, the
+    kernel and ``index_select`` timed cold as phase 2g times them, a
+    JSON line each."""
     for i, (kind, dt, label, _) in enumerate(cs.GATHER_CASES):
+        if kind not in kinds:
+            continue
         inputs, call, plain, nbytes, shape = cs.gather_inputs(i, dev)
         cs.require(torch.equal(call(*inputs, impl="cuda"),
                                call(*inputs, impl="torch")),
@@ -123,10 +128,48 @@ def gather_cases(cs, dev, tag: str, smi: str) -> None:
         del sets
         print(json.dumps({
             "tag": tag, "card": smi, "case": f"gather_{kind} {label}",
-            "dtype": str(dt), **shape, **cs.gather_route(kind, inputs),
+            "dtype": str(dt), **shape,
+            **cs.gather_route(kind, inputs, shape.get("block_rows", 1)),
             "ms": ms, "library_ms": lib_ms,
             "kernel_over_library": ms / lib_ms,
             "bound_ms": cs.bound(nbytes, 0, dt)[0]}), flush=True)
+
+
+def quant_prefill_cases(cs, dev, tag: str, smi: str) -> None:
+    """Phase 2's int8 / fp8 prefill (inputs seeded per case, so two
+    trees see the same operands) and phase 2d's at D 80: each held at
+    phase 2's bars, timed cold and one call (no library call takes the
+    pool with its scales), a JSON line each; then phase 2g's block
+    gathers."""
+    import numpy as np
+
+    todo = []
+    for j, mode in enumerate(cs.QUANT_MODES):
+        seed = cs.SEED + 400 + j
+        args, kw, frames = cs.prefill_operands(
+            mode, np.random.default_rng(seed), dev,
+            gen=torch.Generator(device=dev).manual_seed(seed))
+        todo.append((f"phase 2 prefill ({mode})", args, kw,
+                     cs.prefill_work(args, frames, mode)))
+    for i, (kind, dt, label, _) in enumerate(cs.DENSE_CASES):
+        if kind == "paged_prefill" and dt != torch.bfloat16:
+            _, _, nbytes, flops, extra = cs.dense_inputs(i, dev)
+            operands = extra["cold"][1]
+            todo.append((f"phase 2d prefill {label}", operands[:6],
+                         dict(zip(("k_scales", "v_scales"), operands[6:])),
+                         (nbytes, flops)))
+    for label, args, kw, work in todo:
+        out = cs.ops.paged_prefill_attention(*args, impl="cuda", **kw)
+        ref = cs.ops.paged_prefill_attention(*args, impl="torch", **kw)
+        err = max(cs.agree(label, out[c, :n], ref[c, :n])[1]
+                  for c, n in enumerate(cs.PREFILL_LENGTHS))
+        b_ms, b_by = cs.bound(*work)
+        print(json.dumps({"tag": tag, "card": smi, "case": label,
+                          "row_err": err, "bound_ms": b_ms,
+                          "bound_by": b_by,
+                          **cs.cold_times(*cs.prefill_cold(args, kw), None,
+                                          None)}), flush=True)
+    gather_cases(cs, dev, tag, smi, kinds=("blocks",))
 
 
 def main(argv=None) -> int:
@@ -135,9 +178,11 @@ def main(argv=None) -> int:
                     help="the src directory holding repro_torch")
     ap.add_argument("--tag", required=True, help="names the tree")
     ap.add_argument("--only", default=None,
-                    choices=("dense", "paged", "flash_f32", "gather"),
+                    choices=("dense", "paged", "flash_f32", "gather",
+                             "quant_prefill"),
                     help="time only the dense (f32 matmul, dense decode), "
-                    "the paged, the f32 flash or the gather cases")
+                    "the paged, the f32 flash or the gather cases, or the "
+                    "int8 / fp8 prefill and block gather cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dense_ab: no CUDA device", file=sys.stderr)
@@ -157,6 +202,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "gather":
         gather_cases(cs, dev, args.tag, smi)
+        return 0
+    if args.only == "quant_prefill":
+        quant_prefill_cases(cs, dev, args.tag, smi)
         return 0
     if args.only != "dense":
         paged_cases(cs, dev, args.tag, smi)
