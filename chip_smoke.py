@@ -28,7 +28,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    ``moe_gather.cu``), nor the int8 / fp8 paged prefill's
    (``paged_prefill.cu``, on the sm90 block), whose SASS must hold
    ``HGMMA``, ``UTMALDG`` (q) and ``LDGSTS`` (its 1-byte rows), counted
-   with its byte permutes and conversions; the paged ones' SASS must
+   with its byte permutes and conversions, nor the recurrences'
+   (``wkv6.cu``, ``ssd.cu``, chunk-parallel since their redesign), whose
+   SASS must hold TF32 tensor-core products (``HMMA.1688.F32.TF32``);
+   the paged ones' SASS must
    hold their ring's
    ``cp.async`` copies (``LDGSTS``, counted), the f32 flash's its TF32
    tensor-core products (``HMMA.1688.F32.TF32``) and ``LDGSTS``, the
@@ -99,7 +102,11 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    cases, the bf16 dense flash and paged prefill cases, every dense
    decode case and the paged decode and verify cases, kernel and SDPA
    alike, and the int8 / fp8 prefill, wkv6 and ssd cases, which no
-   library call computes, the kernel alone.  It prints the f32 matmul's tile (``f32_tiles``), every tile's
+   library call computes, the kernel alone (a wkv6 or ssd call enqueues
+   three kernels, so ``cold_ms`` queues fewer calls a batch).  It prints
+   each wkv6 and ssd case's plan (``rwkv6.wkv6_plan``,
+   ``mamba2.ssd_plan``: pieces, segments, blocks, workspace), the f32
+   matmul's tile (``f32_tiles``), every tile's
    cold time on each f32 matmul case (each bitwise the wrapper's output),
    each dense decode case's split count (``decode_splits``), each paged
    decode and verify case's range length and count, and a sha256 of the
@@ -230,7 +237,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
-from repro_torch.kernels import moe_gather  # noqa: E402
+from repro_torch.kernels import mamba2, moe_gather, rwkv6  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
@@ -321,7 +328,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
+def cold_ms(fn, sets, calls: int = 50, reps: int = 5,
+            launches: int = 1) -> float:
     """Median device time of one ``fn(*inputs)`` in ms, on inputs out of
     L2, for work shorter than its own host call.  Each batch first
     reads :data:`ROTATE_BYTES` to flush L2, then runs
@@ -335,8 +343,10 @@ def cold_ms(fn, sets, calls: int = 50, reps: int = 5) -> float:
     the host's pace.  A batch the host outran (its enqueue took longer
     than the sleep, so its calls did not run back to back) is not
     timed but taken again; raises once ``reps`` batches have been
-    outrun."""
-    n = max(calls, len(sets))
+    outrun.  ``launches``: the kernels one call enqueues; a batch queues
+    at most :data:`MAX_SETS` of them (more fill the launch queue, and the
+    host then waits out the sleep)."""
+    n = min(max(calls, len(sets)), MAX_SETS // launches)
     flush = torch.zeros(ROTATE_BYTES // 4, dtype=torch.int32, device="cuda")
     # warm up with a whole batch, so the allocator holds the blocks of a
     # batch's outputs and no allocation waits on the device in the batch
@@ -797,6 +807,9 @@ _MODE_OF = {KVQuantConfig(m).dtype: m for m in MODES}
 #: the reference's bars for the f32 recurrences (tests/test_kernels.py:
 #: 117-158): kernel vs chunked form, and vs the sequential oracle
 SSM_TOL, SSM_SEQ_TOL = 1e-5, 1e-4
+#: kernels one call of the recurrences enqueues, at most (since their
+#: redesign: the segments' states, their scan, the outputs)
+SSM_LAUNCHES = 3
 _NO_LIBRARY = {"wkv6": "no single PyTorch call computes WKV6",
                "ssd": "no single PyTorch call computes SSD"}
 
@@ -900,8 +913,8 @@ def dense_inputs(i: int, dev):
         call, seq, nbytes, flops, cold = ssm_inputs(
             kind, c, dt, lambda *shape: torch.randn(
                 *shape, generator=gen, device=dev))
-        return call, None, nbytes, flops, {"seq": seq,
-                                           "cold": (*cold, None, None)}
+        return call, None, nbytes, flops, {
+            "seq": seq, "cold": (*cold, None, None, SSM_LAUNCHES)}
     el = torch.tensor([], dtype=dt).element_size()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kind == "matmul":
@@ -1000,15 +1013,17 @@ def _rotated(operands) -> tuple:
                           for _ in range(n_sets - 1)], n_sets * nbytes)
 
 
-def cold_times(kernel, operands, library, lib_operands) -> dict:
+def cold_times(kernel, operands, library, lib_operands,
+               launches: int = 1) -> dict:
     """A case timed as phase 2g times the gathers (:func:`cold_ms`:
     L2 flushed, copies of the operands spanning :data:`ROTATE_BYTES`
     rotated, the calls queued behind a device sleep, so neither L2 nor
     the wrapper's host work enters), the kernel and the library call
     alike (``library`` None: there is none), with each one's one-call
-    :func:`time_ms` beside it."""
+    :func:`time_ms` beside it; ``launches``: the kernels one call of
+    ``kernel`` enqueues."""
     sets, span = _rotated(operands)
-    times = {"ms": cold_ms(kernel, sets),
+    times = {"ms": cold_ms(kernel, sets, launches=launches),
              "one_call_ms": time_ms(lambda: kernel(*operands)),
              "library_ms": None, "library_one_call_ms": None,
              "sets_span_bytes": span}
@@ -1034,7 +1049,8 @@ def cold_case(kind: str, call, extra):
 
 def launch_shape(kind: str, dt, shape: dict, dev) -> dict:
     """The card's choice for a case, as its wrapper makes it: the f32
-    matmul's (bm, bn, stages) and a dense decode case's split count."""
+    matmul's (bm, bn, stages), a dense decode case's split count, a
+    recurrence's plan."""
     props = torch.cuda.get_device_properties(dev)
     if kind == "matmul" and dt == torch.float32:
         return {"tile": list(mm_mod.f32_tiles(
@@ -1048,6 +1064,18 @@ def launch_shape(kind: str, dt, shape: dict, dev) -> dict:
         return {"splits": dec_mod.decode_splits(
             shape["B"], shape["Hkv"], shape["H"] // shape["Hkv"],
             min(shape["valid"], shape["Skv"]), props.multi_processor_count)}
+    if kind in _NO_LIBRARY and hasattr(rwkv6, "wkv6_plan"):
+        c = min(shape["chunk"], shape["T"])
+        plan = (rwkv6.wkv6_plan(shape["B"], shape["T"], shape["H"],
+                                shape["K"], shape["K"], c,
+                                props.multi_processor_count,
+                                props.shared_memory_per_block_optin)
+                if kind == "wkv6" else
+                mamba2.ssd_plan(shape["B"], shape["T"], shape["H"],
+                                shape["P"], shape["N"], c,
+                                props.multi_processor_count,
+                                props.shared_memory_per_block_optin))
+        return {"plan": plan._asdict()}
     if kind in ("paged_decode", "paged_verify"):
         span = dec_mod.paged_split_positions(
             len(DECODE_LENGTHS), shape["Hkv"], shape["H"] // shape["Hkv"],
@@ -1162,6 +1190,11 @@ def check_case(i: int, dev):
                     else f" splits {case['splits']}")
     if "warps_q" in case:
         lib_txt += f" warps_q {case['warps_q']}"
+    if "plan" in case:
+        plan = case["plan"]
+        lib_txt += (f" plan rows {plan['rows']} seg {plan['seg']} segments "
+                    f"{plan['segments']} blocks {plan['blocks']} workspace "
+                    f"{plan['workspace_bytes']} B")
     if routes:
         lib_txt += (f" (bound by route: CUDA cores {routes['cuda_cores_ms']:.4f}"
                     f", 3xTF32 {routes['tf32x3_ms']:.4f})")
@@ -1824,11 +1857,14 @@ def main(argv=None) -> int:
     flash_lib = pre_mod.DENSE_KERNELS[torch.float32]
     gather_lib = moe_gather.KERNELS[torch.bfloat16]
     quant_lib = pre_mod.KERNELS[torch.int8]
+    # (and, since their redesign, the chunk-parallel recurrences)
+    ssm_libs = (rwkv6.KERNELS[torch.float32], mamba2.KERNELS[torch.float32])
     no_spill = sm90_names | {mm_mod.KERNELS[torch.float32].source.name,
                              dec_mod.DENSE_KERNELS[torch.float32].source.name,
                              *(k.source.name for k in paged_libs),
                              flash_lib.source.name, gather_lib.source.name,
-                             quant_lib.source.name}
+                             quant_lib.source.name,
+                             *(k.source.name for k in ssm_libs)}
     f32_names = {mm_mod.KERNELS[torch.float32].source.name,
                  flash_lib.source.name}
     for name, log in sources.items():
@@ -1866,6 +1902,14 @@ def main(argv=None) -> int:
     print(f"[build] {flash_lib.source.name} SASS: {sass}")
     require(sass["HMMA.1688.F32.TF32"] > 0 and sass["LDGSTS"] > 0,
             f"{flash_lib.source.name}: no TF32 HMMA or no cp.async copies")
+    # the recurrences' TF32 tensor-core products (mma.sync, both instances)
+    for k in ssm_libs:
+        sass = sass_counts(k.library_path(),
+                           ("HMMA.1688.F32.TF32", "HMMA", "MUFU.EX2",
+                            "SHFL.UP"))
+        print(f"[build] {k.source.name} SASS: {sass}")
+        require(sass["HMMA.1688.F32.TF32"] > 0,
+                f"{k.source.name}: no TF32 HMMA in its SASS")
     sass = sass_counts(gather_lib.library_path(),
                        ("LDG.E.128", "STG.E.128"))
     print(f"[build] {gather_lib.source.name} SASS: {sass}")

@@ -23,14 +23,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import (Dict, Iterable, Mapping, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Callable, Dict, Iterable, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import torch
 
 __all__ = ["CudaKernel", "build_all", "check_operand", "check_aligned",
            "kernel_per_dtype", "dense_kernels", "check_dense", "check_heads",
-           "scale_pointers", "kernel_chunk", "state_slice", "resolve_impl",
+           "scale_pointers", "kernel_chunk", "recurrence_plan",
+           "RecurrencePlan", "resolve_impl",
            "BUILD_DIR", "NVCC_FLAGS", "POOL_DTYPES", "DENSE_DTYPES",
            "HEAD_DIMS", "IMPLS"]
 
@@ -259,15 +260,111 @@ def kernel_chunk(name: str, T: int, chunk: int) -> int:
     return c
 
 
-def state_slice(cols: int, blocks: int, sms: int, least: int = 16) -> int:
-    """State columns per block of a recurrence kernel: ``cols`` over the
-    most slices (powers of two, each at least ``least`` columns wide) that
-    keep ``blocks * slices`` within one wave of ``sms`` SMs."""
-    n = 1
-    while blocks * 2 * n <= sms and cols % (2 * n) == 0 \
-            and cols // (2 * n) >= least:
-        n *= 2
-    return cols // n
+#: the recurrence kernels (csrc/ssm_chunks.cuh): rows of a sub-chunk
+#: (the mma's M), the most rows of a piece, threads of the state scan
+SUB_ROWS, MAX_PIECE_ROWS, SCAN_THREADS = 16, 128, 256
+#: an H100's shared memory: what a block may opt in to, and an SM's (each
+#: resident block reserves 1 KiB of it)
+SMEM_OPTIN, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+#: an H100's L2, and the share of it a recurrence's workspace keeps to
+L2_BYTES = 50 * 2**20
+WORKSPACE_BUDGET = 3 * L2_BYTES // 4
+#: waves of (C) blocks, two an SM, a recurrence plan keeps where it can
+#: (``tools/ssm_sweep.py``: fewer blocks of longer segments were faster
+#: down to about 1.5 waves at rwkv6-7b's and zamba2-1.2b's widths)
+PLAN_WAVES = 1.5
+
+
+class RecurrencePlan(NamedTuple):
+    """How a recurrence kernel (wkv6, ssd) cuts its sequence: pieces of
+    ``rows`` rows (the chunk or a divisor of it) in sub-chunks of ``sub``,
+    segments of ``seg`` pieces; the blocks of its three kernels, (A) the
+    segments' states (and ssd's C B^T blocks), (B) the state scan, (C)
+    the outputs; its workspace; the shared memory of its largest block."""
+    sub: int
+    rows: int
+    seg: int
+    segments: int
+    blocks: Tuple[int, int, int]
+    workspace_bytes: int
+    smem_bytes: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // SUB_ROWS) * SUB_ROWS
+
+
+def recurrence_plan(name: str, T: int, c: int, bh: int, sms: int,
+                    smem_of: Callable[[int, bool, bool], int],
+                    state: Tuple[int, int, int],
+                    extra: Callable[[int], Tuple[int, int]],
+                    *, smem_limit: int = SMEM_OPTIN,
+                    rows: Optional[int] = None,
+                    seg: Optional[int] = None) -> RecurrencePlan:
+    """The plan of a recurrence kernel over T rows in chunks of ``c``
+    (``kernel_chunk``) for ``bh`` (batch row, head) pairs on ``sms`` SMs.
+    ``smem_of(cp, outputs, update)`` is a block's shared memory at cp
+    padded rows (the source's ``Layout``): of (C) with ``outputs``, of
+    (A) without; ``update``: the block carries the state past a piece.
+    ``state``: a segment's state per pair, (rows, columns, log decays);
+    ``extra(rows)``: workspace floats and (A) blocks that do not depend
+    on the segments (ssd's C B^T).  Pieces: c, c/2, c/4, ... (at most
+    :data:`MAX_PIECE_ROWS`) whose (C) block leaves room for two on an SM
+    (else one that fits ``smem_limit``): the longest whose (C) blocks
+    number :data:`PLAN_WAVES` times two an SM, else the shortest of 32
+    rows or more (a short sequence: shorter pieces, more blocks).
+    Segments: the most pieces a segment that still give that many (C)
+    blocks, within :data:`WORKSPACE_BUDGET`, else the fewest that fit it.
+    ``rows`` / ``seg`` force either; ValueError where nothing fits."""
+    half = SMEM_SM // 2 - SMEM_RESERVED
+    enough = PLAN_WAVES * 2 * sms
+    if rows is None:
+        cands = [c >> m for m in range(c.bit_length())
+                 if c % (1 << m) == 0 and (c >> m) <= MAX_PIECE_ROWS
+                 and ((c >> m) >= SUB_ROWS or m == 0)]
+        fits = [r for r in cands
+                if smem_of(_round16(r), True, False) <= smem_limit]
+        two = [r for r in fits if smem_of(_round16(r), True, False) <= half]
+        if not fits:
+            raise ValueError(f"{name} kernel: no piece of the chunk {c} "
+                             f"fits {smem_limit} bytes of shared memory")
+        fits = two or fits
+        full = [r for r in fits if bh * (T // r) >= enough]
+        rows = (full[0] if full
+                else min((r for r in fits if r >= 32), default=fits[-1]))
+    if rows <= 0 or rows > MAX_PIECE_ROWS or c % rows:
+        raise ValueError(f"{name} kernel: {rows} rows a piece do not "
+                         f"divide the chunk {c}")
+    pieces = T // rows
+    extra_floats, extra_blocks = extra(rows)
+    state_floats = state[0] * state[1] + state[2]
+
+    def workspace(s: int) -> int:
+        return 4 * (extra_floats + bh * (pieces // s - 1) * state_floats)
+
+    if seg is None:
+        splits = [1 << m for m in range(pieces.bit_length())
+                  if pieces % (1 << m) == 0]
+        within = [s for s in splits if workspace(s) <= WORKSPACE_BUDGET]
+        seg = max((s for s in within if bh * (pieces // s) >= enough),
+                  default=within[0] if within else pieces)
+    if seg <= 0 or pieces % seg:
+        raise ValueError(f"{name} kernel: {seg} pieces a segment do not "
+                         f"divide the {pieces} pieces")
+    segments = pieces // seg
+    cp = _round16(rows)
+    smem = smem_of(cp, True, seg > 1)
+    if segments > 1:
+        smem = max(smem, smem_of(cp, False, True))
+    if smem > smem_limit:
+        raise ValueError(f"{name} kernel: a piece of {rows} rows needs "
+                         f"{smem} bytes of shared memory")
+    scan = -(-bh * state[0] * state[1] // 4 // SCAN_THREADS)
+    return RecurrencePlan(
+        sub=SUB_ROWS, rows=rows, seg=seg, segments=segments,
+        blocks=(extra_blocks + bh * (segments - 1),
+                scan if segments > 1 else 0, bh * segments),
+        workspace_bytes=workspace(seg), smem_bytes=smem)
 
 
 def scale_pointers(k_scales, v_scales, device) -> tuple:

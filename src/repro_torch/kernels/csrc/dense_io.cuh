@@ -1,6 +1,6 @@
 // Element I/O of the dense kernels (amu_matmul.cu, flash_attention.cu,
-// decode_attention.cu, wkv6.cu, ssd.cu), whose operands are all f32 or
-// all bf16 (the recurrences' decay and per-head operands are f32).
+// decode_attention.cu), whose operands are all f32 or all bf16; wkv6.cu
+// and ssd.cu take only repro_cuda_error_string from it.
 //
 // load8 reads 8 consecutive elements at p and widens them to f32 (two
 // 16-byte loads for f32, one for bf16); store8 narrows 8 f32 values to

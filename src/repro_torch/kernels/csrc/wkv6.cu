@@ -1,195 +1,460 @@
-// Chunked RWKV-6 ("Finch") WKV for Hopper (sm_90a).
+// Chunk-parallel RWKV-6 ("Finch") WKV for Hopper (sm_90a), its products
+// on the tensor cores.
 //
 // Replaces the TPU kernel `_wkv6_kernel` / `wkv6` of
 // src/repro/kernels/rwkv6.py (its pallas_call at line 93).  Same
 // function: per batch row b and head h, with log decay w <= 0 and bonus u,
 //   o_t = S_{t-1}^T r_t + (r_t . (u * k_t)) v_t,
-//   S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,   S_0 = 0 (K x V, f32),
-// computed chunk by chunk as the TPU kernel does.  With W the inclusive
-// cumulative sum of w inside a chunk and W_{t-1} = W_t - w_t:
-//   inter-chunk  o_t += (r_t * e^{W_{t-1}}) . S_in
-//   intra-chunk  att[t][s] = sum_k r_tk k_sk e^{min(W_{t-1,k} - W_{s,k}, 0)}
-//                for s < t, and att[t][t] = r_t . (u * k_t) (the bonus);
-//                o_t += sum_s att[t][s] v_s
-//   state        S_out = e^{W_last} S_in + (k * e^{W_last - W})^T v.
-// Every exponent is <= 0: the factorized e^{-W} form, which overflows, is
-// never formed.  Entry points wkv6_f32 and wkv6_bf16: r, k, v and out of
-// that type; w and u f32 (the decay path stays f32, as in the model).
+//   S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,   S_0 = 0 (K x V, f32).
+// Entry points wkv6_f32 and wkv6_bf16: r, k, v and out of that type; w
+// and u f32 (the decay path stays f32, as in the model).
 //
 // Layout: the model layout, read in place: r, k, w (B, T, H, K), v and
 // out (B, T, H, V), u (H, K).
 //
-// Design: one block of 1024 threads per (batch row, head, slice of vb of
-// the V state columns); the columns of S evolve independently, so a
-// block carries a K x vb slice of the state in shared memory across the
-// chunks of its sequence, in a loop (blocks run in no order; the TPU's
-// sequential chunk grid axis becomes this loop).  Per chunk it stages r,
-// k, w (c x K) and its v columns (c x vb) as f32, scans W and W_{t-1} per
-// key column, then computes att entry by entry, summing over K on the fly:
-// the TPU kernel's (c, c, K) pair tensor is 1 MiB of f32 at c = K = 64,
-// over the 227 KiB a block may hold, while att is c x c.  Then r and k
-// are scaled in place by their decays, and out and the new state are
-// products over the staged tiles.  Rows of the K-wide tiles are K + 1
-// floats apart, so a warp reading one key column of 32 rows hits 32
-// banks.  The wrapper picks vb: the most V slices (powers of two, vb >=
-// 16) that keep B * H * slices blocks within one wave of the card's SMs
-// (at rwkv6-7b's width, B = 1 and H = 64: two slices of 32, 128 blocks
-// on 132 SMs, where one slice would leave 68 SMs idle).  Each slice
-// recomputes att, which is the price of the second wave of SMs.  With
-// one block per SM, 1024 threads (32 warps) hide the latency of the
-// shared-memory reads and exponentials that 256 left exposed.
+// Design: the sequence is cut into pieces of `rows` rows (the chunk or a
+// divisor of it) and the pieces into segments of `seg`, as the plan
+// rwkv6.wkv6_plan sets (build.recurrence_plan).  Inside a piece, with W
+// the inclusive cumulative sum of w down each key column and W_{t-1} the
+// exclusive one (0 at the piece's first row; the kernel keeps both in
+// base 2, W log2(e), and takes 2^x in one MUFU op):
+//   inter-piece  o_t += (r_t * e^{W_{t-1}}) . S_in
+//   intra-piece  att[t][s] = sum_k r_tk k_sk e^{W_{t-1,k} - W_{s,k}}, s < t,
+//                att[t][t] = r_t . (u * k_t) (the bonus); o_t += att[t] . v
+//   state        S_out = e^{W_last} S_in + (k * e^{W_last - W})^T v.
+// One call enqueues three kernels on the stream:
+//   (A) one block per (segment but the last, head, batch row): the state
+//       its segment builds from zero, and its log decay (the sum of its
+//       pieces' W_last), into a workspace;
+//   (B) repro_ssm::state_scan: S_{g+1} = e^{d_g} S_g + U_g in place, a
+//       thread per 4 state elements, the segments in a loop;
+//   (C) one block per (segment, head, batch row): its outputs, from the
+//       state entering it (zero for the first), carried through its
+//       pieces.
+// With one segment (A) and (B) are skipped.  At rwkv6-7b's width (B 1,
+// T 2048, H 64, chunk 64) the plan takes pieces of 64 rows, segments of
+// 4: 512 blocks of (C) and 448 of (A), where the kernel before them ran
+// 128 blocks that each walked 32 chunks in turn.
 //
-// Bound on the card: bytes at these shapes (each input read once, out
-// written once: ~100 MB at rwkv6-7b's T = 2048 with bf16 r, k, v and f32
-// w, against ~3.2 GFLOP).
-// This simple version is bound by its own arithmetic instead: the c^2/2
-// * K exponentials of att per chunk and slice, and shared-memory reads
-// of f32 FMAs on the CUDA cores.  Tensor-core (mma) tiles for the
-// products, att computed once per chunk for all slices, and sub-chunks
-// that share one exponential reference (fla's chunk_rwkv6) are the known
-// next steps.
+// Inside a piece (8 warps; sub-chunks of 16 rows, a warp's mma rows; the
+// widths K = V in {32, 64, 128} are template constants):
+//   * the tiles by cp.async (f32) or 8-byte loads widened in registers
+//     (bf16), every tile's loads in flight together; W by a thread per
+//     key column;
+//   * att off the diagonal blocks on the tensor cores, one exponential
+//     reference per row sub-chunk i (fla's chunk_rwkv6): with ref =
+//     W_{16i-1}, att[t][s] = (r_t e^{W_{t-1} - ref}) . (k_s e^{ref - W_s})
+//     for t in sub-chunk i and s < 16 i; both exponents are <= 0 (W falls
+//     down a column), so neither factor overflows where the e^{-W} form
+//     does;
+//   * inside a diagonal block the same split again: its 8-row halves and
+//     4-row quarters on the tensor cores about the W of the row before,
+//     the pairs inside a quarter on the CUDA cores, an exponential per
+//     (t, s, k) (e^{min(W_{t-1} - W_s, 0)}), and the bonus;
+//   * out = (r e^{W_{t-1}}) . S + att . v and U = (k e^{W_last - W})^T v
+//     on the tensor cores (repro_ssm::warp_mma); every exponent <= 0.
+// Products are 3xTF32; v is exact in TF32 in the bf16 instance, so its
+// products there are two (ssm_chunks.cuh).
+//
+// Bound on the card: bytes (r, k, v, w read once, out written once:
+// ~100 MB at rwkv6-7b's T = 2048; the chunked form's ~3.2 GFLOP take a
+// tenth of that time at the bf16 tensor rate).  The
+// limiter: (C), where the pairs inside the quarters on the CUDA cores,
+// the staging of each piece's tiles and the product with S_in take the
+// most time, each block serial in its phases at two blocks an SM; and
+// the inputs (A) reads again, with the workspace's round trip.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "dense_io.cuh"
+#include "ssm_chunks.cuh"
 
 namespace {
 
-using repro_dense::store1;
-using repro_dense::to_f32;
-
-constexpr int kThreads = 1024;
+using namespace repro_ssm;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) wkv6_kernel(
-    const T* __restrict__ r, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, T* __restrict__ out, int T_len, int H,
-    int K, int V, int c, int vb) {
-  extern __shared__ float smem[];
-  const int KP = K + 1;             // row stride of the K-wide tiles
-  float* r_s = smem;                // [c][KP] r, then r * e^{W_{t-1}}
-  float* k_s = r_s + c * KP;        // [c][KP] k, then k * e^{W_last - W}
-  float* wc_s = k_s + c * KP;       // [c][KP] W (inclusive cumsum of w)
-  float* wp_s = wc_s + c * KP;      // [c][KP] w, then W_{t-1} = W - w
-  float* v_s = wp_s + c * KP;       // [c][vb] the block's v columns
-  float* S_s = v_s + c * vb;        // [K][vb] the block's state slice
-  float* att_s = S_s + K * vb;      // [c][c]
-  float* u_s = att_s + c * c;       // [K]
+struct Args {
+  const T* r;
+  const T* k;
+  const T* v;
+  const float* w;
+  const float* u;
+  T* out;
+  float* states;    // (B, H, segments - 1, K, V)
+  float* decays;    // (B, H, segments - 1, K)
+  int T_len, H, rows, seg, nseg;
+};
 
-  const int j0 = blockIdx.x * vb, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const long row_k = static_cast<long>(H) * K;   // t stride of r, k, w
-  const long row_v = static_cast<long>(H) * V;   // t stride of v, out
-  for (int i = tid; i < K * vb; i += kThreads) S_s[i] = 0.f;
-  for (int i = tid; i < K; i += kThreads) u_s[i] = u[h * K + i];
+// Shared memory of a block, in floats: k, W (cp + 1 rows: row 0 zero, row
+// t + 1 W_t) and r at K + 4 floats a row, v and the state at V + 8, att
+// at cp + 4; (A) has no r, att or u.  rwkv6.wkv6_smem mirrors it.
+struct Layout {
+  int sk, sv, sa, k, wx, v, s, r, att, u, total;
+  __host__ __device__ Layout(int K, int V, int cp, bool outputs) {
+    sk = stride_a(K);
+    sv = stride_b(V);
+    sa = stride_a(cp);
+    k = 0;
+    wx = k + cp * sk;
+    v = wx + (cp + 1) * sk;
+    s = v + cp * sv;
+    r = s + K * sv;
+    att = r + (outputs ? cp * sk : 0);
+    u = att + (outputs ? cp * sa : 0);
+    total = u + (outputs ? K : 0);
+  }
+};
 
-  for (int t0 = 0; t0 < T_len; t0 += c) {
-    __syncthreads();   // the previous chunk is done with every tile
-    const long base_k = (static_cast<long>(b) * T_len + t0) * row_k
-                        + static_cast<long>(h) * K;
-    const long base_v = (static_cast<long>(b) * T_len + t0) * row_v
-                        + static_cast<long>(h) * V + j0;
-    for (int i = tid; i < c * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      const long g = base_k + t * row_k + kk;
-      r_s[t * KP + kk] = to_f32(r[g]);
-      k_s[t * KP + kk] = to_f32(k[g]);
-      wp_s[t * KP + kk] = w[g];
+// The diagonal blocks' pairs left to the CUDA cores: those inside each
+// 4-row quarter of a sub-chunk, t >= s, 10 a quarter.
+constexpr int kQuarter = 4, kQuarterPairs = kQuarter * (kQuarter + 1) / 2;
+constexpr int kDiagPairs = (kSub / kQuarter) * kQuarterPairs;
+static_assert((kDiagPairs + 31) / 32 == 2, "diag_batch is called twice");
+
+// The rows of one diagonal block (sub-chunk) in shared memory: r, k and
+// W_{t-1} (row t of wx; W_s is row s + 1), u, the lane.
+struct DiagRows {
+  const float* r;
+  const float* k;
+  const float* wx;
+  const float* u;
+  int lane;
+};
+
+// Pairs q in [32 kB, 32 kB + 32) of a diagonal block, pair q = 10 qq + tl
+// (tl + 1) / 2 + sl the entry (t, s) = (4 qq + tl, 4 qq + sl), sl <= tl:
+// the lanes split the key columns and sum their pairs (the pairwise decay
+// below the diagonal, the bonus on it), and a butterfly reduce-scatter
+// leaves pair 32 kB + lane in the lane.  kB, the rows and the slots are
+// known at compile time, so the sums stay in registers and the rows'
+// loads are shared.
+template <int kB, int K>
+__device__ __forceinline__ float diag_batch(const DiagRows& x) {
+  constexpr int sk = stride_a(K), lo = 32 * kB, hi = 32 * (kB + 1);
+  float part[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) part[e] = 0.f;
+#pragma unroll 1   // one column pass at a time: no spills at K = 128
+  for (int d0 = 0; d0 < K; d0 += 32) {
+    const int d = d0 + x.lane;
+#pragma unroll
+    for (int qq = 0; qq < kSub / kQuarter; ++qq)
+#pragma unroll
+      for (int tl = 0; tl < kQuarter; ++tl) {
+        const int q0 = kQuarterPairs * qq + tl * (tl + 1) / 2;
+        if (q0 + tl < lo || q0 >= hi) continue;
+        const int t = kQuarter * qq + tl;
+        const float rd = x.r[t * sk + d];
+        const float wt = x.wx[t * sk + d];
+#pragma unroll
+        for (int sl = 0; sl < kQuarter; ++sl) {   // constant trip count
+          const int q = q0 + sl, s = kQuarter * qq + sl;
+          if (sl > tl || q < lo || q >= hi) continue;
+          const float kd = x.k[s * sk + d];
+          part[q - lo] += sl < tl
+              ? rd * kd * ex2(fminf(wt - x.wx[(s + 1) * sk + d], 0.f))
+              : rd * (x.u[d] * kd);
+        }
+      }
+  }
+  reduce_scatter(part, x.lane);
+  return part[0];
+}
+
+// Two blocks an SM (128 registers a thread), but at K = 128 one: its
+// (C) instance needs a few more registers than 128.
+template <typename T, bool kOut, int K, int V>
+__global__ void __launch_bounds__(kThreads, K > 64 ? 1 : 2)
+    wkv6_pieces(Args<T> a) {
+  constexpr bool kSplitV = !std::is_same<T, __nv_bfloat16>::value;
+  constexpr int sk = stride_a(K), sv = stride_b(V);
+  extern __shared__ __align__(16) float sm[];
+  const int cp = round16(a.rows);
+  const Layout L(K, V, cp, kOut);
+  const int sa = L.sa;
+  float* const ks = sm + L.k;
+  float* const wx = sm + L.wx;
+  float* const vs = sm + L.v;
+  float* const S = sm + L.s;
+  float* const rs = sm + L.r;
+  float* const att = sm + L.att;
+  float* const us = sm + L.u;
+  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lg = lane / 4, lt = lane % 4;
+  const long ldk = static_cast<long>(a.H) * K;
+  const long ldv = static_cast<long>(a.H) * V;
+  const long slot = (static_cast<long>(b) * a.H + h) * (a.nseg - 1);
+  const int nsub = cp / kSub;
+
+  if (kOut && g > 0)
+    load_block<V>(S, sv, a.states + (slot + g - 1) * K * V, K);
+  else
+    zero_block<V>(S, sv, K);
+  if (kOut)
+    for (int c = threadIdx.x; c < K; c += kThreads) us[c] = a.u[h * K + c];
+  float wsum = 0.f;   // (A): the segment's log decay, thread c's column
+
+  for (int p = 0; p < a.seg; ++p) {
+    const long t0 = static_cast<long>(g * a.seg + p) * a.rows;
+    const long rk = (static_cast<long>(b) * a.T_len + t0) * ldk
+                    + static_cast<long>(h) * K;
+    const long rv = (static_cast<long>(b) * a.T_len + t0) * ldv
+                    + static_cast<long>(h) * V;
+    __syncthreads();   // the previous piece is done with every tile
+    // w by cp.async, then k, v and r, all in flight at once (a width of
+    // 128 holds twice the registers: there each is copied in turn)
+    Stager<K, float>().load(wx + sk, sk, a.w + rk, ldk, cp, a.rows);
+    if (K > 64) {
+      Stager<K, T>().copy(ks, sk, a.k + rk, ldk, cp, a.rows);
+      Stager<V, T>().copy(vs, sv, a.v + rv, ldv, cp, a.rows);
+      if (kOut) Stager<K, T>().copy(rs, sk, a.r + rk, ldk, cp, a.rows);
+    } else {
+      Stager<K, T> tk, tr;
+      Stager<V, T> tv;
+      tk.load(ks, sk, a.k + rk, ldk, cp, a.rows);
+      tv.load(vs, sv, a.v + rv, ldv, cp, a.rows);
+      if (kOut) tr.load(rs, sk, a.r + rk, ldk, cp, a.rows);
+      tk.store();
+      tv.store();
+      if (kOut) tr.store();
     }
-    for (int i = tid; i < c * vb; i += kThreads) {
-      const int t = i / vb, j = i % vb;
-      v_s[i] = to_f32(v[base_v + t * row_v + j]);
-    }
-    __syncthreads();
-    // W = cumsum(w) down each key column; W_{t-1} = W - w, as the TPU
-    // kernel forms it
-    for (int kk = tid; kk < K; kk += kThreads) {
+    staged();
+    // W down each key column, in base 2 (rows past the piece hold w = 0)
+    for (int c = threadIdx.x; c < K; c += kThreads) {
       float acc = 0.f;
-      for (int t = 0; t < c; ++t) {
-        const float wt = wp_s[t * KP + kk];
-        acc += wt;
-        wc_s[t * KP + kk] = acc;
-        wp_s[t * KP + kk] = acc - wt;
+      wx[c] = 0.f;
+      for (int r0 = 0; r0 < cp; r0 += kSub) {
+        float x[kSub];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) x[j] = wx[(r0 + j + 1) * sk + c];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          acc += x[j] * kLog2e;
+          wx[(r0 + j + 1) * sk + c] = acc;
+        }
       }
     }
     __syncthreads();
-    // att[t][s]: the pairwise decays below the diagonal, the bonus on it
-    for (int i = tid; i < c * c; i += kThreads) {
-      const int t = i / c, s = i % c;
-      const float* rt = r_s + t * KP;
-      float a = 0.f;
-      if (s < t) {
-        const float* wpt = wp_s + t * KP;
-        const float* ks = k_s + s * KP;
-        const float* wcs = wc_s + s * KP;
-        for (int kk = 0; kk < K; ++kk)
-          a += rt[kk] * expf(fminf(wpt[kk] - wcs[kk], 0.f)) * ks[kk];
-      } else if (s == t) {
-        const float* kt = k_s + t * KP;
-        for (int kk = 0; kk < K; ++kk) a += rt[kk] * (u_s[kk] * kt[kk]);
+    const float* const wl = wx + cp * sk;   // W_last (w = 0 past the piece)
+
+    if (kOut) {
+      const bool state_in = g > 0 || p > 0;
+      // att off the diagonal: sub-chunk i's rows against columns s < 16 i,
+      // scaled about ref = W_{16i-1}, a warp a (sub-chunk, 8 kGroup
+      // columns) unit, the heaviest sub-chunks first
+      for (int i = nsub - 1, unit = 0; i >= 1; --i) {
+        const int tb = kSub * i;
+        const float* const ref = wx + tb * sk;
+        for (int n0 = 0; n0 < tb; n0 += 8 * kGroup, ++unit) {
+          if (unit % kWarps != warp) continue;
+          float acc[kGroup][4];
+          zero(acc);
+          warp_mma<true, true>(
+              acc, min(kGroup, (tb - n0) / 8), K,
+              [&](int row, int d) {
+                const int t = tb + row;
+                return rs[t * sk + d] * ex2(wx[t * sk + d] - ref[d]);
+              },
+              [&](int d, int col) {
+                const int s = n0 + col;
+                return ks[s * sk + d] * ex2(ref[d] - wx[(s + 1) * sk + d]);
+              });
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j)
+            if (n0 + 8 * j < tb)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                float* dst = att + (tb + lg + 8 * hh) * sa + n0 + 8 * j
+                             + 2 * lt;
+                dst[0] = acc[j][2 * hh];
+                dst[1] = acc[j][2 * hh + 1];
+              }
+        }
       }
-      att_s[i] = a;
+      // the diagonal blocks, a warp a block from the last warp down (the
+      // first warps take the blocks off the diagonal), zero above it.  The
+      // pairs across its 8-row halves (rows 8-15 x columns 0-7) and across
+      // the 4-row quarters of each half (4-7 x 0-3, 12-15 x 8-11) on the
+      // tensor cores, each about the W of the last row before its rows,
+      // the other rows and columns masked to zero; the pairs inside a
+      // quarter (diag_batch) on the CUDA cores
+      for (int i = kWarps - 1 - warp; i < nsub; i += kWarps) {
+        const int tb = kSub * i;
+        for (int e = lane; e < kSub * kSub; e += 32)
+          if (e % kSub > e / kSub)
+            att[(tb + e / kSub) * sa + tb + e % kSub] = 0.f;
+#pragma unroll 1
+        for (int across = 0; across < 3; ++across) {
+          const int r_lo = across == 0 ? 8 : across == 1 ? 4 : 12;
+          const int r_hi = across == 0 ? 16 : r_lo + 4;
+          const int c0 = across == 2 ? 8 : 0, cols = across == 0 ? 8 : 4;
+          const float* const ref = wx + (tb + r_lo) * sk;   // W_{tb+r_lo-1}
+          float acc[kGroup][4];
+          zero(acc);
+          warp_mma<1, true, true>(
+              acc, K,
+              [&](int row, int d) {
+                const int t = tb + row;
+                return row >= r_lo && row < r_hi
+                           ? rs[t * sk + d]
+                                 * ex2(fminf(wx[t * sk + d] - ref[d], 0.f))
+                           : 0.f;
+              },
+              [&](int d, int col) {
+                const int s = tb + c0 + col;
+                return col < cols
+                           ? ks[s * sk + d]
+                                 * ex2(fminf(ref[d] - wx[(s + 1) * sk + d],
+                                             0.f))
+                           : 0.f;
+              });
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = lg + 8 * (e / 2), col = 2 * lt + e % 2;
+            if (row >= r_lo && row < r_hi && col < cols)
+              att[(tb + row) * sa + tb + c0 + col] = acc[0][e];
+          }
+        }
+        const DiagRows rows{rs + tb * sk, ks + tb * sk, wx + tb * sk, us,
+                            lane};
+        const float sum[2] = {diag_batch<0, K>(rows), diag_batch<1, K>(rows)};
+#pragma unroll
+        for (int bt = 0; bt < 2; ++bt) {
+          const int q = 32 * bt + lane;
+          if (q < kDiagPairs) {
+            const int qq = q / kQuarterPairs, p = q % kQuarterPairs;
+            const int tl = tri_row(p);
+            att[(tb + kQuarter * qq + tl) * sa + tb + kQuarter * qq + p
+                - tl * (tl + 1) / 2] = sum[bt];
+          }
+        }
+      }
+      __syncthreads();
+      // out = (r e^{W_{t-1}}) . S_in + att . v, a warp a row sub-chunk
+      // and 32 columns
+      constexpr int kCols = 8 * kGroup, kGroups = V / kCols;
+      for (int unit = warp; unit < nsub * kGroups; unit += kWarps) {
+        const int i = unit / kGroups, n0 = (unit % kGroups) * kCols;
+        const int tb = kSub * i;
+        float acc[kGroup][4];
+        zero(acc);
+        if (state_in)
+          warp_mma<kGroup, true, true>(
+              acc, K,
+              [&](int row, int d) {
+                const int t = tb + row;
+                return rs[t * sk + d] * ex2(wx[t * sk + d]);
+              },
+              [&](int d, int col) { return S[d * sv + n0 + col]; });
+        warp_mma<kGroup, true, kSplitV>(
+            acc, tb + kSub,
+            [&](int row, int s) { return att[(tb + row) * sa + s]; },
+            [&](int s, int col) { return vs[s * sv + n0 + col]; });
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = tb + lg + 8 * hh;
+          if (t < a.rows) {
+            T* dst = a.out + rv + t * ldv + n0 + 2 * lt;
+#pragma unroll
+            for (int j = 0; j < kGroup; ++j)
+              store2(dst + 8 * j, acc[j][2 * hh], acc[j][2 * hh + 1]);
+          }
+        }
+      }
     }
+    if (!kOut || p + 1 < a.seg) {
+      if (kOut) __syncthreads();   // every output has read S_in
+      // S = e^{W_last} S + (k e^{W_last - W})^T v, a warp 16 key rows and
+      // 32 columns
+      constexpr int kCols = 8 * kGroup, kGroups = V / kCols;
+      for (int unit = warp; unit < (K / kSub) * kGroups; unit += kWarps) {
+        const int m0 = kSub * (unit / kGroups);
+        const int n0 = (unit % kGroups) * kCols;
+        float acc[kGroup][4];
+        zero(acc);
+        warp_mma<kGroup, true, kSplitV>(
+            acc, cp,
+            [&](int row, int s) {
+              const int c = m0 + row;
+              return ks[s * sk + c] * ex2(wl[c] - wx[(s + 1) * sk + c]);
+            },
+            [&](int s, int col) { return vs[s * sv + n0 + col]; });
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = m0 + lg + 8 * hh;
+          const float decay = ex2(wl[c]);
+          float* row = S + c * sv + n0 + 2 * lt;
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            row[8 * j] = fmaf(decay, row[8 * j], acc[j][2 * hh]);
+            row[8 * j + 1] = fmaf(decay, row[8 * j + 1], acc[j][2 * hh + 1]);
+          }
+        }
+      }
+      if (!kOut)
+        for (int c = threadIdx.x; c < K; c += kThreads) wsum += wl[c];
+    }
+  }
+  if (!kOut) {
     __syncthreads();
-    // r <- r e^{W_{t-1}} (inter-chunk query), k <- k e^{W_last - W}
-    const float* wl = wc_s + (c - 1) * KP;
-    for (int i = tid; i < c * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      r_s[t * KP + kk] *= expf(wp_s[t * KP + kk]);
-      k_s[t * KP + kk] *= expf(wl[kk] - wc_s[t * KP + kk]);
-    }
-    __syncthreads();
-    // out = (r e^{W_{t-1}}) . S_in + att . v
-    for (int i = tid; i < c * vb; i += kThreads) {
-      const int t = i / vb, j = i % vb;
-      const float* rt = r_s + t * KP;
-      float o = 0.f;
-      for (int kk = 0; kk < K; ++kk) o += rt[kk] * S_s[kk * vb + j];
-      const float* at = att_s + t * c;
-      float a = 0.f;
-      for (int s = 0; s <= t; ++s) a += at[s] * v_s[s * vb + j];
-      store1(out + base_v + t * row_v + j, o + a);
-    }
-    __syncthreads();   // S_in is read by every output above
-    // S_out = e^{W_last} S_in + (k e^{W_last - W})^T v
-    for (int i = tid; i < K * vb; i += kThreads) {
-      const int kk = i / vb, j = i % vb;
-      float acc = 0.f;
-      for (int s = 0; s < c; ++s) acc += k_s[s * KP + kk] * v_s[s * vb + j];
-      S_s[i] = expf(wl[kk]) * S_s[i] + acc;
-    }
+    store_block<V>(a.states + (slot + g) * K * V, S, sv, K);
+    for (int c = threadIdx.x; c < K; c += kThreads)
+      a.decays[(slot + g) * K + c] = wsum;
   }
 }
 
-// Shared memory of one block, in bytes.
-inline size_t smem_bytes(int K, int c, int vb) {
-  return sizeof(float) * (4 * static_cast<size_t>(c) * (K + 1)
-                          + static_cast<size_t>(c) * vb
-                          + static_cast<size_t>(K) * vb
-                          + static_cast<size_t>(c) * c + K);
+template <typename T, bool kOut, int K, int V>
+int launch_phase(const Args<T>& a, int blocks_x, int batch,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Layout(K, V, round16(a.rows),
+                                             kOut).total;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wkv6_pieces<T, kOut, K, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wkv6_pieces<T, kOut, K, V><<<dim3(blocks_x, a.H, batch), kThreads, smem,
+                               stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int K, int V>
+int launch_widths(const Args<T>& a, int batch, cudaStream_t s) {
+  if (a.nseg > 1) {
+    int err = launch_phase<T, false, K, V>(a, a.nseg - 1, batch, s);
+    if (err) return err;
+    err = launch_scan(a.states, a.decays, batch * a.H, a.nseg - 1, K, V, K,
+                      s);
+    if (err) return err;
+  }
+  return launch_phase<T, true, K, V>(a, a.nseg, batch, s);
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, void* out, int batch, int T_len, int H, int K,
-           int V, int c, int vb, void* stream) {
-  if (batch <= 0 || T_len <= 0 || H <= 0 || K <= 0 || c <= 0 || vb <= 0
-      || T_len % c || V % vb)
+           const void* u, void* out, void* ws, int batch, int T_len, int H,
+           int K, int V, int rows, int seg, void* stream) {
+  if (batch <= 0 || T_len <= 0 || H <= 0 || rows <= 0 || rows > kMaxRows
+      || seg <= 0 || T_len % (rows * seg))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K, c, vb);
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(V / vb, H, batch);
-  wkv6_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(w),
-      static_cast<const float*>(u), static_cast<T*>(out), T_len, H, K, V, c,
-      vb);
-  return cudaGetLastError();
+  const int nseg = T_len / (rows * seg);
+  if (nseg > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  Args<T> a{static_cast<const T*>(r), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const float*>(w),
+            static_cast<const float*>(u), static_cast<T*>(out),
+            static_cast<float*>(ws), nullptr, T_len, H, rows, seg, nseg};
+  a.decays = a.states + static_cast<long>(batch) * H * (nseg - 1) * K * V;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the instance of the width: K = V, 32, 64 or 128
+  switch (K == V ? K : 0) {
+    case 32: return launch_widths<T, 32, 32>(a, batch, s);
+    case 64: return launch_widths<T, 64, 64>(a, batch, s);
+    case 128: return launch_widths<T, 128, 128>(a, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -197,10 +462,10 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 #define REPRO_WKV6_ENTRY(SUFFIX, ELEM)                                        \
   extern "C" int wkv6_##SUFFIX(const void* r, const void* k, const void* v,  \
                                const void* w, const void* u, void* out,      \
-                               int batch, int T, int H, int K, int V, int c, \
-                               int vb, void* stream) {                       \
-    return launch<ELEM>(r, k, v, w, u, out, batch, T, H, K, V, c, vb,        \
-                        stream);                                             \
+                               void* ws, int batch, int T, int H, int K,     \
+                               int V, int rows, int seg, void* stream) {     \
+    return launch<ELEM>(r, k, v, w, u, out, ws, batch, T, H, K, V, rows,     \
+                        seg, stream);                                        \
   }
 
 REPRO_WKV6_ENTRY(f32, float)

@@ -70,8 +70,8 @@ __all__ = ["NEG_INF", "one_token_attention", "multi_token_attention",
            "paged_verify_attention_torch", "paged_verify_attention_cuda",
            "decode_attention_torch", "decode_attention_cuda",
            "decode_splits", "split_ranges", "paged_split_positions",
-           "paged_split_ranges", "paged_split_plan", "sm_count", "KERNEL",
-           "VERIFY_KERNEL",
+           "paged_split_ranges", "paged_split_plan", "sm_count", "smem_optin",
+           "KERNEL", "VERIFY_KERNEL",
            "KERNELS", "VERIFY_KERNELS", "DENSE_KERNELS"]
 
 NEG_INF = -1e30
@@ -200,9 +200,24 @@ def _sm_count(index: int) -> int:
 
 def sm_count(dev) -> int:
     """The SM count of ``dev`` (a CUDA device), cached per device."""
+    return _sm_count(_index(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return props.shared_memory_per_block_optin
+
+
+def smem_optin(dev) -> int:
+    """The shared memory a block of ``dev`` may opt in to, in bytes,
+    cached per device."""
+    return _smem_optin(_index(dev))
+
+
+def _index(dev) -> int:
     dev = torch.device(dev)
-    return _sm_count(torch.cuda.current_device() if dev.index is None
-                     else dev.index)
+    return torch.cuda.current_device() if dev.index is None else dev.index
 
 
 def _launch(kernels, name, q, k_pages, v_pages, page_table, lengths,

@@ -2,12 +2,12 @@
 2d, and its paged decode and verify cases (phase 2 in bf16, int8 and
 fp8, phase 2d's G5 / G12 / D80), or its f32 dense flash cases, or the
 gather cases of phase 2g, or the int8 / fp8 paged prefill cases (phase
-2's and phase 2d's D80) with phase 2g's block gathers, with the
-``repro_torch`` package of a given tree, to compare two trees on one
-card.
+2's and phase 2d's D80) with phase 2g's block gathers, or the wkv6 and
+ssd cases of phase 2d, with the ``repro_torch`` package of a given tree,
+to compare two trees on one card.
 
     python tools/dense_ab.py --src PATH/TO/TREE/src --tag parent \
-        [--only paged|flash_f32|gather|quant_prefill]
+        [--only paged|flash_f32|gather|quant_prefill|ssm]
 
 Imports ``repro_torch`` from ``--src`` before ``chip_smoke`` (whose own
 imports then find it loaded), draws each case's inputs as phase 2d does
@@ -172,6 +172,41 @@ def quant_prefill_cases(cs, dev, tag: str, smi: str) -> None:
     gather_cases(cs, dev, tag, smi, kinds=("blocks",))
 
 
+def ssm_cases(cs, dev, tag: str, smi: str) -> None:
+    """Phase 2d's wkv6 and ssd cases through ``ops`` (which both trees
+    have): each held at phase 2d's bars (f32 against the plain version
+    and the sequential oracle, bf16 per element and per row), timed cold
+    and one call (no library call computes either), a JSON line each with
+    the tree's plan (none where its wrappers have no plan) and the sha256
+    of the output."""
+    import hashlib
+
+    for i, (kind, dt, label, shape) in enumerate(cs.DENSE_CASES):
+        if kind not in ("wkv6", "ssd"):
+            continue
+        call, _, nbytes, flops, extra = cs.dense_inputs(i, dev)
+        out, ref = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            acc = {"rel_err": cs._rel(out, ref)[1]}
+            cs.require(acc["rel_err"] < cs.SSM_TOL, f"{label}: {acc}")
+            if extra["seq"]:
+                acc["seq_rel_err"] = cs._rel(out, extra["seq"]())[1]
+                cs.require(acc["seq_rel_err"] < cs.SSM_SEQ_TOL,
+                           f"{label}: {acc}")
+        else:
+            acc = dict(zip(("max_abs_err", "row_err"),
+                           cs.agree(label, out, ref)))
+        b_ms, b_by = cs.bound(nbytes, flops, dt)
+        print(json.dumps({
+            "tag": tag, "card": smi, "case": f"{kind} {label}",
+            "dtype": str(dt), **acc, "bound_ms": b_ms, "bound_by": b_by,
+            **cs.launch_shape(kind, dt, shape, dev),
+            **cs.cold_times(*extra["cold"]),
+            "sha256": hashlib.sha256(out.cpu().float().numpy().tobytes())
+            .hexdigest()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
@@ -179,10 +214,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", required=True, help="names the tree")
     ap.add_argument("--only", default=None,
                     choices=("dense", "paged", "flash_f32", "gather",
-                             "quant_prefill"),
+                             "quant_prefill", "ssm"),
                     help="time only the dense (f32 matmul, dense decode), "
-                    "the paged, the f32 flash or the gather cases, or the "
-                    "int8 / fp8 prefill and block gather cases")
+                    "the paged, the f32 flash or the gather cases, the "
+                    "int8 / fp8 prefill and block gather cases, or the "
+                    "wkv6 and ssd cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dense_ab: no CUDA device", file=sys.stderr)
@@ -205,6 +241,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "quant_prefill":
         quant_prefill_cases(cs, dev, args.tag, smi)
+        return 0
+    if args.only == "ssm":
+        ssm_cases(cs, dev, args.tag, smi)
         return 0
     if args.only != "dense":
         paged_cases(cs, dev, args.tag, smi)
