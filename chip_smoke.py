@@ -161,6 +161,40 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 4q. serves the never-matching drafts on the int8 and the fp8 pool: the
    counters balance, the pool's verify instance launched, the pager
    preempted and resumed;
+3p. serves 12 requests that share one 1024-token system prompt (64 full
+   pages, 4 chunks) before a unique tail of 128-512 tokens, 32 new
+   tokens each: request 0 alone until its first token, then the other
+   11, with phase 3's settings and ``prefix_cache`` on (A) and off (B) on
+   448 frames, on again on ``PREFIX_FAR_PAGES`` frames, where the
+   cache's frames park and later requests hit them far (C), and int8
+   with the cache on and off.  Every run finishes every request with its
+   count, balances its counters and launches the decode and prefill
+   instances of its pool; A saves at least 11 x 1024 prefill tokens,
+   interns at least 64 pages, runs fewer chunks than B and gives B's
+   tokens (the prefix is whole chunks, so every position's K/V comes
+   from the same chunk boundaries); C hits far, its pager lands pages,
+   and it gives B's tokens; the int8 runs give each other's.  Then the
+   copy-on-write break on the card, bf16 and int8: a cache frame shared
+   into a second sequence and made private must be copied bitwise, bytes
+   and scales, and left as it was.  It prints each run's tok/s, mean
+   TTFT, chunks and launches, hits, far hits and tokens saved;
+3d. serves phase 3's requests through a PREFILL and a DECODE engine of
+   phase 3's settings (448 frames each) over one shared far tier
+   (``make_shared_tier``, both pagers from ``tier_pager_factory``), on
+   one copy of the weights, driven by ``run_disaggregated``: the tokens'
+   sha256 must equal phase 3's, each engine count 12 handoffs, the board
+   publish and consume 12, the tier hold nothing of them at the end,
+   both engines balance their counters, the DECODE engine run no chunk
+   and launch the paged decode kernel.  It prints the pages and bytes
+   that crossed the tier, each engine's steps and the end-to-end tok/s;
+3f. serves phase 3's requests on a FUSED engine with
+   ``offload_finished``, then ``fetch_finished`` of each: the tokens'
+   sha256 must equal phase 3's, each reassembled cache hold bf16 K/V of
+   (32, 1, 2048, 8, 128), zero past the sequence, layer 0's K over the
+   prompt within phase 2's bars of its recomputation (the embedded
+   prompt through the layer's norm, K projection and RoPE: a page
+   misordered, skipped or repeated breaks it), and the request's tier
+   entries be gone after the fetch;
 5. checks one prefill chunk, one decode step and one verify step at full
    width over 8 rows (the engine's batch): kernels against plain
    versions on the same cache, finite logits of the right shape within
@@ -216,6 +250,7 @@ time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import json
@@ -244,15 +279,19 @@ from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.layers import (dense, rms_norm, swiglu,  # noqa: E402
-                                       unembed)
+from repro_torch.models.layers import (dense, embed, rms_norm,  # noqa: E402
+                                       rope, swiglu, unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
                                       init_paged_cache, init_params,
                                       prefill_chunk, verify_step)
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E402
                                       PagingConfig, SchedulerConfig,
                                       SpeculationConfig)
+from repro_torch.paging import PREFIX_SEQ, PageState  # noqa: E402
+from repro_torch.serve.disagg import (make_shared_tier,  # noqa: E402
+                                      run_disaggregated, tier_pager_factory)
 from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.request import Request  # noqa: E402
 
 # the kernel modules by name: the package's attributes of these names are
 # the ops entry points, as in the JAX package
@@ -284,6 +323,13 @@ ENGINE = dict(max_batch=8, max_len=2048, page_size=16, device_pages=448,
 N_REQUESTS, PROMPT_RANGE, NEW_TOKENS = 12, (512, 1536), 32
 SPECULATE_K = 4
 SEED = 0
+#: phase 3p: one shared system prompt of 64 full pages (4 chunks of 256)
+#: and a unique tail per request
+PREFIX_TOKENS, PREFIX_TAIL = 1024, (128, 512)
+#: phase 3p's run C: a pool in which the prefix cache's frames park and
+#: later requests hit them far (CPU rehearsal at the smoke width with
+#: full-width page bytes, tests/test_torch_prefix.py)
+PREFIX_FAR_PAGES = 190
 #: pool element types: bf16 ("none") and the quantized pool's frames
 MODES = ("none", "int8", "fp8")
 QUANT_MODES = ("int8", "fp8")
@@ -1480,14 +1526,19 @@ class WrongProposer(OracleProposer):
 
 
 def engine_config(device, device_pages, clock=None,
-                  proposer_factory=None, kv_quant="none") -> EngineConfig:
+                  proposer_factory=None, kv_quant="none", *,
+                  prefix_cache=False, offload_finished=False,
+                  pager_factory=None) -> EngineConfig:
     e = ENGINE
     return EngineConfig(
         max_batch=e["max_batch"], max_len=e["max_len"], device=device,
         paging=PagingConfig(page_size=e["page_size"],
-                            device_pages=device_pages, kv_quant=kv_quant),
+                            device_pages=device_pages, kv_quant=kv_quant,
+                            offload_finished=offload_finished,
+                            pager_factory=pager_factory),
         chunking=ChunkingConfig(chunk_tokens=e["chunk_tokens"],
-                                chunk_slots=e["chunk_slots"]),
+                                chunk_slots=e["chunk_slots"],
+                                prefix_cache=prefix_cache),
         scheduler=SchedulerConfig(policy="watermark", clock=clock),
         speculation=SpeculationConfig(
             speculate_k=SPECULATE_K if proposer_factory else 0,
@@ -1502,10 +1553,11 @@ def prompts(vocab: int):
 
 
 def serve(cfg, params, device, device_pages, clock=None,
-          proposer_factory=None, kv_quant="none"):
+          proposer_factory=None, kv_quant="none", **kw):
     """Serve the smoke requests; returns (engine, outputs, wall seconds)."""
     eng = Engine(cfg, params, engine_config(device, device_pages, clock,
-                                            proposer_factory, kv_quant))
+                                            proposer_factory, kv_quant,
+                                            **kw))
     for p in prompts(cfg.vocab_size):
         eng.submit(p, max_new_tokens=NEW_TOKENS)
     t0 = time.perf_counter()
@@ -1513,6 +1565,209 @@ def serve(cfg, params, device, device_pages, clock=None,
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     return eng, out, time.perf_counter() - t0
+
+
+def prefix_prompts(vocab: int):
+    """Phase 3p's prompts: one shared system prompt of
+    ``PREFIX_TOKENS`` and a unique tail of ``PREFIX_TAIL`` tokens each."""
+    rng = np.random.default_rng(SEED + 3)
+    shared = rng.integers(0, vocab, PREFIX_TOKENS)
+    lo, hi = PREFIX_TAIL
+    return [np.concatenate([shared, rng.integers(0, vocab, int(
+        rng.integers(lo, hi + 1)))]) for _ in range(N_REQUESTS)]
+
+
+def _has_first_token(eng, rid: int) -> bool:
+    return rid in eng.finished or any(
+        r.rid == rid and r.generated for r in eng.active.values())
+
+
+def serve_prefix(cfg, params, device, device_pages, prefix_cache,
+                 kv_quant="none", clock=None, pager_factory=None):
+    """Phase 3p's traffic: request 0 alone until it has its first token
+    (its prompt's pages interned), then the other 11; returns (engine,
+    outputs, wall seconds)."""
+    eng = Engine(cfg, params, engine_config(
+        device, device_pages, clock, kv_quant=kv_quant,
+        prefix_cache=prefix_cache, pager_factory=pager_factory))
+    ps = prefix_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    eng.submit(ps[0], max_new_tokens=NEW_TOKENS)
+    while not _has_first_token(eng, 0):
+        eng.step_once()
+    for p in ps[1:]:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    out = eng.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    return eng, out, time.perf_counter() - t0
+
+
+def check_prefix_runs(runs, what: str = "") -> None:
+    """Phase 3p's gates on runs A (cache on), B (off) and, where given,
+    C (cache on, a pool where its frames park): every request finishes
+    with its count and the counters balance; A saves every later
+    request's shared prefix, interns it, runs fewer chunks than B and
+    gives B's tokens; C hits parked cache frames far, fetches them, and
+    gives B's tokens."""
+    for tag, (eng, out, _) in runs.items():
+        require(len(out) == N_REQUESTS and all(
+            len(v) == NEW_TOKENS for v in out.values()),
+            f"prefix{what} {tag}: token counts")
+        eng.check_invariants()
+    (a, aout, _), (b, bout, _) = runs["A"], runs["B"]
+    require(a.stats["prefix_tokens_saved"]
+            >= (N_REQUESTS - 1) * PREFIX_TOKENS,
+            f"prefix{what}: saved {a.stats['prefix_tokens_saved']} tokens")
+    require(a.prefix.stats["interned"] >= PREFIX_TOKENS // PAGE,
+            f"prefix{what}: interned {a.prefix.stats['interned']} pages")
+    require(a.stats["chunks"] < b.stats["chunks"],
+            f"prefix{what}: {a.stats['chunks']} chunks with the cache, "
+            f"{b.stats['chunks']} without")
+    require(aout == bout, f"prefix{what}: A's tokens differ from B's")
+    if "C" in runs:
+        c, cout, _ = runs["C"]
+        require(c.stats["prefix_far_hits"] > 0
+                and c.pager.stats["arrived"] > 0,
+                f"prefix{what} C: far hits {c.stats['prefix_far_hits']}, "
+                f"arrivals {c.pager.stats['arrived']}")
+        require(cout == bout, f"prefix{what}: C's tokens differ from B's")
+
+
+def check_cow(eng) -> dict:
+    """The copy-on-write break on the engine's device pool: map one of
+    the prefix cache's resident frames into a second sequence, call
+    ``_ensure_private`` on it, and require the private frame's bytes
+    (and, quantized, both scale rows) to equal the shared frame's
+    bitwise while the shared frame keeps its bytes."""
+    table = eng.page_table
+    old = next(table.entry(PREFIX_SEQ, l).phys
+               for l in range(table.n_pages(PREFIX_SEQ))
+               if table.entry(PREFIX_SEQ, l).state is PageState.RESIDENT)
+    before = eng._read_frame(old)
+    req = Request(rid="cow", prompt=np.zeros(1, np.int32))
+    table.register(req.rid)
+    table.append_shared(req.rid, old)
+    table.pin_page(req.rid, 0)
+    eng._ensure_private(req, 0)
+    new = table.entry(req.rid, 0).phys
+    after, copy = eng._read_frame(old), eng._read_frame(new)
+    require(new != old, "COW: the shared frame was not remapped")
+    for key in before:
+        require(torch.equal(copy[key].view(torch.uint8),
+                            before[key].view(torch.uint8)),
+                f"COW: the private frame's {key} differs")
+        require(torch.equal(after[key].view(torch.uint8),
+                            before[key].view(torch.uint8)),
+                f"COW: the shared frame's {key} changed")
+    table.drop(req.rid)
+    return {"old": old, "new": new, "keys": sorted(before)}
+
+
+def serve_disagg(cfg, params, device, device_pages, pager_nbytes=None):
+    """Phase 3d: a PREFILL and a DECODE engine of phase 3's settings,
+    both pagers over ONE shared tier, both on the same weight tensors,
+    serving phase 3's requests; returns (prefill engine, decode engine,
+    tier, outputs, wall seconds).  ``pager_nbytes`` overrides the page
+    bytes the pagers account (the CPU rehearsal's full-width bytes)."""
+    tier = make_shared_tier()
+    shared = tier_pager_factory(tier)
+    factory = shared if pager_nbytes is None else (
+        lambda pool, table, *, page_nbytes: shared(
+            pool, table, page_nbytes=pager_nbytes))
+    econf = engine_config(device, device_pages, pager_factory=factory)
+    pre = Engine(cfg, params, dataclasses.replace(econf, role="prefill"))
+    dec = Engine(cfg, pre.params, dataclasses.replace(
+        econf, role="decode", handoff=pre.handoff))
+    for p in prompts(cfg.vocab_size):
+        pre.submit(p, max_new_tokens=NEW_TOKENS)
+    t0 = time.perf_counter()
+    out = run_disaggregated(pre, dec)
+    if dec.device.type == "cuda":
+        torch.cuda.synchronize(dec.device)
+    return pre, dec, tier, out, time.perf_counter() - t0
+
+
+def check_disagg(pre, dec, tier, out) -> None:
+    """Phase 3d's gates: every request finishes with its count, each
+    engine counts 12 handoffs, the board published and consumed 12, the
+    tier holds nothing of them at the end, both engines' counters
+    balance, and the DECODE engine ran no prefill chunk."""
+    require(len(out) == N_REQUESTS and all(
+        len(v) == NEW_TOKENS for v in out.values()), "disagg: token counts")
+    require(pre.stats["handoffs"] == N_REQUESTS == dec.stats["handoffs"],
+            f"disagg: handoffs {pre.stats['handoffs']} / "
+            f"{dec.stats['handoffs']}")
+    board = pre.handoff
+    require(board.published == board.consumed == N_REQUESTS,
+            f"disagg: board published {board.published}, consumed "
+            f"{board.consumed}")
+    left = [k for k in tier.keys() if isinstance(k, tuple) and k[0] in out]
+    require(not left, f"disagg: {len(left)} tier entries left, e.g. "
+            f"{left[:3]}")
+    pre.check_invariants()
+    dec.check_invariants()
+    require(dec.stats["chunks"] == 0,
+            f"disagg: the DECODE engine ran {dec.stats['chunks']} chunks")
+
+
+def layer0_keys(cfg, params, prompt, dev) -> torch.Tensor:
+    """Layer 0's K over a prompt, (S, Hkv, D), recomputed with the
+    port's plain functions: the embedded prompt through the layer's
+    attention norm, K projection and RoPE."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    toks = torch.from_numpy(np.asarray(prompt, np.int32)).to(dev)[None]
+    layer = {k: v[0] for k, v in params["layers"]["attn"]["k"].items()}
+    norm = {k: v[0] for k, v in params["layers"]["attn_norm"].items()}
+    h = rms_norm(norm, embed(params["embed"], toks, cdt), cfg.norm_eps)
+    k = dense(layer, h, cdt).reshape(1, toks.shape[1], cfg.num_kv_heads,
+                                     cfg.head_dim)
+    if cfg.qk_norm:
+        k = rms_norm({kk: v[0] for kk, v in
+                      params["layers"]["attn"]["k_norm"].items()}, k,
+                     cfg.norm_eps)
+    pos = torch.arange(toks.shape[1], dtype=torch.int32, device=dev)[None]
+    return rope(k, pos, cfg.rope_theta)[0]
+
+
+def check_fetched(eng, cfg, params, ps, dev) -> dict:
+    """Phase 3f: ``fetch_finished`` of every request; each Cache holds
+    bf16 K/V of (L, 1, slot_tokens, Hkv, D), zero past the sequence,
+    layer 0's K over the prompt within phase 2's bars of its
+    recomputation, and the request's tier entries are gone after the
+    fetch.  Returns the largest errors."""
+    shape = (cfg.num_layers, 1, eng.slot_tokens, cfg.num_kv_heads,
+             cfg.head_dim)
+    worst = {"max_abs_err": 0.0, "row_err": 0.0, "pages": 0}
+    for rid, p in enumerate(ps):
+        n_pages = eng.far_tier.home((rid, "aux"))["pages"]
+        cache = eng.fetch_finished(rid)
+        k, v = cache.kv["k"], cache.kv["v"]
+        tokens = int(cache.pos[0])
+        require(k.dtype == v.dtype == torch.bfloat16
+                and tuple(k.shape) == tuple(v.shape) == shape,
+                f"fetch {rid}: {k.dtype} {tuple(k.shape)}")
+        require(tokens == len(p) + NEW_TOKENS - 1,
+                f"fetch {rid}: {tokens} positions")
+        require(not k[:, :, tokens:].any() and not v[:, :, tokens:].any(),
+                f"fetch {rid}: nonzero K/V past the sequence")
+        ref = layer0_keys(cfg, params, p, dev).float().cpu()
+        got = k[0, 0, :len(p)].float()
+        err = (got - ref).abs()
+        require(bool((err <= ATOL + RTOL * ref.abs()).all()),
+                f"fetch {rid}: layer 0 K off its recomputation by "
+                f"{err.max().item():.3e}")
+        rows = (torch.linalg.vector_norm(got - ref, dim=-1)
+                / torch.linalg.vector_norm(ref, dim=-1).clamp_min(1e-30))
+        require(rows.max().item() < ROW_TOL,
+                f"fetch {rid}: layer 0 K row error {rows.max().item():.3e}")
+        left = [key for key in eng.far_tier.keys()
+                if isinstance(key, tuple) and key[0] == rid]
+        require(not left, f"fetch {rid}: tier entries left {left[:3]}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
+        worst["row_err"] = max(worst["row_err"], rows.max().item())
+        worst["pages"] += n_pages
+    return worst
 
 
 def check_steps(cfg, params, dev):
@@ -2167,6 +2422,105 @@ def main(argv=None) -> int:
                 f"{mode} spec wrong: the pool never preempted/resumed")
         qruns[mode]["spec"] = slaunch
         del seng
+
+    # 3p. cross-request prefix sharing: request 0 alone to its first
+    #     token, then 11 more with its 1024-token system prompt; the cache
+    #     on (A) and off (B) on 448 frames, on in a pool where its frames
+    #     park (C), then int8 on and off
+    prefix_runs = {}
+    for tag, pages, on, mode in (
+            ("A", ENGINE["device_pages"], True, "none"),
+            ("B", ENGINE["device_pages"], False, "none"),
+            ("C", PREFIX_FAR_PAGES, True, "none"),
+            ("A:int8", ENGINE["device_pages"], True, "int8"),
+            ("B:int8", ENGINE["device_pages"], False, "int8")):
+        dt = KVQuantConfig(mode).dtype
+        for k in ops.KERNELS:
+            k.launches = 0
+        peng, pout, p_wall = serve_prefix(cfg, params, "cuda", pages, on,
+                                          kv_quant=mode,
+                                          clock=time.perf_counter)
+        plaunch = {k.name: k.launches for k in ops.KERNELS}
+        st = peng.stats
+        p_tok = sum(len(v) for v in pout.values())
+        interned = peng.prefix.stats["interned"] if on else 0
+        print(f"[prefix:{tag}] {pages} frames, cache {'on' if on else 'off'}"
+              f": {p_tok} tokens in {p_wall:.2f}s ({p_tok / p_wall:.1f} "
+              f"tok/s), mean TTFT "
+              f"{np.mean([r.ttft for r in peng.finished.values()]):.3f}s, "
+              f"steps {st['steps']} (mixed {st['mixed_steps']}), prefill "
+              f"chunks {st['chunks']} (launches "
+              f"{plaunch[pre_mod.KERNELS[dt].name]}), decode launches "
+              f"{plaunch[dec_mod.KERNELS[dt].name]}; hits "
+              f"{st['prefix_hits']} (far {st['prefix_far_hits']}), tokens "
+              f"saved {st['prefix_tokens_saved']}, interned {interned}; "
+              f"preemptions {st['preemptions']} resumes {st['resumes']}; "
+              f"pager {dict(peng.pager.stats)}")
+        for k in (dec_mod.KERNELS[dt], pre_mod.KERNELS[dt]):
+            require(plaunch[k.name] > 0,
+                    f"prefix {tag}: kernel {k.name} never launched")
+        prefix_runs[tag] = (peng, pout, p_wall)
+    print(f"[prefix] tokens digest {tokens_digest(prefix_runs['B'][1])}")
+    check_prefix_runs({t: prefix_runs[t] for t in ("A", "B", "C")})
+    check_prefix_runs({"A": prefix_runs["A:int8"],
+                       "B": prefix_runs["B:int8"]}, ":int8")
+    for tag in ("A", "A:int8"):
+        cow = check_cow(prefix_runs[tag][0])
+        print(f"[prefix:{tag}] COW: frame {cow['old']} copied to "
+              f"{cow['new']}, {cow['keys']} bitwise, the shared frame "
+              "untouched")
+    del prefix_runs, peng
+
+    # 3d. disaggregated prefill/decode: phase 3's requests through a
+    #     PREFILL and a DECODE engine over one shared far tier
+    reset_peak()
+    for k in ops.KERNELS:
+        k.launches = 0
+    pre, dec, tier, dout, d_wall = serve_disagg(cfg, params, "cuda",
+                                                ENGINE["device_pages"])
+    dlaunch = {k.name: k.launches for k in ops.KERNELS}
+    d_tok = sum(len(v) for v in dout.values())
+    ps_, ds_ = pre.pager.stats, dec.pager.stats
+    frame = pre.pager.page_nbytes
+    print(f"[disagg] {len(dout)} requests, {d_tok} tokens in {d_wall:.2f}s "
+          f"({d_tok / d_wall:.1f} tok/s end to end), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[disagg] prefill engine: steps {pre.stats['steps']}, chunks "
+          f"{pre.stats['chunks']}, handoffs {pre.stats['handoffs']}, pages "
+          f"into the tier {ps_['writeback']} ({ps_['writeback'] * frame} B);"
+          f" decode engine: steps {dec.stats['steps']}, adoptions "
+          f"{dec.stats['handoffs']}, pages fetched {ds_['prefetch']} "
+          f"({ds_['prefetch'] * frame} B), preemptions "
+          f"{dec.stats['preemptions']}; pagers {dict(ps_)} / {dict(ds_)}; "
+          f"shared tier {dict(tier.stats)}; kernel launches {dlaunch}")
+    print(f"[disagg] tokens digest {tokens_digest(dout)}")
+    check_disagg(pre, dec, tier, dout)
+    require(pre.params["embed"]["table"].data_ptr()
+            == dec.params["embed"]["table"].data_ptr(),
+            "disagg: the engines hold two copies of the weights")
+    require(dlaunch[dec_mod.KERNEL.name] > 0,
+            "disagg: the paged decode kernel never launched")
+    require(tokens_digest(dout) == tokens_digest(out),
+            "disagg: tokens differ from phase 3's")
+    del pre, dec, tier
+
+    # 3f. finished-sequence offload: phase 3's requests on a FUSED engine
+    #     that parks every finished sequence in the far tier, then
+    #     fetch_finished of each
+    feng, fout, f_wall = serve(cfg, params, "cuda", ENGINE["device_pages"],
+                               clock=time.perf_counter, offload_finished=True)
+    t0 = time.perf_counter()
+    fetched = check_fetched(feng, cfg, params, prompts(cfg.vocab_size), dev)
+    fetch_s = time.perf_counter() - t0
+    print(f"[offload] {sum(len(v) for v in fout.values())} tokens in "
+          f"{f_wall:.2f}s, pages parked {feng.pager.stats['writeback']} "
+          f"({feng.pager.stats['bytes_moved_bulk']} B); fetch_finished of "
+          f"{len(fout)} requests ({fetched['pages']} pages) in "
+          f"{fetch_s:.2f}s; layer 0 K vs its recomputation: max_abs_err "
+          f"{fetched['max_abs_err']:.3e} row_err {fetched['row_err']:.3e}")
+    require(tokens_digest(fout) == tokens_digest(out),
+            "offload: tokens differ from phase 3's")
+    del feng
 
     # 5. full-width step check against the plain versions
     check_steps(cfg, params, dev)

@@ -45,7 +45,8 @@ def _tree_nbytes(value: Any) -> int:
         return sum(_tree_nbytes(v) for v in value.values())
     if isinstance(value, (tuple, list)):
         return sum(_tree_nbytes(v) for v in value)
-    return int(getattr(value, "nbytes", np.asarray(value).nbytes))
+    nbytes = getattr(value, "nbytes", None)      # tensors: no numpy view
+    return int(nbytes if nbytes is not None else np.asarray(value).nbytes)
 
 
 @dataclass

@@ -7,18 +7,34 @@ requests.
 Every engine flag is auto-generated from the
 :class:`repro_torch.serve.config.EngineConfig` dataclass fields (one flag
 per knob, help text included), including ``--device {cuda,cpu}``
-(default ``cuda``).  The weights
-are random, drawn from ``--seed`` on the device; ``--smoke`` picks the
-architecture's reduced config.  ``--speculate-k K`` turns on
-self-speculative verify-K decode, and ``--kv-quant {int8,fp8}`` the
+(default ``cuda``) and ``--role`` (fused / prefill / decode).  The
+weights are random, drawn from ``--seed`` on the device; ``--smoke``
+picks the architecture's reduced config.  ``--speculate-k K`` turns on
+self-speculative verify-K decode, ``--kv-quant {int8,fp8}`` the
 quantized page pool (int8 / fp8 frames with per-(frame, KV head)
-scales).  Options the port does not serve yet (other roles, prefix
-cache) raise ``NotImplementedError`` from the engine.
+scales), ``--prefix-cache`` cross-request prefix sharing and
+``--offload-finished`` the finished-sequence far-tier store.  Script
+extras:
+
+  * ``--shared-prefix N`` prepends the same N tokens to every prompt
+    (system-prompt traffic, which makes ``--prefix-cache`` visible),
+  * ``--disagg`` runs a PREFILL and a DECODE engine over ONE shared far
+    tier in this process, driven by
+    :func:`repro_torch.serve.disagg.run_disaggregated`,
+  * ``--role prefill --handoff-spool d.pkl`` runs the prefill half
+    alone and spools its records *plus their tier entries* to a file;
+    ``--role decode --handoff-spool d.pkl`` adopts that spool in a
+    separate process (the two-process version of ``--disagg``; both
+    draw the same weights from ``--seed``).
+
+Options the port does not serve yet (the dense per-slot cache, unset
+``--chunk-tokens``) raise ``NotImplementedError`` from the engine.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -27,7 +43,26 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import add_config_args, config_from_args
+from repro_torch.serve.disagg import (make_shared_tier, run_disaggregated,
+                                      spool_load, spool_save,
+                                      tier_pager_factory)
 from repro_torch.serve.engine import Engine
+
+
+def _submit_requests(eng, args, cfg, econf, rng) -> None:
+    """Queue the synthetic requests on ``eng``: ``--shared-prefix``
+    tokens, then a unique tail of 4 to 31 tokens each."""
+    shared = rng.integers(0, cfg.vocab_size, args.shared_prefix)
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, min(32, econf.max_len // 2)))
+        prompt = np.concatenate(
+            [shared, rng.integers(0, cfg.vocab_size, plen)])
+        eng.submit(prompt, max_new_tokens=args.max_new)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _report(eng, econf, out, wall) -> None:
@@ -57,6 +92,79 @@ def _report(eng, econf, out, wall) -> None:
               f"{s['spec_steps']} verify steps, "
               f"{s['drafted']} drafted / {s['accepted']} accepted "
               f"({rate:.0%}), mean accepted-K {mean_k:.2f}")
+    if eng.prefix is not None:
+        print(f"[serve] prefix cache: {eng.stats['prefix_hits']} page hits "
+              f"({eng.stats['prefix_far_hits']} far), "
+              f"{eng.stats['prefix_tokens_saved']} prefill tokens saved, "
+              f"{eng.prefix.stats['interned']} pages interned")
+
+
+def _role_config(econf, role: str, factory, board=None):
+    """The fused CLI config re-targeted at one disaggregated role."""
+    return dataclasses.replace(
+        econf, role=role, handoff=board,
+        paging=dataclasses.replace(econf.paging, pager_factory=factory))
+
+
+def _run_disagg(args, econf, cfg, params, rng):
+    """In-process PREFILL + DECODE walkthrough over one shared tier; both
+    engines hold the same weight tensors."""
+    tier = make_shared_tier()
+    factory = tier_pager_factory(tier)
+    pre = Engine(cfg, params, _role_config(econf, "prefill", factory))
+    dec = Engine(cfg, pre.params, _role_config(econf, "decode", factory,
+                                               board=pre.handoff))
+    _submit_requests(pre, args, cfg, econf, rng)
+    t0 = time.time()
+    out = run_disaggregated(pre, dec)
+    _sync(dec.device)
+    wall = time.time() - t0
+    total_new = sum(len(v) for v in out.values())
+    print(f"[serve] disaggregated: {len(out)} requests, {total_new} "
+          f"tokens in {wall:.2f}s ({total_new / wall:.1f} tok/s) on "
+          f"{dec.device}")
+    print(f"[serve] prefill: {pre.stats['handoffs']} handoffs, "
+          f"{pre.stats['chunks']} chunks, "
+          f"pager {dict(pre.pager.stats)}")
+    print(f"[serve] decode:  {dec.stats['handoffs']} adoptions, "
+          f"{dec.stats['resumes']} resumes, "
+          f"{dec.stats['steps']} steps, pager {dict(dec.pager.stats)}")
+    print(f"[serve] shared tier: {dict(tier.stats)}")
+    return out
+
+
+def _run_role(args, econf, cfg, params, rng):
+    """One disaggregated half in this process, handing off via a spool
+    file (``--role prefill`` writes it, ``--role decode`` adopts it)."""
+    if not args.handoff_spool:
+        raise SystemExit(
+            "--role prefill/decode needs --handoff-spool PATH (or use "
+            "--disagg to run both halves in one process)")
+    tier = make_shared_tier()
+    factory = tier_pager_factory(tier)
+    eng = Engine(cfg, params, _role_config(econf, econf.role, factory))
+    t0 = time.time()
+    if econf.role == "prefill":
+        _submit_requests(eng, args, cfg, econf, rng)
+        eng.run()
+        recs = eng.handoff.poll()
+        spool_save(args.handoff_spool, recs, tier)
+        wall = time.time() - t0
+        print(f"[serve] prefill: {len(recs)} handoff records "
+              f"(+ tier entries) spooled to {args.handoff_spool} "
+              f"in {wall:.2f}s")
+        print(f"[serve] prefill pager {dict(eng.pager.stats)}")
+        return {rec.rid: list(rec.generated) for rec in recs}
+    recs = spool_load(args.handoff_spool, tier)
+    for rec in recs:
+        eng.admit_handoff(rec)
+    out = eng.run()
+    _sync(eng.device)
+    wall = time.time() - t0
+    print(f"[serve] decode: adopted {len(recs)} records from "
+          f"{args.handoff_spool}")
+    _report(eng, econf, out, wall)
+    return out
 
 
 def main(argv=None):
@@ -66,6 +174,19 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12,
                     help="new tokens per request")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many identical prefix tokens to "
+                         "every synthetic prompt (system-prompt traffic "
+                         "model, makes --prefix-cache visible)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="run a PREFILL and a DECODE engine over one "
+                         "shared far tier in this process (see "
+                         "--role/--handoff-spool for the two-process "
+                         "version)")
+    ap.add_argument("--handoff-spool", default=None, metavar="PATH",
+                    help="with --role prefill: write handoff records + "
+                         "tier entries here after the run; with --role "
+                         "decode: adopt them from here")
     ap.add_argument("--seed", type=int, default=0)
     add_config_args(ap)     # one --flag per EngineConfig field
     args = ap.parse_args(argv)
@@ -77,18 +198,21 @@ def main(argv=None):
     params = init_params(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
 
+    if args.disagg:
+        return _run_disagg(args, econf, cfg, params, rng)
+    if econf.role != "fused":
+        return _run_role(args, econf, cfg, params, rng)
+
     eng = Engine(cfg, params, econf)
     del params                       # the engine holds its cast copy
     t0 = time.time()
-    for _ in range(args.requests):
-        plen = int(rng.integers(4, min(32, econf.max_len // 2)))
-        eng.submit(rng.integers(0, cfg.vocab_size, plen),
-                   max_new_tokens=args.max_new)
+    _submit_requests(eng, args, cfg, econf, rng)
     out = eng.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     wall = time.time() - t0
     _report(eng, econf, out, wall)
+    if eng.offload_finished:
+        print(f"[serve] far-tier AMU stats: {dict(eng.far_tier.amu.stats)}")
     if econf.obs.trace_out:
         print(f"[serve] trace written to {econf.obs.trace_out}")
     if econf.obs.metrics_out:

@@ -3,9 +3,9 @@ block (:mod:`repro_torch.models.moe`), the dense and MoE decoders'
 decode step and chunked prefill, and the RWKV6 / Mamba2 linear
 recurrences (:mod:`repro_torch.models.ssm`)."""
 
-from repro_torch.models.model import (PagedCache, cast_params, decode_step,
-                                      init_paged_cache, init_params,
-                                      prefill_chunk)
+from repro_torch.models.model import (Cache, PagedCache, cast_params,
+                                      decode_step, init_paged_cache,
+                                      init_params, prefill_chunk)
 
-__all__ = ["PagedCache", "cast_params", "decode_step", "init_paged_cache",
-           "init_params", "prefill_chunk"]
+__all__ = ["Cache", "PagedCache", "cast_params", "decode_step",
+           "init_paged_cache", "init_params", "prefill_chunk"]

@@ -31,7 +31,8 @@ from repro_torch.models.moe import moe_block, moe_init
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "cast_params", "PagedCache", "init_paged_cache",
+__all__ = ["init_params", "cast_params", "Cache", "PagedCache",
+           "init_paged_cache",
            "decode_step", "verify_step", "prefill_chunk", "torch_dtype",
            "family_ported"]
 
@@ -129,6 +130,21 @@ def _layer(tree: Params, l: int) -> Params:
     """Layer ``l``'s view of the stacked layer params."""
     return {k: _layer(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
+
+
+class Cache(NamedTuple):
+    """Single-sequence decode state in the dense layout, the container
+    of the JAX package's ``Cache``: ``kv`` the attention K/V (``k``/``v``
+    (L, B, S, Hkv, D) with ``pos``/``slots``), ``ssm`` the recurrent
+    state (``()`` for the dense and MoE families), ``cross`` the
+    cross-attention state (``{}`` for them), ``pos`` (B,) the next
+    absolute position.  The engine's
+    :meth:`~repro_torch.serve.engine.Engine.fetch_finished` returns one
+    reassembled from a finished sequence's far-tier pages."""
+    kv: Dict[str, torch.Tensor]
+    ssm: Any
+    cross: Dict[str, torch.Tensor]
+    pos: torch.Tensor
 
 
 class PagedCache(NamedTuple):

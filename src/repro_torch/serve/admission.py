@@ -1,27 +1,82 @@
 """The admission role component: how requests enter compute.
 
 :class:`AdmissionMixin` owns everything between the queue and a live
-slot: watermark/SLO admission gating and chunk-queue admission, which
-installs a slot and page-table bookkeeping only — the prompt is then
-computed chunk by chunk by the mixed step.  It is the JAX package's
-``serve/admission.py`` without the paths this port does not have yet
-(whole-prompt dense prefill, prefix-cache mapping, the DECODE-role
-handoff admission).  The mixin assumes the host class provides the
-engine state surface — ``serve/engine.py`` assembles it.
+slot: watermark/SLO admission gating, chunk-queue admission (a slot and
+page-table bookkeeping only — the prompt is then computed chunk by
+chunk by the mixed step), prefix-cache mapping, and
+:meth:`admit_handoff`, the DECODE-role entry point that adopts a
+PREFILL-role engine's graduated request straight from the shared far
+tier.  A handoff admission is deliberately *not* a new code path: it
+rebuilds the request parked (pages registered PARKED against the shared
+tier's entries, residue fetched fault-safe) and lets the ordinary resume
+machinery in :class:`~repro_torch.serve.transfer.TransferMixin` slot it
+in.  It is the JAX package's ``serve/admission.py`` without the
+whole-prompt dense prefill, which this port does not have yet.  The
+mixin assumes the host class provides the engine state surface —
+``serve/engine.py`` assembles it.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 
-from repro_torch.paging import EventKind, pages_for
+from repro_torch.paging import EventKind, PageState, PagingError, pages_for
+from repro_torch.serve.config import EngineRole, Tier
+from repro_torch.serve.disagg import HandoffRecord
+from repro_torch.serve.request import Request
 
 __all__ = ["AdmissionMixin"]
 
 
 class AdmissionMixin:
-    """Chunk-queue admission (see the module docstring).  Mixed into
-    :class:`~repro_torch.serve.engine.Engine`."""
+    """Chunk-queue admission, prefix mapping and handoff admission (see
+    the module docstring).  Mixed into :class:`~repro_torch.serve.
+    engine.Engine`."""
+
+    def _chunkable(self, req: Request) -> bool:
+        """Chunk-queue admission requires the whole prompt to fit the
+        slot's token capacity; :meth:`~repro_torch.serve.engine.Engine.
+        submit` refuses longer prompts, which would need the dense
+        prefill this port does not have."""
+        return 0 < len(req.prompt) <= self.slot_tokens
+
+    def _admit_prefix(self, req: Request, hits: List[int]) -> bool:
+        """Map prefix-cache hits onto the request's fresh page-table row.
+
+        Device-resident hits are refcount-shared in place (zero traffic,
+        zero compute); hits whose shared page lives only in the far tier
+        make the request start *parked* — it rides the ordinary resume
+        machinery (LATENCY prefetch of a private copy, including the
+        resume-while-ARRIVING paths) before its first chunk.  Either
+        way ``prefill_pos`` starts past the shared prefix, so those
+        chunks are never queued.  Returns True on the far route.
+        """
+        self.page_table.register(req.rid)
+        req.target_len = len(req.prompt)
+        far = False
+        for l in hits:
+            key = self.prefix.far_key(l)
+            if self.prefix.entry_state(l) is PageState.RESIDENT:
+                phys = self.prefix.entry_phys(l)
+                logical = self.page_table.append_shared(req.rid, phys)
+                self.page_pool.touch(phys)
+            else:
+                far = True
+                logical = self.page_table.append_parked(req.rid)
+                self.stats["prefix_far_hits"] += 1
+            # far alias (no copy: the same host payload) so this mapping
+            # can always park clean and a far hit fetches through the
+            # pager
+            self.pager.store_far(req.rid, logical, self.far_tier.home(key),
+                                 tokens=self.page_size)
+        req.prefill_pos = len(hits) * self.page_size
+        self.stats["prefix_hits"] += len(hits)
+        self.stats["prefix_tokens_saved"] += req.prefill_pos
+        if far:
+            req.parked = True
+        return far
 
     def _admit(self) -> None:
         self._try_finish_resumes()
@@ -41,6 +96,14 @@ class AdmissionMixin:
                 break
             need = pages_for(min(len(req.prompt), self.slot_tokens),
                              self.page_size)
+            hits: List[int] = []
+            if self.prefix is not None and self._chunkable(req) \
+                    and req.rid not in self.page_table.sequences():
+                hits = self.prefix.match(req.prompt)
+                # device-resident hits take no new frames
+                need -= sum(
+                    1 for l in hits
+                    if self.prefix.entry_state(l) is PageState.RESIDENT)
             if not self.sched.may_admit(req, need):
                 # SLO load shedding: the highest-priority admissible
                 # request is batch-tier and the pool is too tight to
@@ -57,17 +120,92 @@ class AdmissionMixin:
                     not self._make_room(need + self.policy.low,
                                         frozenset(), preempt=False):
                 break
+            if hits and self._admit_prefix(req, hits):
+                # far-tier hits: request left at the queue head, parked;
+                # the next iteration routes it through _start_resume
+                continue
             self.queue.pop(0)
             slot = self.pool.alloc()
             req.slot = slot
             # install bookkeeping only: the prompt is computed chunk by
             # chunk by the mixed step, interleaved with running decodes
-            self.page_table.register(req.rid)
+            if req.rid not in self.page_table.sequences():
+                self.page_table.register(req.rid)
             req.target_len = len(req.prompt)
             req.chunk_rows = np.full((self.pages_per_seq,),
                                      self.trash_frame, np.int32)
+            # prefix hits already mapped: pin them for the slot and point
+            # the chunk row at the shared frames
+            for logical in range(self.page_table.n_pages(req.rid)):
+                self.page_table.pin_page(req.rid, logical)
+                req.chunk_rows[logical] = \
+                    self.page_table.entry(req.rid, logical).phys
             req.admit_seq = next(self._admits)
             self.prefilling[slot] = req
             self.stats["admitted"] += 1
             self._obs_phase(req, "prefill")
             self.events.post(EventKind.ADMIT, req.rid)
+
+    # -- cross-engine handoff admission (DECODE role) --------------------------
+    def admit_handoff(self, rec: HandoffRecord,
+                      arrival_t: Optional[float] = None) -> int:
+        """Adopt a PREFILL-role engine's graduated request from the
+        shared far tier.
+
+        The residue rides the pager's fault-safe overlapped fetch
+        (:meth:`~repro_torch.paging.Pager.fetch_keys` — a mid-transfer
+        AMU fault raises with the tier entry intact, so the caller
+        retries), the prompt pages register as PARKED page-table entries
+        against the tier's ``(rid, logical)`` homes, and the request
+        joins the queue *parked*: the ordinary resume machinery
+        LATENCY-prefetches the pages and slots it into the decode batch.
+        A record already done under fused semantics (a one-token request
+        or a first-token EOS) finishes at once and clears its tier
+        entries.  Returns the adopted rid (unchanged from the prefill
+        side; the local rid counter jumps past it)."""
+        if self.role is not EngineRole.DECODE:
+            raise PagingError(
+                f"admit_handoff requires EngineRole.DECODE; this engine "
+                f"is {self.role.value!r}")
+        rid = rec.rid
+        if rid in self.finished or rid in self.page_table.sequences():
+            raise PagingError(f"handoff rid {rid} already known here")
+        # handed-off rids stay globally unique: local submissions must
+        # never collide with them
+        self._next_rid = max(self._next_rid, rid + 1)
+        self.far_tier.poll()             # retire the tier-AMU offloads
+        now = self.clock()
+        req = Request(
+            rid=rid, prompt=np.asarray(rec.prompt, np.int32),
+            max_new_tokens=rec.max_new_tokens, eos_id=rec.eos_id,
+            tier=Tier(rec.tier), ttft_slo=rec.ttft_slo,
+            tpot_slo=rec.tpot_slo,
+            # both engines' clocks share an origin, so the prefill-side
+            # arrival/first-token instants stay meaningful here
+            arrival_t=rec.arrival_t if arrival_t is None else arrival_t,
+            submitted_t=rec.submitted_t)
+        req.generated = list(rec.generated)
+        req.token_ts = list(rec.token_ts)
+        req.first_token_t = rec.first_token_t
+        if rec.done:
+            # nothing to decode; every transfer already landed, so the
+            # tier entries may go
+            self.far_tier.discard_seq(rid)
+            req.done_t = now
+            self.finished[rid] = req
+            self.stats["handoffs"] += 1
+            self.stats["slo_attained" if req.slo_attained()
+                       else "slo_missed"] += 1
+            return rid
+        # residue: fault-safe overlapped fetch, discarded only after the
+        # payload verifiably landed (fault ⇒ raise, entry intact, nothing
+        # below this line has happened yet, the handoff counter included)
+        meta = self.pager.fetch_keys([(rid, "aux")],
+                                     discard_after=True)[(rid, "aux")]
+        self.stats["handoffs"] += 1
+        self.page_table.register_parked(rid, meta["pages"])
+        req.parked = True
+        req.residue = meta["aux"]
+        self.queue.append(req)
+        self.sched.on_submit(req)
+        return rid

@@ -14,11 +14,13 @@ fields (:func:`add_config_args` / :func:`config_from_args`), and
 :class:`VirtualClock` is the one injected time source every request
 timestamp goes through.
 
-The port's engine serves a subset of these options (FUSED role, paged
-and chunked, with speculative verify-K decode and the int8/fp8
-quantized pool; no prefix cache, no finished-sequence offload); it
-raises ``NotImplementedError`` for the rest, which keep their flags so
-the CLI matches the JAX package's.
+The port's engine serves the paged, chunked engine in every role
+(FUSED, and the PREFILL / DECODE halves of a disaggregated pair), with
+speculative verify-K decode, the int8/fp8 quantized pool,
+cross-request prefix sharing and finished-sequence offload; it raises
+``NotImplementedError`` for the rest (the dense per-slot cache, unset
+``chunk_tokens``), which keep their flags so the CLI matches the JAX
+package's.
 Two fields differ: ``device`` says where the engine's tensors live
 (``cuda`` unless the caller asks for the CPU), and ``chunk_tokens``
 defaults to 256 instead of unset, because the port admits through the
@@ -40,7 +42,7 @@ import argparse
 import dataclasses
 import enum
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from repro_torch.paging import WatermarkPolicy
 
@@ -70,10 +72,10 @@ class EngineRole(str, enum.Enum):
     a ``PREFILL`` engine graduates every request at its first token —
     the finished prompt pages BULK-park into the *shared*
     :class:`~repro_torch.core.offload.FarMemoryTier` and a
-    :class:`~repro.serve.disagg.HandoffRecord` is published — and a
-    ``DECODE`` engine adopts records via
-    :meth:`~repro_torch.serve.engine.Engine.admit_handoff`, LATENCY-fetching
-    the parked state through the ordinary resume machinery.  The str
+    :class:`~repro_torch.serve.disagg.HandoffRecord` is published — and
+    a ``DECODE`` engine adopts records via
+    :meth:`~repro_torch.serve.engine.Engine.admit_handoff`,
+    LATENCY-fetching the parked state through the ordinary resume machinery.  The str
     values double as the auto-generated ``--role`` CLI choices."""
 
     FUSED = "fused"
@@ -245,6 +247,10 @@ class EngineConfig:
         "fused", "engine role: fused single-engine pipeline, or one "
         "half of a disaggregated prefill/decode pair over a shared "
         "far tier", choices=("fused", "prefill", "decode"))
+    handoff: Any = _f(
+        None, "HandoffBoard shared between a PREFILL and a DECODE "
+        "engine (a PREFILL engine creates its own when None)",
+        cli=False)
     paging: PagingConfig = field(default_factory=PagingConfig,
                                  metadata={"cli": True})
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig,

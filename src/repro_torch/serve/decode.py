@@ -2,8 +2,13 @@
 
 :class:`DecodeMixin` owns chunk-vs-decode work selection, draft
 proposal, the mixed / decode / verify step dispatch, speculative
-acceptance and rollback, prefill graduation, greedy sampling and the
-request finish path — the FUSED-role part of the JAX package's
+acceptance and rollback, prefill graduation (with the prefix cache's
+intern hook), greedy sampling and the request finish path — including
+the one hook that differentiates the engine roles, :meth:`_role_done`.
+A FUSED or DECODE engine finishes a request when its token budget (or
+EOS) says so; a PREFILL engine finishes it at its *first token*, where
+the ordinary ``offload_finished`` park plus a published handoff record
+hand it to the decode side.  It is the JAX package's
 ``serve/decode.py``.  Greedy sampling takes ``torch.argmax`` on the
 device and copies back only the token ids; like ``np.argmax`` it picks
 the first maximum.  The mixin assumes the host class provides the engine
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.core.amu import QoS
 from repro_torch.paging import EventKind, PagingError
-from repro_torch.serve.config import Tier
+from repro_torch.serve.config import EngineRole, Tier
 from repro_torch.serve.request import Request
 
 __all__ = ["DecodeMixin"]
@@ -28,6 +33,16 @@ __all__ = ["DecodeMixin"]
 class DecodeMixin:
     """Decode loop + finish path (see the module docstring).  Mixed
     into :class:`~repro_torch.serve.engine.Engine`."""
+
+    # -- the role hook ---------------------------------------------------------
+    def _role_done(self, req: Request) -> bool:
+        """Is this request finished *for this engine's role*?  FUSED and
+        DECODE: the request's own budget/EOS (``req.done``).  PREFILL:
+        any first token — whether the request is done under fused
+        semantics travels on the handoff record (``rec.done``)."""
+        if self.role is EngineRole.PREFILL:
+            return bool(req.generated)
+        return req.done
 
     # -- chunk-queue scheduling (chunked paged prefill) ------------------------
     def _select_chunks(self) -> List:
@@ -119,6 +134,11 @@ class DecodeMixin:
         self._set_pos(slot, req.target_len)
         req.chunk_rows = None
         del self.prefilling[slot]
+        if self.prefix is not None:
+            # donate the prompt's full pages to the prefix cache: later
+            # requests with the same prefix share these frames instead
+            # of running their chunks
+            self.prefix.intern(req.prompt, req.rid, self._read_frame)
         req.generated.append(first)
         req.first_token_t = self.clock()
         req.token_ts.append(req.first_token_t)
@@ -277,7 +297,7 @@ class DecodeMixin:
                 if tr.enabled:
                     tr.instant("requests", f"req{req.rid}", "token",
                                {"n": len(req.generated)})
-                if req.done:
+                if self._role_done(req):
                     break
             step_drafted += m
             step_accepted += min(acc, appended)   # drafts actually appended
@@ -289,7 +309,8 @@ class DecodeMixin:
                 self._pt_np[slot, keep:] = self.trash_frame
                 self._pt_dirty = True
         # write the positions back BEFORE finishing slots and graduating
-        # chunks: both read or write ``cache.pos``
+        # chunks: both read or write ``cache.pos`` (a finish may offload
+        # the request's KV, which reads it)
         self.cache = self.cache._replace(
             pos=torch.from_numpy(pos_np).to(self.device))
         for req in list(self.active.values()):
@@ -310,7 +331,7 @@ class DecodeMixin:
                 picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy())
 
     def _finish_if_done(self, req: Request) -> None:
-        if not req.done:
+        if not self._role_done(req):
             return
         if self.speculating:
             self.proposer.drop(req.rid)
@@ -318,6 +339,12 @@ class DecodeMixin:
         if slot is not None and slot in self.active:
             del self.active[slot]
         if slot is not None:
+            if self.offload_finished:
+                self._offload_finished(req)
+                if self.role is EngineRole.PREFILL:
+                    # graduation: pages and residue are in the shared
+                    # tier; publish the record the DECODE engine admits
+                    self._publish_handoff(req)
             self._pt_np[slot] = self.trash_frame
             self._pt_dirty = True
             self.pool.release(slot)

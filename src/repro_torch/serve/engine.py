@@ -1,7 +1,9 @@
 """Continuous-batching serving engine over the paged KV subsystem.
 
-The port of ``repro.serve.engine`` in its FUSED role: one engine does
-both prefill and decode, with paging and chunked prefill on.  The
+The port of ``repro.serve.engine``, paging and chunked prefill on, in
+any of its roles: FUSED (one engine does both prefill and decode), or
+the PREFILL / DECODE halves of a disaggregated pair over one shared far
+tier (:mod:`repro_torch.serve.disagg`).  The
 scheduler is the paper's *event-driven model* (§2.3.2) applied to
 requests: decode steps are the event loop's ticks; pager ``getfin``
 completions post PAGE_ARRIVED events; admission and preemption follow
@@ -29,10 +31,20 @@ page-table rewind keep the stream token-exact with plain decode.
 Attention reads the pool through the page tables with the hand-written
 CUDA kernels on the card.
 
-The host logic (pool, page table, pager, far tier, virtual clock,
-scheduling policy) is a copy of the JAX package's, so on the same
-weights both engines make the same scheduling decisions.  Options this
-port does not serve yet raise ``NotImplementedError``.
+With ``chunking.prefix_cache`` full prompt pages are interned by a
+rolling token-id hash at graduation, and later requests map their
+page-table rows onto the shared frames (device hit) or fetch a private
+copy with a LATENCY aload (far hit) and skip those chunks
+(:mod:`repro_torch.paging.prefix_cache`).  With
+``paging.offload_finished`` a finished sequence parks page by page in
+the far tier for a later :meth:`~repro_torch.serve.transfer.
+TransferMixin.fetch_finished`; a PREFILL engine's graduation is that
+park plus a published handoff record.
+
+The host logic (pool, page table, pager, far tier, prefix cache,
+virtual clock, scheduling policy) is a copy of the JAX package's, so on
+the same weights both engines make the same scheduling decisions.
+Options this port does not serve yet raise ``NotImplementedError``.
 
 With ``paging.kv_quant`` int8 or fp8 the pool's frames are quantized with
 per-(frame, KV head) scales (:mod:`repro_torch.kernels.kv_quant`): a
@@ -57,10 +69,11 @@ from repro_torch.obs import (MetricsRegistry, Tracer, to_chrome_trace,
                              write_chrome_trace, write_metrics)
 from repro_torch.paging import (DeadlineQueue, EventKind, EventLoop, PagePool,
                                 PageState, PageTable, Pager, PagingError,
-                                WatermarkPolicy, pages_for)
+                                PrefixCache, WatermarkPolicy, pages_for)
 from repro_torch.serve.admission import AdmissionMixin
 from repro_torch.serve.config import EngineConfig, EngineRole, Tier, VirtualClock
 from repro_torch.serve.decode import DecodeMixin
+from repro_torch.serve.disagg import HandoffBoard
 from repro_torch.serve.kv_cache import SlotPool
 from repro_torch.serve.policy import SCHEDULERS as _SCHEDULERS
 from repro_torch.serve.request import Request
@@ -103,15 +116,44 @@ def _page_nbytes(cfg: ModelConfig, page_size: int,
     return int(kv * POOL_DTYPE.itemsize)
 
 
+def _check_roles(cfg: ModelConfig, ec: EngineConfig) -> None:
+    """The JAX engine's rules for finished-sequence offload, the
+    disaggregated roles, the prefix cache and a speculating PREFILL
+    engine (``repro/serve/engine.py:311-320``, ``:378-388``,
+    ``:414-417``), checked in its order, before the port's own
+    refusals."""
+    pg, ck = ec.paging, ec.chunking
+    role = EngineRole(ec.role)
+    if pg.offload_finished and pg.enabled is False:
+        raise PagingError(
+            "offload_finished requires the paged engine: finished KV is "
+            "parked page-by-page through the pager's far tier")
+    if role is not EngineRole.FUSED and pg.enabled is False:
+        raise PagingError(
+            "disaggregated roles require the paged engine: the "
+            "prefill/decode handoff travels through the far tier")
+    if ck.prefix_cache:
+        if not ck.chunk_tokens or pg.enabled is False:
+            raise PagingError(
+                "prefix_cache requires chunked paged admission "
+                "(chunk_tokens > 0 on the paged engine)")
+        if cfg.family not in ("dense", "moe") or cfg.attention == "swa":
+            raise PagingError(
+                "prefix_cache supports global-attention dense/moe "
+                f"families; got family={cfg.family!r} "
+                f"attention={cfg.attention!r}")
+    if ec.speculation.speculate_k and role is EngineRole.PREFILL:
+        raise PagingError(
+            "a PREFILL-role engine never decodes past the first token — "
+            "speculation has nothing to draft")
+
+
 def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
     """Raise for every option the port's engine does not serve yet."""
     pg, ck = ec.paging, ec.chunking
     unported = {
-        "role != 'fused'": ec.role != EngineRole.FUSED.value,
-        "prefix_cache": ck.prefix_cache,
         "paging.enabled=False (the dense per-slot cache)":
             pg.enabled is False,
-        "offload_finished": pg.offload_finished,
         "chunk_tokens unset (whole-prompt dense prefill)":
             not ck.chunk_tokens,
         f"family {cfg.family!r} with {cfg.num_experts} experts, moe_every "
@@ -153,6 +195,7 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         # no scale tensors
         self.kv_quant = KVQuantConfig.from_name(pg.kv_quant)
         _check_quant(cfg, pg, self.kv_quant)
+        _check_roles(cfg, ec)
         _check_supported(cfg, ec)
         max_batch, max_len = ec.max_batch, ec.max_len
         self.device = torch.device(ec.device)
@@ -179,6 +222,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.queue: List[Request] = []
         self.active: Dict[int, Request] = {}     # slot -> request
         self.finished: Dict[int, Request] = {}
+        # a plain counter, so a DECODE engine can bump it past handed-off
+        # rids: local submissions and adopted requests share one id space
         self._next_rid = 0
         self._admits = itertools.count()
 
@@ -223,6 +268,16 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                               self.trash_frame, np.int32)
         self._pt_dirty = True
         self.paging = True               # read by the SLO scheduler
+        # -- engine role: which half of the pipeline this assembly runs ----
+        self.role = EngineRole(ec.role)
+        self.offload_finished = pg.offload_finished
+        if self.role is EngineRole.PREFILL:
+            # graduation IS an offload_finished park into the (shared)
+            # far tier: the role implies the flag
+            self.offload_finished = True
+        self.handoff = ec.handoff
+        if self.role is EngineRole.PREFILL and self.handoff is None:
+            self.handoff = HandoffBoard()
         self.policy = pg.watermark or WatermarkPolicy(low=0, critical=0)
         if sc.policy not in _SCHEDULERS:
             raise PagingError(
@@ -237,6 +292,14 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.chunk_tokens = int(ck.chunk_tokens)
         self.chunk_slots = max(1, int(ck.chunk_slots))
         self.prefilling: Dict[int, Request] = {}     # slot -> admitting req
+
+        # -- cross-request prefix sharing (content-addressed prompt pages):
+        # supported where the shared KV is position- and content-exact for
+        # every sharer — global-attention dense/moe (``_check_roles``)
+        self.prefix: Optional[PrefixCache] = None
+        if ck.prefix_cache:
+            self.prefix = PrefixCache(self.page_pool, self.page_table,
+                                      self.pager, page_size)
 
         # -- draft-free self-speculative decode (verify-K) ------------------
         # an n-gram prompt-lookup proposer drafts up to K tokens per slot
@@ -276,6 +339,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                    "prefix_far_hits": 0, "deadline_misses": 0,
                    "slo_attained": 0, "slo_missed": 0,
                    "shed_admissions": 0}
+        if self.role is not EngineRole.FUSED:
+            initial["handoffs"] = 0      # FUSED snapshots stay unchanged
         if self.speculating:
             # seeded only when speculating, so non-speculative counters
             # stay equal to the JAX engine's
@@ -300,8 +365,11 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                 f"prompt of {len(prompt)} tokens: the port admits prompts "
                 f"of 1..{self.slot_tokens} tokens (the slot) through the "
                 "chunk queue; the dense-prefill fallback is not ported")
-        full = pages_for(min(len(prompt) + max_new_tokens, self.slot_tokens),
-                         self.page_size)
+        # a PREFILL-role engine never decodes: its pool only ever holds
+        # the prompt's pages, so the completion horizon is the prompt
+        horizon = len(prompt) + (
+            0 if self.role is EngineRole.PREFILL else max_new_tokens)
+        full = pages_for(min(horizon, self.slot_tokens), self.page_size)
         if full > self.page_pool.n_pages:
             raise PagingError(
                 f"request needs {full} pages; pool has only "
@@ -411,7 +479,10 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         rid = ev.payload
         if rid in self.page_table.sequences():
             self.page_table.drop(rid)
-            self.pager.drop_far(rid)
+            if not self.offload_finished:
+                # offloaded sequences keep their far-tier pages: that IS
+                # the store fetch_finished (or a DECODE peer) reads back
+                self.pager.drop_far(rid)
 
     def _on_deadline(self, ev) -> None:
         """A TTFT deadline passed: a request still without a first token
@@ -454,8 +525,11 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         speculating, accepted + rejected == drafted (every drafted token
         is adjudicated once) and no active slot's valid tokens exceed its
         mapped frames; preemptions == resumes + requests currently
-        parked; ADMIT events == admissions + resumes; the pager's per-QoS
-        window accounting balances (see :meth:`Pager.check_invariants`)."""
+        parked by a preemption (a prefix-far admission or a handoff
+        parks without one); ADMIT events == admissions + resumes; on a
+        PREFILL role, HANDOFF events == published handoffs; the pager's
+        per-QoS window accounting balances (see
+        :meth:`Pager.check_invariants`)."""
         s = self.stats
         if self.speculating:
             if s["accepted"] + s["rejected"] != s["drafted"]:
@@ -482,6 +556,12 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
             raise PagingError(
                 f"ADMIT event imbalance: {admits} events != "
                 f"{s['admitted']} admissions + {s['resumes']} resumes")
+        if self.role is EngineRole.PREFILL:
+            hoffs = self.events.history.get(EventKind.HANDOFF, 0)
+            if hoffs != s["handoffs"]:
+                raise PagingError(
+                    f"HANDOFF event imbalance: {hoffs} events != "
+                    f"{s['handoffs']} published handoffs")
         self.pager.check_invariants()
 
     def export_trace(self, path: Optional[str] = None) -> dict:

@@ -1,11 +1,16 @@
 """The transfer role component: every byte the engine moves.
 
 :class:`TransferMixin` owns the park/resume machinery and the
-device-pool plumbing — frame reads/lands, room-making (evict → drain →
-preempt), page shedding with the clean-park fast path, and resume
-prefetch + slot re-entry.  It is the FUSED-role part of the JAX
-package's ``serve/transfer.py``: the host logic is a copy, and the two
-device operations are rewritten onto tensors —
+device-pool plumbing — frame reads/lands/copies, room-making (evict →
+drain → preempt), page shedding with the clean-park fast path, resume
+prefetch + slot re-entry, the copy-on-write guard for prefix-shared
+frames, and the finished-sequence offload/fetch pair.  It is
+role-agnostic: a FUSED engine points park at its own resume; a PREFILL
+engine's graduation is the same :meth:`_offload_finished` park plus a
+:meth:`_publish_handoff`; a DECODE engine's handoff admission is the
+same resume machinery fed by :meth:`~repro_torch.paging.Pager.
+fetch_keys`.  It is the JAX package's ``serve/transfer.py``: the host
+logic is a copy, and the device operations are rewritten onto tensors —
 
   * :meth:`_read_frame` copies one frame of every layer, (L, page, Hkv,
     D) of K and of V, from the device pool to host memory: the page
@@ -14,7 +19,17 @@ device operations are rewritten onto tensors —
     ``v_scale``, and its int8 / fp8 bytes move as ``uint8``;
   * :meth:`_land_frame` copies such a payload back into its frame, in
     place (the JAX package scatters into a donated pool instead): a byte
-    copy, never a requantization.
+    copy, never a requantization.  A payload may be shared (a prefix
+    hit stores the cache entry's home under the requester's key), so
+    nothing writes one;
+  * :func:`_copy_frame` / :func:`_copy_frame_q` duplicate a frame in
+    place for the copy-on-write break, a quantized frame with both scale
+    rows, bytes as they are.
+
+Every residue (a park, a finished-sequence offload, a handoff) is the
+:func:`~repro_torch.serve.kv_cache.extract_aux_slot` payload, and
+re-entry writes it back with :func:`~repro_torch.serve.kv_cache.
+insert_aux_slot`.
 
 The mixin assumes the host class provides the engine state surface
 (``page_pool``/``page_table``/``pager``/``cache``/``sched``/…) —
@@ -28,10 +43,37 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.paging import EventKind, PageState, PagingError, pages_for
+from repro_torch.models.model import Cache
+from repro_torch.paging import (NOT_MAPPED, EventKind, PageState,
+                                PagingError, pages_for)
+from repro_torch.serve.disagg import HandoffRecord
+from repro_torch.serve.kv_cache import (extract_aux_slot, insert_aux_slot,
+                                        join_kv_pages)
 from repro_torch.serve.request import Request
 
-__all__ = ["TransferMixin"]
+__all__ = ["TransferMixin", "_copy_frame", "_copy_frame_q"]
+
+
+def _copy_frame(k_pages: torch.Tensor, v_pages: torch.Tensor, src: int,
+                dst: int) -> None:
+    """Device-side page copy, in place (COW break: a sharer about to
+    write a prefix-shared frame gets a private duplicate first).  A
+    1-byte pool copies through its ``uint8`` view."""
+    if k_pages.element_size() == 1:
+        k_pages = k_pages.view(torch.uint8)
+        v_pages = v_pages.view(torch.uint8)
+    k_pages[:, dst].copy_(k_pages[:, src])
+    v_pages[:, dst].copy_(v_pages[:, src])
+
+
+def _copy_frame_q(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  k_scales: torch.Tensor, v_scales: torch.Tensor, src: int,
+                  dst: int) -> None:
+    """Quantized-pool COW break: the duplicate keeps the source frame's
+    scales, so the copy is byte-exact."""
+    _copy_frame(k_pages, v_pages, src, dst)
+    k_scales[:, dst].copy_(k_scales[:, src])
+    v_scales[:, dst].copy_(v_scales[:, src])
 
 
 class TransferMixin:
@@ -153,13 +195,13 @@ class TransferMixin:
     def _park(self, req: Request) -> None:
         """Preempt a running sequence: cold pages → far tier (BULK), hot
         tail stays cached *in the device pool* (unpinned, LRU-evictable),
-        slot freed, request back to the head of the queue.  The only
-        non-KV state a dense decoder carries is the slot's position,
-        which rides along as the residue."""
+        slot freed, request back to the head of the queue.  The non-KV
+        state rides along as the residue (for a dense decoder, the
+        slot's position)."""
         slot = req.slot
         tokens = int(self.cache.pos[slot])
         self._shed_pages(req, min(tokens, self.slot_tokens))
-        req.residue = tokens
+        req.residue = extract_aux_slot(self.cache, slot, self.max_batch)
         req.parked = True
         req.n_preempts += 1
         req.slot = None
@@ -212,10 +254,13 @@ class TransferMixin:
         """Slot in any resuming request whose pages have all arrived.
         Re-entry is a page-table patch: pin the frames, land any payload
         that is still host-side, point the slot's page-table row at the
-        frames and restore the slot's position.  A request parked
-        *mid-prefill* re-enters the chunk queue instead of the decode
-        batch: its device page-table row stays on the trash frame and its
-        completed-chunk frames go back into ``chunk_rows``."""
+        frames and restore the residue.  A request parked *mid-prefill*
+        re-enters the chunk queue instead of the decode batch: its device
+        page-table row stays on the trash frame and its completed-chunk
+        frames go back into ``chunk_rows``.  A request admitted straight
+        onto far-tier prefix pages, or handed off by a PREFILL engine,
+        arrives here having never run: that counts as an admission, not
+        a resume."""
         for rid, req in list(self._resuming.items()):
             if not self.page_table.resident(rid):
                 # pages evicted again under pressure mid-resume get a
@@ -235,18 +280,25 @@ class TransferMixin:
                 rows[logical] = pte.phys
             req.slot = slot
             req.parked = False
+            first_admit = req.admit_seq < 0
             req.admit_seq = next(self._admits)
             if req.mid_prefill:
                 req.chunk_rows = rows
                 self.prefilling[slot] = req
             else:
+                self._ensure_private_tail(req)
+                rows = np.full((self.pages_per_seq,), self.trash_frame,
+                               np.int32)
+                for logical in range(self.page_table.n_pages(rid)):
+                    rows[logical] = self.page_table.entry(rid, logical).phys
                 self._pt_np[slot] = rows
                 self._pt_dirty = True
-                self._set_pos(slot, req.residue)
+                insert_aux_slot(self.cache, req.residue, slot,
+                                self.max_batch)
                 req.residue = None
                 self.active[slot] = req
             del self._resuming[rid]
-            self.stats["resumes"] += 1
+            self.stats["admitted" if first_admit else "resumes"] += 1
             self._obs_phase(req, "prefill" if req.mid_prefill else "decode")
             self.events.post(EventKind.ADMIT, rid)
 
@@ -269,6 +321,43 @@ class TransferMixin:
                 self._pt_np[req.slot, logical] = pte.phys
                 self._pt_dirty = True
 
+    def _ensure_private(self, req: Request, logical: int) -> None:
+        """COW break: if the frame backing ``(req, logical)`` is a
+        prefix-shared (copy-on-write) frame this step is about to write,
+        remap the page onto a private duplicate first.  Unreachable on
+        the sharing families by construction — only *full* prompt pages
+        are shared and decode appends strictly after them — but the
+        guard keeps the in-place pool scatters (bf16, and the quantized
+        ones of :mod:`~repro_torch.kernels.kv_quant`) safe against any
+        schedule that routes a write at a shared frame."""
+        pte = self.page_table.entry(req.rid, logical)
+        if pte.phys == NOT_MAPPED:
+            return
+        frame = self.page_pool.frames[pte.phys]
+        if not frame.cow or frame.refs <= 1:
+            return
+        old, new = self.page_table.remap_private(req.rid, logical)
+        if new == old:
+            return
+        kv = self.cache.kv
+        if "k_scales" in kv:
+            _copy_frame_q(kv["k_pages"], kv["v_pages"], kv["k_scales"],
+                          kv["v_scales"], old, new)
+        else:
+            _copy_frame(kv["k_pages"], kv["v_pages"], old, new)
+        if req.mid_prefill and req.chunk_rows is not None:
+            req.chunk_rows[logical] = new
+        elif req.slot is not None:
+            self._pt_np[req.slot, logical] = new
+            self._pt_dirty = True
+
+    def _ensure_private_tail(self, req: Request) -> None:
+        """Guard the page decode writes next (the sequence's last mapped
+        page) against COW sharing before the slot goes active."""
+        n = self.page_table.n_pages(req.rid)
+        if n:
+            self._ensure_private(req, n - 1)
+
     def _ensure_growth(self, drafts: Optional[Dict[int, int]] = None
                        ) -> None:
         """Before a decode step: every active sequence about to cross a
@@ -278,11 +367,12 @@ class TransferMixin:
         ``drafts`` (rid -> drafted tokens) widens a speculating slot's
         write window from one position to ``1 + drafts[rid]`` — the
         verify step scatters K/V at ``[pos, pos + 1 + drafts[rid])``,
-        possibly straddling a page boundary, so enough frames are pinned
-        up front.  The speculative extra degrades instead of failing:
-        when the pool cannot cover the full draft the entry is clamped in
-        place (down to 0 = plain decode) and only the base ``pos + 1``
-        growth must succeed."""
+        possibly straddling a page boundary, so every touched mapped page
+        gets the COW guard and enough frames are pinned up front.  The
+        speculative extra degrades instead of failing: when the pool
+        cannot cover the full draft the entry is clamped in place (down
+        to 0 = plain decode) and only the base ``pos + 1`` growth must
+        succeed."""
         pos_np = self.cache.pos.cpu().numpy()   # one device sync per step
         for req in list(self.active.values()):
             if req.slot is None or req.slot not in self.active:
@@ -293,6 +383,13 @@ class TransferMixin:
             extra = drafts.get(req.rid, 0) if drafts else 0
             if extra and pos + 1 + extra > self.slot_tokens:
                 extra = max(0, self.slot_tokens - pos - 1)
+            # COW-guard every mapped page the write range touches (the
+            # draft tail can straddle into the next page)
+            n_mapped = self.page_table.n_pages(req.rid)
+            first_wp = pos // self.page_size
+            last_wp = min((pos + extra) // self.page_size, n_mapped - 1)
+            for wp in range(first_wp, last_wp + 1):
+                self._ensure_private(req, wp)
             while True:
                 target = pos + 1 + extra
                 need = self.page_table.pages_needed(req.rid, target)
@@ -307,3 +404,98 @@ class TransferMixin:
                 drafts[req.rid] = extra
             if need:
                 self._alloc_pinned(req, target)
+
+    # -- finished-sequence offload + cross-engine handoff ---------------------
+    def _offload_finished(self, req: Request) -> None:
+        """Park a finished sequence page by page into THE far tier — the
+        same BULK writeback / clean-park machinery preemption uses.  The
+        residue and the page count ride along as one more far-tier entry,
+        ``(rid, "aux")``; :meth:`fetch_finished` reassembles the
+        sequence, or, under a PREFILL role, a DECODE engine's
+        :meth:`~repro_torch.serve.admission.AdmissionMixin.admit_handoff`
+        adopts it."""
+        slot = req.slot
+        rid = req.rid
+        tokens = min(int(self.cache.pos[slot]), self.slot_tokens)
+        aux = extract_aux_slot(self.cache, slot, self.max_batch)
+        self.far_tier.offload(
+            (rid, "aux"),
+            {"aux": aux, "tokens": tokens,
+             "pages": pages_for(tokens, self.page_size)})
+        # every page goes far (hot_pages=0): the sequence is leaving the
+        # device; shared prefix pages park for free via their aliases
+        self._shed_pages(req, tokens, hot_pages=0)
+
+    def _publish_handoff(self, req: Request) -> None:
+        """PREFILL-role graduation, control-plane half: the pages and the
+        residue are already in the shared tier (:meth:`_offload_finished`);
+        publish the identity/SLO record the decode engine admits by,
+        strictly *after* every tier entry exists (a record never
+        dangles)."""
+        meta = self.far_tier.home((req.rid, "aux"))
+        rec = HandoffRecord(
+            rid=req.rid, prompt=np.asarray(req.prompt),
+            max_new_tokens=req.max_new_tokens, eos_id=req.eos_id,
+            n_tokens=meta["tokens"], n_pages=meta["pages"],
+            generated=list(req.generated), token_ts=list(req.token_ts),
+            tier=req.tier, ttft_slo=req.ttft_slo, tpot_slo=req.tpot_slo,
+            arrival_t=req.arrival_t, submitted_t=req.submitted_t,
+            first_token_t=req.first_token_t, done=req.done)
+        self.handoff.publish(rec)
+        self.stats["handoffs"] += 1
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "requests", f"req{req.rid}", "handoff",
+                {"n_pages": rec.n_pages, "n_tokens": rec.n_tokens,
+                 "done": rec.done})
+        self.events.post(EventKind.HANDOFF, req.rid)
+
+    def fetch_finished(self, rid: int) -> Cache:
+        """Reassemble a finished, offloaded request's single-sequence
+        :class:`~repro_torch.models.model.Cache` from its far-tier pages
+        (LATENCY aloads, all started before the first wait, through the
+        pager's fault-safe :meth:`~repro_torch.paging.Pager.fetch_keys`).
+        K and V come back as host tensors (L, 1, slot_tokens, Hkv, D) of
+        the pool's dtype, bf16 for a quantized pool, whose pages are
+        dequantized by their own (L, Hkv) scale pair; positions past the
+        sequence are zero.
+
+        Fault-safe: entries are discarded only after *every* transfer
+        has verifiably landed — a fault mid-fetch raises, the far copies
+        survive and a retry starts the lost aloads again."""
+        if not self.offload_finished:
+            raise PagingError("engine was not built with offload_finished")
+        tier = self.far_tier
+        meta = tier.get((rid, "aux"))
+        n_pages, tokens = meta["pages"], meta["tokens"]
+        keys = [(rid, logical) for logical in range(n_pages)]
+        # overlapped fetch; discards only after every payload landed
+        payloads = self.pager.fetch_keys(keys, discard_after=True)
+        kv = self.cache.kv
+        pool_dt = kv["k_pages"].dtype
+        quant = "k_scales" in kv
+        L, _, page, Hkv, D = kv["k_pages"].shape
+        pages = []
+        for logical, key in enumerate(keys):
+            data = payloads[key]
+            take = min(page, tokens - logical * page)
+            if take <= 0:
+                break
+            k, v = data["k"], data["v"]
+            if quant:
+                # the payload's bytes are the pool's int8 / fp8 codes
+                k = k.view(pool_dt).float() \
+                    * data["k_scale"][:, None, :, None]
+                v = v.view(pool_dt).float() \
+                    * data["v_scale"][:, None, :, None]
+            pages.append({"k": k[:, None, :take], "v": v[:, None, :take]})
+        tier.discard((rid, "aux"))
+        aux = meta["aux"]
+        kdt = torch.bfloat16 if quant else pool_dt
+        residue = Cache(
+            kv={"k": torch.zeros((L, 1, 0, Hkv, D), dtype=kdt),
+                "v": torch.zeros((L, 1, 0, Hkv, D), dtype=kdt),
+                "pos": torch.zeros((), dtype=torch.int32),
+                "slots": torch.tensor(self.slot_tokens, dtype=torch.int32)},
+            ssm=aux["ssm"], cross=aux["cross"], pos=aux["pos"])
+        return join_kv_pages(residue, pages, self.slot_tokens)

@@ -112,13 +112,20 @@ def test_random_init_serves_smoke_config():
 
 
 @pytest.mark.parametrize("change", [
-    {"role": "prefill"},
-    {"chunking": tconf.ChunkingConfig(chunk_tokens=8, prefix_cache=True)},
+    {"role": "prefill",
+     "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
+    {"role": "decode",
+     "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
     {"chunking": tconf.ChunkingConfig(chunk_tokens=None)},
     {"paging": tconf.PagingConfig(enabled=False)},
-    {"paging": tconf.PagingConfig(offload_finished=True)},
+    {"paging": tconf.PagingConfig(offload_finished=True),
+     "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
 ])
 def test_unported_options_raise(change):
+    """Options the JAX engine accepts and the port does not serve yet:
+    the roles and finished-sequence offload are served, so their cases
+    pair them with unset ``chunk_tokens`` (the dense-prefill fallback),
+    which the port still refuses."""
     cfg = get_smoke("phi4-mini-3.8b")
     econf = dataclasses.replace(tconf.EngineConfig(device="cpu"), **change)
     with pytest.raises(NotImplementedError):
