@@ -229,10 +229,48 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    bitwise, at a decode step's and a chunk's shapes.  Phase 5's "verify
    row s == decode step s" is not asked of MoE: the expert capacity
    depends on the rows a step routes, as in the reference.
+8. frees olmoe's weights and serves phase 3's 12 requests with phase
+   3's settings on ``mistral-nemo-12b`` at full width (40 layers, d_model
+   5120, 32 / 8 heads of 128, d_ff 14336, vocab 131072; random weights
+   drawn in bf16 on the card, 22.8 GiB): every request finishes with 32
+   tokens, the paged decode and prefill kernels launch, the pager
+   preempts and resumes, a roomy pool gives the same tokens; then twice
+   more, (a) with ``chunk_tokens`` unset and buckets 512-2048, so the
+   dense prefill admits every prompt, and (b) with paging off (a dense
+   per-slot cache): in each the bf16 dense flash attention (kernel 4)
+   launches once a layer a dense prefill (12 x 40), and in (a) request
+   0's layer-0 K in the frames ``_install_sequence`` wrote must be within
+   phase 2's bars of the chunk queue's;
+8s. one dense prefill as the engine runs it, nemo's 1000-token prompt in
+   its 1024 bucket and h2o-danube-1.8b's 5000-token prompt in a 6144
+   bucket (window 4096, D 80): kernel 4 launches once a layer, the
+   logits at the last real token are finite, and kernel 4 on layer 0's
+   q, k, v holds against its plain version within phase 2's bars;
+8w. serves 12 requests on ``h2o-danube-1.8b`` at full width (24 layers,
+   32 / 8 heads of 80, window 4096) with ``DANUBE_ENGINE``: a 4096-token
+   ring of 256 pages, 896 frames of 983,040 bytes; 8 prompts of
+   512-1536 tokens and one of 4080 (its decode wraps the ring) through
+   the chunk queue, 3 of 4500-6000 through the dense prefill: every
+   request finishes, kernels 1, 2 and 4 launch, 3 dense prefills, the
+   pager preempts and resumes, a roomy pool gives the same tokens;
+8c / 8v. ``command-r-plus-104b`` (qk-norm, tied embeddings, logit scale
+   0.0625) cut to 4 of its 64 layers and ``qwen2-vl-72b`` (M-RoPE) cut to
+   8 of its 80, at full width, on phase 3's requests and settings: every
+   request finishes, kernels 1 and 2 launch, a roomy pool gives the same
+   tokens, and qwen's tokens equal a run of its weights with
+   ``mrope_sections=()`` (text positions: equal t / h / w ids); each
+   model's weights are freed before the next is drawn;
+then runs ``repro_torch.launch.serve_engine`` as a user calls it, on
+the card: all 10 requests finish, the paged decode and prefill kernels
+launch, and its step, chunk, preemption and resume counts equal a CPU
+run's.  Each engine run prints tok/s, mean TTFT, steps, chunks, dense
+prefills, peak memory and a sha256 of its tokens.
 
 It prints the card's name and power limit first, then the lines of each
-phase, then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
-...}``.  Without a CUDA device it exits non-zero before any result.
+phase, then ``{"kernels": [...]}`` (the bf16 paged decode, paged prefill
+and dense flash rows also carry ``engine_launches``, their launches in
+each engine run of phases 8, 8 (a), 8 (b) and 8w) and, last, ``{"ok":
+true, "device": ...}``.  Without a CUDA device it exits non-zero before any result.
 
 ``--profile-out PATH`` adds one more engine run of phase 3, one of
 phase 4's oracle run, one of phase 3q's int8 run and one of phase 7's
@@ -277,17 +315,18 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
-from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.launch import quickstart, serve_engine  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (dense, embed, rms_norm,  # noqa: E402
                                        rope, swiglu, unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
                                       init_paged_cache, init_params,
-                                      prefill_chunk, verify_step)
+                                      prefill, prefill_chunk, verify_step)
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E402
                                       PagingConfig, SchedulerConfig,
                                       SpeculationConfig)
-from repro_torch.paging import PREFIX_SEQ, PageState  # noqa: E402
+from repro_torch.paging import PREFIX_SEQ, PageState, pages_for  # noqa: E402
 from repro_torch.serve.disagg import (make_shared_tier,  # noqa: E402
                                       run_disaggregated, tier_pager_factory)
 from repro_torch.serve.engine import Engine  # noqa: E402
@@ -331,6 +370,23 @@ PREFIX_TOKENS, PREFIX_TAIL = 1024, (128, 512)
 #: full-width page bytes, tests/test_torch_prefix.py)
 PREFIX_FAR_PAGES = 190
 #: pool element types: bf16 ("none") and the quantized pool's frames
+#: phases 8-8v: the rest of the dense family on the engine
+NEMO_ARCH, DANUBE_ARCH = "mistral-nemo-12b", "h2o-danube-1.8b"
+COMMANDR_ARCH, QWEN_ARCH = "command-r-plus-104b", "qwen2-vl-72b"
+#: phase 8 (a) and (b): the dense prefill's buckets for phase 3's prompts
+DENSE_BUCKETS = (512, 1024, 1536, 2048)
+#: phase 8w: the 4096-token ring of 256 pages; 896 frames of 983,040
+#: bytes, under half of a roomy pool's 8 * 256 (the CPU rehearsal at the
+#: smoke width with full-width page bytes preempts and resumes)
+DANUBE_ENGINE = dict(max_batch=8, max_len=6144, page_size=16,
+                     device_pages=896, chunk_tokens=256, chunk_slots=2)
+#: phase 8w's prompts: through the chunk queue, one whose decode wraps
+#: the ring, and through the dense fallback (longer than the ring)
+DANUBE_SHORT, DANUBE_WRAP, DANUBE_LONG = (512, 1536), 4080, (4500, 6000)
+#: phases 8c and 8v: the depth each cell keeps (of 64 and 80 layers)
+COMMANDR_LAYERS, QWEN_LAYERS = 4, 8
+#: phase 8s: (arch, prompt tokens, bucket)
+DENSE_PREFILL_CASES = ((NEMO_ARCH, 1000, 1024), (DANUBE_ARCH, 5000, 6144))
 MODES = ("none", "int8", "fp8")
 QUANT_MODES = ("int8", "fp8")
 
@@ -1567,6 +1623,48 @@ def serve(cfg, params, device, device_pages, clock=None,
     return eng, out, time.perf_counter() - t0
 
 
+def danube_prompts(vocab: int):
+    """Phase 8w's 12 prompts: 8 of ``DANUBE_SHORT`` tokens, one of
+    ``DANUBE_WRAP`` and 3 of ``DANUBE_LONG``, in an order drawn from the
+    seed."""
+    rng = np.random.default_rng(SEED + 5)
+    lens = [int(rng.integers(DANUBE_SHORT[0], DANUBE_SHORT[1] + 1))
+            for _ in range(8)]
+    lens += [DANUBE_WRAP] + [int(rng.integers(DANUBE_LONG[0],
+                                              DANUBE_LONG[1] + 1))
+                             for _ in range(3)]
+    lens = [lens[i] for i in rng.permutation(len(lens))]
+    return [rng.integers(0, vocab, n) for n in lens]
+
+
+def danube_config(device, device_pages, clock=None, pager_factory=None):
+    """Phase 8w's engine settings (``DANUBE_ENGINE``) on ``device_pages``
+    frames."""
+    e = DANUBE_ENGINE
+    return EngineConfig(
+        max_batch=e["max_batch"], max_len=e["max_len"], device=device,
+        paging=PagingConfig(page_size=e["page_size"],
+                            device_pages=device_pages,
+                            pager_factory=pager_factory),
+        chunking=ChunkingConfig(chunk_tokens=e["chunk_tokens"],
+                                chunk_slots=e["chunk_slots"]),
+        scheduler=SchedulerConfig(policy="watermark", clock=clock))
+
+
+def dense_config(device, paging: bool = True, clock=None,
+                 pager_factory=None):
+    """Phase 8's (a) and (b): phase 3's settings with ``chunk_tokens``
+    unset and ``DENSE_BUCKETS``, on its pool (a) or with paging off
+    (b)."""
+    econf = engine_config(device, ENGINE["device_pages"], clock,
+                          pager_factory=pager_factory)
+    return dataclasses.replace(
+        econf, prefill_buckets=DENSE_BUCKETS,
+        paging=dataclasses.replace(econf.paging,
+                                   enabled=None if paging else False),
+        chunking=dataclasses.replace(econf.chunking, chunk_tokens=None))
+
+
 def prefix_prompts(vocab: int):
     """Phase 3p's prompts: one shared system prompt of
     ``PREFIX_TOKENS`` and a unique tail of ``PREFIX_TAIL`` tokens each."""
@@ -1964,6 +2062,296 @@ def check_moe_steps(cfg, params, dev):
                 "kernel gathers' output is not bitwise the plain gathers'")
         print(f"[moe:steps] moe_block {nrows} x {S} x {cfg.d_model}: kernel "
               "gathers bitwise the plain gathers")
+
+
+#: the kernels phases 8-8v count: the paged decode, prefill and verify
+#: instances, and the bf16 dense flash attention (kernel 4), which runs
+#: the dense prefill
+FLASH_BF16 = pre_mod.DENSE_KERNELS[torch.bfloat16]
+ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16)
+
+
+def big_params(arch: str, dev, tag: str, layers: int = 0):
+    """Random bf16 weights of ``arch`` at full width (``layers`` cuts the
+    depth), drawn from the seed straight in bf16 on the card: an f32 draw
+    of mistral-nemo-12b would need 49 GB beside its 24.5 GB of bf16.
+    Returns (config, params)."""
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16",
+                              **({"num_layers": layers} if layers else {}))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {arch} ({cfg.num_layers} layers) params ready in "
+          f"{time.perf_counter() - t0:.3f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params
+
+
+def free_params() -> None:
+    """Return a dropped model's weights to the allocator before the next
+    model is drawn."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_engine(tag: str, cfg, params, econf, ps, hook=None):
+    """Serve ``ps`` (``NEW_TOKENS`` each) on an engine of ``econf``, the
+    launch counts of :data:`ENGINE_KERNELS` set to 0 just before and read
+    just after; ``hook(engine)`` runs before the first submit.  Prints
+    tok/s, mean TTFT, steps, chunks, dense prefills, peak memory and a
+    sha256 of the tokens; every request must finish with its count.
+    Returns (engine, outputs, launches by kernel name)."""
+    reset_peak()
+    for k in ENGINE_KERNELS:
+        k.launches = 0
+    eng = Engine(cfg, params, econf)
+    if hook is not None:
+        hook(eng)
+    for p in ps:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ENGINE_KERNELS}
+    st = eng.stats
+    n_tok = sum(len(v) for v in out.values())
+    ttft = [r.ttft for r in eng.finished.values()]
+    print(f"[{tag}] {len(out)} requests, {n_tok} tokens in {wall:.2f}s "
+          f"({n_tok / wall:.1f} tok/s), mean TTFT {np.mean(ttft):.3f}s, "
+          f"steps {st['steps']} (mixed {st['mixed_steps']}), chunks "
+          f"{st['chunks']}, dense prefills {st['prefills']}, preemptions "
+          f"{st['preemptions']} resumes {st['resumes']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+          f"launches { {n: c for n, c in launches.items() if c} }")
+    print(f"[{tag}] tokens digest {tokens_digest(out)}")
+    require(len(out) == len(ps), f"{tag}: {len(out)} of {len(ps)} finished")
+    require(all(len(v) == NEW_TOKENS for v in out.values()),
+            f"{tag}: token counts")
+    require(all(0 <= t < cfg.padded_vocab for v in out.values() for t in v),
+            f"{tag}: token ids out of the vocabulary")
+    return eng, out, launches
+
+
+def same_tokens(tag: str, out, ref, what: str, required: bool = True):
+    """Print (and, where ``required``, demand) how many tokens of ``out``
+    equal ``ref``'s."""
+    n = sum(len(v) for v in ref.values())
+    same = sum(a == b for r in ref for a, b in zip(ref[r], out[r]))
+    print(f"[{tag}] tokens equal to {what}: {same}/{n}")
+    require(not required or same == n, f"{tag}: tokens differ from {what}")
+
+
+def layer0_frames(eng, req, n_tokens: int) -> torch.Tensor:
+    """Layer 0's K over a request's first ``n_tokens`` positions, read from
+    the pool frames its page-table row maps, (n_tokens, Hkv, D)."""
+    n_pg = pages_for(n_tokens, eng.page_size)
+    frames = torch.from_numpy(eng._pt_np[req.slot, :n_pg].astype(
+        np.int64)).to(eng.device)
+    kp = eng.cache.kv["k_pages"][0].index_select(0, frames)
+    return kp.reshape(-1, *kp.shape[2:])[:n_tokens].clone()
+
+
+def snapshot_request0(eng, store: dict, method: str) -> None:
+    """Wrap ``eng.<method>`` (``_install_sequence``, the dense prefill's
+    scatter, or ``_finalize_prefill``, the chunk queue's graduation) so
+    that request 0's layer-0 K over its prompt is copied from its frames
+    right after it."""
+    inner = getattr(eng, method)
+
+    def wrapped(req, *args):
+        inner(req, *args)
+        if req.rid == 0:
+            store[method] = layer0_frames(eng, req, len(req.prompt))
+    setattr(eng, method, wrapped)
+
+
+def check_dense_prefill(tag: str, cfg, params, plen: int, bucket: int,
+                        dev) -> dict:
+    """Phase 8s: one dense prefill of a ``plen``-token prompt padded to
+    ``bucket``, as the engine runs it: kernel 4 launches once a layer and
+    the logits at ``plen - 1`` are finite; then kernel 4 on layer 0's q,
+    k, v of the same prompt held against its plain version within phase
+    2's bars, both timed."""
+    rng = np.random.default_rng(SEED + 6)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :plen] = rng.integers(0, cfg.vocab_size, plen)
+    toks = torch.from_numpy(toks).to(dev)
+    FLASH_BF16.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(params, cfg, toks, max_len=bucket,
+                                last_pos=torch.tensor([plen - 1], device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FLASH_BF16.launches
+    require(tuple(logits.shape) == (1, cfg.padded_vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{tag}: prefill logits {tuple(logits.shape)} not finite")
+    require(launches == cfg.num_layers, f"{tag}: kernel 4 launched "
+            f"{launches} times for {cfg.num_layers} layers")
+    window = cfg.window if cfg.attention == "swa" else 0
+    def first(tree):
+        return {k: first(v) if isinstance(v, dict) else v[0]
+                for k, v in tree.items()}
+
+    with torch.no_grad():
+        layer = first(params["layers"]["attn"])
+        norm = first(params["layers"]["attn_norm"])
+        cdt = getattr(torch, cfg.compute_dtype)
+        h = rms_norm(norm, embed(params["embed"], toks, cdt), cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(layer, cfg, h, cdt)
+        pos = torch.arange(bucket, dtype=torch.int32, device=dev)[None]
+        q, k = attn_mod._position_encode(cfg, q, k,
+                                         attn_mod.text_positions(cfg, pos))
+
+        def call(impl):
+            return ops.flash_attention(q, k, v, causal=True, window=window,
+                                       impl=impl)
+        err, row = agree(f"{tag}: kernel 4 at layer 0", call("cuda"),
+                         call("torch"))
+        ms = time_ms(lambda: call("cuda"))
+        plain = time_ms(lambda: call("torch"), reps=3, warmup=1)
+    print(f"[{tag}] dense prefill of {plen} tokens in its {bucket} bucket"
+          f"{f' (window {window})' if window else ''}: {wall:.3f}s, kernel 4 "
+          f"launches {launches}, logits at {plen - 1} finite; layer 0's "
+          f"kernel 4 vs plain: max_abs_err {err:.3e} row_err {row:.3e}, "
+          f"kernel_ms {ms:.4f} plain_ms {plain:.4f}; ring of "
+          f"{cache.kv['k'].shape[2]} positions")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+
+
+def serve_nemo(dev) -> dict:
+    """Phase 8: mistral-nemo-12b at full width on phase 3's settings and
+    requests, then on a roomy pool, then (a) with the dense prefill
+    admitting every prompt and (b) with paging off; then phase 8s's
+    nemo prefill.  Returns each run's launch counts."""
+    cfg, params = big_params(NEMO_ARCH, dev, "nemo")
+    ps = prompts(cfg.vocab_size)
+    snaps = {}
+    eng, out, l8 = run_engine(
+        "nemo", cfg, params,
+        engine_config("cuda", ENGINE["device_pages"], time.perf_counter), ps,
+        hook=lambda e: snapshot_request0(e, snaps, "_finalize_prefill"))
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL):
+        require(l8[k.name] > 0, f"nemo: kernel {k.name} never launched")
+    require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
+            "nemo: the pool never preempted/resumed")
+    del eng
+    pps = ENGINE["max_len"] // ENGINE["page_size"]
+    _, rout, _ = run_engine("nemo:roomy", cfg, params, engine_config(
+        "cuda", ENGINE["max_batch"] * pps), ps)
+    same_tokens("nemo:roomy", rout, out, "the preempting run's")
+    runs = {"8": l8}
+    for tag, paging in (("8a", True), ("8b", False)):
+        name = f"nemo:{'dense' if paging else 'nonpaged'}"
+        eng, dout, launches = run_engine(
+            name, cfg, params,
+            dense_config("cuda", paging=paging, clock=time.perf_counter), ps,
+            hook=(lambda e: snapshot_request0(e, snaps, "_install_sequence"))
+            if paging else None)
+        want = N_REQUESTS * cfg.num_layers
+        require(eng.stats["prefills"] == N_REQUESTS and eng.stats["chunks"]
+                == 0, f"{name}: {eng.stats['prefills']} dense prefills, "
+                f"{eng.stats['chunks']} chunks")
+        require(launches[FLASH_BF16.name] == want, f"{name}: kernel 4 "
+                f"launched {launches[FLASH_BF16.name]} times, not {want}")
+        require(paging or launches[dec_mod.KERNEL.name] == 0,
+                f"{name}: the paged decode kernel ran without a pool")
+        same_tokens(name, dout, out, "the chunk queue's", required=False)
+        runs[tag] = launches
+        del eng
+    err, row = agree("nemo: request 0's layer-0 K installed by the dense "
+                     "prefill vs the chunk queue's",
+                     snaps["_install_sequence"], snaps["_finalize_prefill"])
+    print(f"[nemo] request 0's layer-0 K in its frames, dense prefill vs "
+          f"chunk queue ({snaps['_install_sequence'].shape[0]} positions): "
+          f"max_abs_err {err:.3e} row_err {row:.3e}")
+    check_dense_prefill("8s:nemo", cfg, params, *DENSE_PREFILL_CASES[0][1:],
+                        dev)
+    return runs
+
+
+def serve_danube(dev) -> dict:
+    """Phase 8w: h2o-danube-1.8b at full width on ``DANUBE_ENGINE``: the
+    chunk queue, a decode that wraps the 4096-token ring and three dense
+    prefills past it, preempting; then a roomy pool; then phase 8s's
+    danube prefill.  Returns the preempting run's launch counts."""
+    cfg, params = big_params(DANUBE_ARCH, dev, "danube")
+    ps = danube_prompts(cfg.vocab_size)
+    long = sum(len(p) > cfg.window for p in ps)
+    print(f"[danube] prompts {[len(p) for p in ps]}: {long} longer than "
+          f"the {cfg.window}-token ring")
+    eng, out, launches = run_engine(
+        "danube", cfg, params,
+        danube_config("cuda", DANUBE_ENGINE["device_pages"],
+                      time.perf_counter), ps)
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL, FLASH_BF16):
+        require(launches[k.name] > 0, f"danube: kernel {k.name} never "
+                "launched")
+    require(eng.stats["prefills"] == long == 3,
+            f"danube: {eng.stats['prefills']} dense prefills, {long} "
+            "prompts past the ring")
+    require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
+            "danube: the pool never preempted/resumed")
+    require(eng.pager.page_nbytes == 983_040,
+            f"danube: page_nbytes {eng.pager.page_nbytes}")
+    del eng
+    roomy = DANUBE_ENGINE["max_batch"] * (cfg.window
+                                          // DANUBE_ENGINE["page_size"])
+    _, rout, _ = run_engine("danube:roomy", cfg, params,
+                            danube_config("cuda", roomy), ps)
+    same_tokens("danube:roomy", rout, out, "the preempting run's")
+    check_dense_prefill("8s:danube", cfg, params,
+                        *DENSE_PREFILL_CASES[1][1:], dev)
+    return launches
+
+
+def serve_cut(arch: str, layers: int, dev, tag: str) -> None:
+    """Phases 8c and 8v: ``arch`` at full width, depth cut to ``layers``,
+    on phase 3's settings and requests, then a roomy pool; with M-RoPE,
+    also the same weights with ``mrope_sections=()``, whose tokens must
+    be the same (text positions give equal t / h / w ids)."""
+    cfg, params = big_params(arch, dev, tag, layers)
+    ps = prompts(cfg.vocab_size)
+    econf = engine_config("cuda", ENGINE["device_pages"], time.perf_counter)
+    eng, out, launches = run_engine(tag, cfg, params, econf, ps)
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL):
+        require(launches[k.name] > 0, f"{tag}: kernel {k.name} never "
+                "launched")
+    del eng
+    pps = ENGINE["max_len"] // ENGINE["page_size"]
+    _, rout, _ = run_engine(f"{tag}:roomy", cfg, params, engine_config(
+        "cuda", ENGINE["max_batch"] * pps), ps)
+    same_tokens(f"{tag}:roomy", rout, out, "the preempting run's")
+    if cfg.mrope_sections:
+        _, pout, _ = run_engine(
+            f"{tag}:rope", dataclasses.replace(cfg, mrope_sections=()),
+            params, econf, ps)
+        same_tokens(f"{tag}:rope", pout, out, "the M-RoPE run's")
+
+
+def run_serve_engine_example() -> dict:
+    """``repro_torch.launch.serve_engine`` as a user calls it, on the
+    card: all 10 requests finish, the paged decode and prefill kernels
+    launch, and its step, chunk, preemption and resume counts equal a
+    CPU run's (the schedule does not depend on token values)."""
+    for k in ENGINE_KERNELS:
+        k.launches = 0
+    card = serve_engine.main([])
+    launches = {k.name: k.launches for k in ENGINE_KERNELS}
+    cpu = serve_engine.main(["--device", "cpu"])
+    print(f"[serve_engine] card {card}, cpu {cpu}; kernel launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    require(card["requests"] == 10, "serve_engine: requests")
+    for k in (dec_mod.KERNEL, pre_mod.KERNEL):
+        require(launches[k.name] > 0, f"serve_engine: kernel {k.name} "
+                "never launched")
+    for key in ("steps", "chunks", "preemptions", "resumes"):
+        require(card[key] == cpu[key], f"serve_engine: {key} {card[key]} "
+                f"on the card, {cpu[key]} on the CPU")
+    return launches
 
 
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
@@ -2553,6 +2941,23 @@ def main(argv=None) -> int:
         profile_engine(moe_cfg, moe_params, (
             ("olmoe", None, "none", _suffixed(out_path, "olmoe")),))
 
+    # 8-8v. the rest of the dense family on the engine, each model's
+    #    weights freed before the next one is drawn: mistral-nemo-12b
+    #    (with the dense prefill and the non-paged engine), h2o-danube-1.8b
+    #    past its window, command-r-plus-104b and qwen2-vl-72b cut in
+    #    depth; then the serve_engine example on the card
+    del moe_params
+    free_params()
+    engine_runs = serve_nemo(dev)
+    free_params()
+    engine_runs["8w"] = serve_danube(dev)
+    free_params()
+    serve_cut(COMMANDR_ARCH, COMMANDR_LAYERS, dev, "commandr")
+    free_params()
+    serve_cut(QWEN_ARCH, QWEN_LAYERS, dev, "qwen")
+    free_params()
+    run_serve_engine_example()
+
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
     for i, mode in enumerate(MODES):
@@ -2563,6 +2968,13 @@ def main(argv=None) -> int:
         rows[3 * i]["launches"] = plain[dec_mod.KERNELS[dt].name]
         rows[3 * i + 1]["launches"] = plain[pre_mod.KERNELS[dt].name]
         rows[3 * i + 2]["launches"] = spec[dec_mod.VERIFY_KERNELS[dt].name]
+    # and the bf16 decode, prefill and dense flash kernels' launches in
+    # each engine run of phases 8 (a: dense prefill, b: no pool) and 8w
+    flash_row = next(r for r in dense_rows if r["name"] == FLASH_BF16.name)
+    for row, kernel in ((rows[0], dec_mod.KERNEL), (rows[1], pre_mod.KERNEL),
+                        (flash_row, FLASH_BF16)):
+        row["engine_launches"] = {tag: runs[kernel.name]
+                                  for tag, runs in engine_runs.items()}
     print(json.dumps({"kernels": rows + dense_rows + gather_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

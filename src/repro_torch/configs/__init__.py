@@ -2,9 +2,11 @@
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_smoke(arch_id)`` returns a reduced same-family config for CPU tests.
-Registered: the dense ``phi4-mini-3.8b`` and the MoE ``olmoe-1b-7b``
-(64 experts top-8 on every layer); the other architectures arrive with
-their model families.
+Registered: the dense decoders ``phi4-mini-3.8b``, ``mistral-nemo-12b``,
+``h2o-danube-1.8b`` (sliding window), ``command-r-plus-104b`` (qk-norm,
+tied embeddings) and ``qwen2-vl-72b`` (M-RoPE), and the MoE
+``olmoe-1b-7b`` (64 experts top-8 on every layer); the other
+architectures arrive with their model families.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -4,6 +4,9 @@ requests.
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --requests 8 --max-new 12 --chunk-tokens 256 --device cuda
 
+``--arch`` takes every registered architecture
+(:data:`repro_torch.configs.ARCH_IDS`: phi4-mini-3.8b, olmoe-1b-7b,
+mistral-nemo-12b, h2o-danube-1.8b, command-r-plus-104b, qwen2-vl-72b).
 Every engine flag is auto-generated from the
 :class:`repro_torch.serve.config.EngineConfig` dataclass fields (one flag
 per knob, help text included), including ``--device {cuda,cpu}``
@@ -12,9 +15,11 @@ weights are random, drawn from ``--seed`` on the device; ``--smoke``
 picks the architecture's reduced config.  ``--speculate-k K`` turns on
 self-speculative verify-K decode, ``--kv-quant {int8,fp8}`` the
 quantized page pool (int8 / fp8 frames with per-(frame, KV head)
-scales), ``--prefix-cache`` cross-request prefix sharing and
-``--offload-finished`` the finished-sequence far-tier store.  Script
-extras:
+scales), ``--prefix-cache`` cross-request prefix sharing,
+``--offload-finished`` the finished-sequence far-tier store,
+``--chunk-tokens 0`` the whole-prompt dense prefill at admission (padded
+to ``--prefill-buckets N,N,...``; prompts longer than an SWA slot take
+it anyway).  Script extras:
 
   * ``--shared-prefix N`` prepends the same N tokens to every prompt
     (system-prompt traffic, which makes ``--prefix-cache`` visible),
@@ -26,9 +31,6 @@ extras:
     ``--role decode --handoff-spool d.pkl`` adopts that spool in a
     separate process (the two-process version of ``--disagg``; both
     draw the same weights from ``--seed``).
-
-Options the port does not serve yet (the dense per-slot cache, unset
-``--chunk-tokens``) raise ``NotImplementedError`` from the engine.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.models.model import init_params
 from repro_torch.serve.config import add_config_args, config_from_args
 from repro_torch.serve.disagg import (make_shared_tier, run_disaggregated,
@@ -77,13 +79,20 @@ def _report(eng, econf, out, wall) -> None:
     if lat:
         print(f"[serve] mean TTFT {np.mean(ttft)*1e3:.0f} ms, "
               f"mean latency {np.mean(lat)*1e3:.0f} ms (virtual clock)")
-    print(f"[serve] page pool {eng.page_pool.n_pages} x "
-          f"{eng.page_size} tok, {eng.cache.kv['k_pages'].dtype} frames of "
-          f"{eng.pager.page_nbytes} B: preemptions {eng.stats['preemptions']}, "
-          f"resumes {eng.stats['resumes']}, pager {dict(eng.pager.stats)}")
+    if eng.paging:
+        print(f"[serve] page pool {eng.page_pool.n_pages} x "
+              f"{eng.page_size} tok, {eng.cache.kv['k_pages'].dtype} frames "
+              f"of {eng.pager.page_nbytes} B: preemptions "
+              f"{eng.stats['preemptions']}, resumes {eng.stats['resumes']}, "
+              f"pager {dict(eng.pager.stats)}")
+    else:
+        print(f"[serve] dense per-slot cache, "
+              f"{eng.cache.kv['k'].dtype} K/V of "
+              f"{tuple(eng.cache.kv['k'].shape)}")
     print(f"[serve] chunked prefill: {eng.stats['chunks']} chunks of "
           f"<= {eng.chunk_tokens} tok across "
-          f"{eng.stats['mixed_steps']} mixed steps")
+          f"{eng.stats['mixed_steps']} mixed steps; dense prefills "
+          f"{eng.stats['prefills']} (buckets {eng.buckets})")
     if eng.speculating:
         s = eng.stats
         mean_k = s["accepted"] / max(1, s["spec_steps"])
@@ -169,7 +178,7 @@ def _run_role(args, econf, cfg, params, rng):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12,

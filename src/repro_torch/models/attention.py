@@ -1,4 +1,4 @@
-"""Attention blocks on the paged KV pool: the serving subset of
+"""Attention blocks, paged and dense: the serving subset of
 ``repro.models.attention``.
 
 The decode, verify and prefill blocks compute directly on the pool
@@ -22,6 +22,22 @@ scales, handed to each block as ``scales=(k_scales, v_scales)`` of the
 layer, (N, Hkv); its scatters are the quantize-and-scatter of
 :mod:`repro_torch.kernels.kv_quant` (in place, scales too), and the
 attention ops dequantize with the scales.
+
+The dense layout serves the whole-prompt prefill and the non-paged
+engine: :func:`attention_block` attends a whole (padded) prompt through
+``ops.flash_attention`` (the dense flash attention kernel on the card,
+causal, the SWA ``window``; its plain version :func:`chunked_attention`
+on the CPU, the reference's dense-prefill arithmetic), and
+:func:`decode_attention_block` decodes one token against the per-slot
+cache of :func:`init_kv_cache` (an SWA ring of ``min(max_len, window)``
+slots).  That block keeps the plain :func:`one_token_attention`, as the
+reference does: the dense decode kernel (``ops.decode_attention``), like
+the TPU kernel it ports, takes one valid length for the whole batch,
+and a batch of slots at different depths needs one per row.
+
+With ``cfg.mrope_sections`` (qwen2-vl) positions are (3, B, S) t / h / w
+ids; the engine carries text, so every block broadcasts its (B, S)
+positions to three equal rows, as the reference does.
 """
 
 from __future__ import annotations
@@ -36,9 +52,10 @@ from repro_torch.kernels.decode_attention import NEG_INF, one_token_attention
 from repro_torch.kernels.flash_attention import chunked_attention
 from repro_torch.kernels.kv_quant import (KVQuantConfig, quant_scatter_multi,
                                           quant_scatter_token)
-from repro_torch.models.layers import dense, rms_norm, rope
+from repro_torch.models.layers import dense, mrope, rms_norm, rope
 
-__all__ = ["init_paged_kv_cache", "paged_decode_attention_block",
+__all__ = ["attention_block", "init_kv_cache", "decode_attention_block",
+           "init_paged_kv_cache", "paged_decode_attention_block",
            "paged_verify_block", "paged_prefill_block", "one_token_attention",
            "chunked_attention", "NEG_INF"]
 
@@ -59,10 +76,95 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
 
 
 def _position_encode(cfg: ModelConfig, q, k, positions):
+    """RoPE, or M-RoPE on (3, B, S) positions when ``cfg.mrope_sections``
+    is set."""
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet")
+        return (mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                      cfg.rope_theta)
+
+
+def text_positions(cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as the config's blocks take them: broadcast to
+    three equal (t, h, w) rows for M-RoPE, else as they are."""
+    if cfg.mrope_sections:
+        return positions.expand(3, *positions.shape)
+    return positions
+
+
+def _window(cfg: ModelConfig) -> int:
+    return cfg.window if cfg.attention == "swa" else 0
+
+
+def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, compute_dtype,
+                    impl: str = "auto"
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Whole-sequence causal self-attention (the dense prefill): x (B, S,
+    d), positions (B, S) or (3, B, S).  Attention is
+    ``ops.flash_attention`` with the SWA window: on a CUDA tensor the
+    dense flash kernel, or an error; on the CPU its plain version.
+    Returns (out (B, S, d), (k, v)), k / v (B, S, Hkv, D) RoPE'd, for the
+    prefill to cache."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, compute_dtype)
+    q, k = _position_encode(cfg, q, k, positions)
+    out = ops.flash_attention(q, k, v, causal=True, window=_window(cfg),
+                              impl=impl)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return dense(p["o"], out, compute_dtype), (k, v)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                  n_layers: Optional[int] = None,
+                  dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Stacked-over-layers dense KV cache: ``k``/``v`` (L, batch, slots,
+    Hkv, D) zeros, ``pos`` and ``slots`` int32 scalars.  SWA configs get
+    a ring of ``slots = min(max_len, window)`` positions (decode writes
+    position p at slot p % slots)."""
+    L = n_layers if n_layers is not None else cfg.num_layers
+    slots = min(max_len, cfg.window) if cfg.attention == "swa" else max_len
+    shape = (L, batch, slots, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "slots": torch.tensor(slots, dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention_block(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, 1, d)
+    layer_cache: Tuple[torch.Tensor, torch.Tensor],  # k,v (B, slots, Hkv, D)
+    pos: torch.Tensor,                   # (B,) int32: per-sequence position
+    *,
+    compute_dtype,
+) -> torch.Tensor:
+    """One-token attention against the layer's dense per-slot cache: the
+    new token's K/V is written at slot ``pos`` (``pos % slots`` in an
+    SWA ring, else clamped to the last slot), in place, then the plain
+    :func:`one_token_attention` reads ``min(pos + 1, slots)`` positions
+    of each row.  Returns the block output (B, 1, d)."""
+    B = x.shape[0]
+    kc, vc = layer_cache
+    slots = kc.shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
+    q, k_new = _position_encode(cfg, q, k_new,
+                                text_positions(cfg, pos[:, None]))
+    slot = (pos % slots if cfg.attention == "swa"
+            else torch.clamp(pos, max=slots - 1)).long()
+    rows = torch.arange(B, device=x.device)
+    kc.index_put_((rows, slot), k_new[:, 0].to(kc.dtype))
+    vc.index_put_((rows, slot), v_new[:, 0].to(vc.dtype))
+    valid = torch.clamp(pos + 1, max=slots)
+    out = one_token_attention(q.reshape(B, cfg.num_heads, cfg.head_dim),
+                              kc, vc, valid, cfg.num_kv_heads)
+    return dense(p["o"], out.to(compute_dtype), compute_dtype)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, n_frames: int, page_size: int,
@@ -150,7 +252,8 @@ def paged_decode_attention_block(
     page = kp.shape[1]
     slots = page_table.shape[1] * page           # token capacity per sequence
     q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
-    q, k_new = _position_encode(cfg, q, k_new, pos[:, None])
+    q, k_new = _position_encode(cfg, q, k_new,
+                                text_positions(cfg, pos[:, None]))
     slot = (pos % slots if cfg.attention == "swa"
             else torch.clamp(pos, max=slots - 1)).long()
     frame = page_table[torch.arange(B, device=x.device), slot // page].long()
@@ -197,7 +300,8 @@ def paged_verify_block(
     q, k_new, v_new = _project_qkv(p, cfg, x, compute_dtype)
     s_idx = torch.arange(S, dtype=torch.int32, device=x.device)
     abs_pos = pos[:, None] + s_idx[None, :]                  # (B, S)
-    q, k_new = _position_encode(cfg, q, k_new, abs_pos)
+    q, k_new = _position_encode(cfg, q, k_new,
+                                text_positions(cfg, abs_pos))
 
     ok = (s_idx[None, :] < length[:, None]) & (abs_pos < slots)
     page_idx = torch.clamp(abs_pos // page, 0, pages_per_seq - 1)
@@ -222,7 +326,7 @@ def paged_prefill_block(
     page_rows: torch.Tensor,             # (C, pages_per_seq) int32 frame ids
     offset: torch.Tensor,                # (C,) absolute position of x[:, 0]
     length: torch.Tensor,                # (C,) valid tokens in this chunk
-    positions: torch.Tensor,             # (C, T) absolute positions
+    positions: torch.Tensor,             # (C, T) or (3, C, T) positions
     *,
     compute_dtype,
     impl: str = "auto",
@@ -255,7 +359,6 @@ def paged_prefill_block(
 
     out = ops.paged_prefill_attention(
         q, kp, vp, page_rows, offset, length,
-        window=cfg.window if cfg.attention == "swa" else 0, impl=impl,
-        **_scale_kw(scales))
+        window=_window(cfg), impl=impl, **_scale_kw(scales))
     out = out.reshape(C, T, cfg.num_heads * cfg.head_dim).to(compute_dtype)
     return dense(p["o"], out, compute_dtype)

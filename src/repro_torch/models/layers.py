@@ -14,12 +14,12 @@ Conventions (as in the JAX package):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["dense", "rms_norm", "embed", "unembed", "rope", "rope_freqs",
-           "swiglu"]
+__all__ = ["dense", "rms_norm", "embed", "unembed", "rope", "mrope",
+           "rope_freqs", "swiglu"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -73,6 +73,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
     angles = positions[..., None].float() * freqs             # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    return _apply_rot(x.float(), cos, sin).to(x.dtype)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, sections: Sequence[int],
+          theta: float = 10_000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head_dim / 2 frequencies split
+    into (t, h, w) sections, each driven by its own row of positions.
+
+    x: (B, S, H, D); positions: (3, B, S) int (t / h / w ids, equal for
+    text, where the result is bitwise :func:`rope`'s)."""
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"{d_half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(list(sections), device=x.device))        # (D/2,)
+    pos = positions.float()[sec_ids].movedim(0, -1)           # (B, S, D/2)
+    angles = pos * freqs
+    cos = torch.cos(angles)[..., None, :]                     # (B, S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
     return _apply_rot(x.float(), cos, sin).to(x.dtype)
 

@@ -1,5 +1,11 @@
-"""Dense and MoE decoders on the paged KV pool: the serving subset of
-``repro.models.model``.
+"""Dense and MoE decoders: the serving subset of ``repro.models.model``.
+
+Two layouts of the attention KV: the paged pool (:class:`PagedCache`:
+one-token decode, speculative verify and chunked prefill compute on it
+through the page tables) and the dense per-slot cache (:class:`Cache`:
+the whole-prompt :func:`prefill` builds one, and :func:`decode_step`
+decodes on one, the non-paged engine's layout).  :func:`decode_step`
+takes either.
 
 The MoE family runs with an expert block on every layer
 (``moe_every == 1``, no shared expert): the reference's plain layer
@@ -22,19 +28,20 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (init_paged_kv_cache,
+from repro_torch.models.attention import (attention_block,
+                                          decode_attention_block,
+                                          init_kv_cache, init_paged_kv_cache,
                                           paged_decode_attention_block,
                                           paged_prefill_block,
-                                          paged_verify_block)
+                                          paged_verify_block, text_positions)
 from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
 from repro_torch.models.moe import moe_block, moe_init
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "cast_params", "Cache", "PagedCache",
-           "init_paged_cache",
-           "decode_step", "verify_step", "prefill_chunk", "torch_dtype",
-           "family_ported"]
+__all__ = ["init_params", "cast_params", "Cache", "PagedCache", "init_cache",
+           "init_paged_cache", "prefill", "decode_step", "verify_step",
+           "prefill_chunk", "torch_dtype", "family_ported"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -133,18 +140,29 @@ def _layer(tree: Params, l: int) -> Params:
 
 
 class Cache(NamedTuple):
-    """Single-sequence decode state in the dense layout, the container
-    of the JAX package's ``Cache``: ``kv`` the attention K/V (``k``/``v``
-    (L, B, S, Hkv, D) with ``pos``/``slots``), ``ssm`` the recurrent
-    state (``()`` for the dense and MoE families), ``cross`` the
-    cross-attention state (``{}`` for them), ``pos`` (B,) the next
-    absolute position.  The engine's
+    """Decode state in the dense layout, the JAX package's ``Cache``:
+    ``kv`` the attention K/V (``k``/``v`` (L, B, S, Hkv, D) with the
+    ``pos``/``slots`` scalars), ``ssm`` the recurrent state (``()`` for
+    the dense and MoE families), ``cross`` the cross-attention state
+    (``{}`` for them), ``pos`` (B,) each row's next absolute position.
+    :func:`prefill` returns one, the non-paged engine decodes on one of
+    ``max_batch`` rows, and the engine's
     :meth:`~repro_torch.serve.engine.Engine.fetch_finished` returns one
     reassembled from a finished sequence's far-tier pages."""
     kv: Dict[str, torch.Tensor]
     ssm: Any
     cross: Dict[str, torch.Tensor]
     pos: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device) -> Cache:
+    """A zero dense :class:`Cache` of ``batch`` rows (an SWA ring of
+    ``min(max_len, window)`` slots), positions 0."""
+    _check_family(cfg)
+    return Cache(kv=init_kv_cache(cfg, batch, max_len, device=device),
+                 ssm=(), cross={},
+                 pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 class PagedCache(NamedTuple):
@@ -174,17 +192,18 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                     cache: PagedCache, attn: Callable, cdt,
-                     impl: str) -> torch.Tensor:
-    """The dense or MoE layer stack shared by one-token decode,
-    speculative verify and chunked prefill; ``attn(p, h, k_layer,
-    v_layer, scales)`` runs one attention block on the pre-normed hidden
-    ``h`` against that layer's pool view (``scales`` the layer's (k, v)
-    scale rows of a quantized pool, else None).  An MoE layer's expert
-    block gathers through ``impl``, each row of ``x`` its own sequence,
-    as in the reference."""
+                     cache, attn: Callable, cdt, impl: str) -> torch.Tensor:
+    """The dense or MoE layer stack shared by one-token decode (on either
+    layout), speculative verify and chunked prefill; ``attn(p, h,
+    k_layer, v_layer, scales)`` runs one attention block on the
+    pre-normed hidden ``h`` against that layer's view of the pool (or of
+    the dense cache; ``scales`` the layer's (k, v) scale rows of a
+    quantized pool, else None).  An MoE layer's expert block gathers
+    through ``impl``, each row of ``x`` its own sequence, as in the
+    reference."""
     kv = cache.kv
-    kp, vp = kv["k_pages"], kv["v_pages"]
+    paged = isinstance(cache, PagedCache)
+    kp, vp = (kv["k_pages"], kv["v_pages"]) if paged else (kv["k"], kv["v"])
     ks, vs = kv.get("k_scales"), kv.get("v_scales")
     layers = params["layers"]
     for l in range(cfg.num_layers):
@@ -211,21 +230,28 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, cdt):
     return logits.float()
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache: PagedCache,
-                tokens: torch.Tensor, *, impl: str = "auto"
-                ) -> Tuple[torch.Tensor, PagedCache]:
-    """One-token decode.  tokens: (B, 1) int.  Writes each slot's new K/V
-    into the pool in place and returns (logits (B, V) f32, cache with
-    ``pos + 1``)."""
+def decode_step(params: Params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                *, impl: str = "auto"):
+    """One-token decode on a :class:`PagedCache` or a dense
+    :class:`Cache`.  tokens: (B, 1) int.  Writes each slot's new K/V into
+    the pool (or the dense cache) in place and returns (logits (B, V)
+    f32, cache with ``pos + 1``).  The dense cache's attention is the
+    plain one-token attention, as in the reference; ``impl`` then
+    reaches only an MoE layer's gathers."""
     cdt = torch_dtype(cfg.compute_dtype)
     pos = cache.pos
-    pt = cache.kv["page_table"]
     x = embed(params["embed"], tokens, cdt)
+    if isinstance(cache, PagedCache):
+        pt = cache.kv["page_table"]
 
-    def attn(p, h, kl, vl, scales):
-        return paged_decode_attention_block(p, cfg, h, (kl, vl), pt, pos,
-                                            compute_dtype=cdt, impl=impl,
-                                            scales=scales)
+        def attn(p, h, kl, vl, scales):
+            return paged_decode_attention_block(
+                p, cfg, h, (kl, vl), pt, pos, compute_dtype=cdt, impl=impl,
+                scales=scales)
+    else:
+        def attn(p, h, kl, vl, scales):
+            return decode_attention_block(p, cfg, h, (kl, vl), pos,
+                                          compute_dtype=cdt)
 
     x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
     return _logits(params, cfg, x, cdt)[:, 0], cache._replace(pos=pos + 1)
@@ -281,8 +307,8 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
     offset, length = chunk["offset"], chunk["length"]
     page_rows = chunk["page_rows"]
     x = embed(params["embed"], toks, cdt)
-    positions = offset[:, None] + torch.arange(T, dtype=torch.int32,
-                                               device=toks.device)[None, :]
+    positions = text_positions(cfg, offset[:, None] + torch.arange(
+        T, dtype=torch.int32, device=toks.device)[None, :])
 
     def attn(p, h, kl, vl, scales):
         return paged_prefill_block(p, cfg, h, (kl, vl), page_rows, offset,
@@ -293,3 +319,71 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
     idx = torch.clamp(length - 1, 0, T - 1).long()
     x_last = x[torch.arange(C, device=x.device), idx][:, None]
     return _logits(params, cfg, x_last, cdt)[:, 0], cache
+
+
+def _cache_fit(k: torch.Tensor, v: torch.Tensor, slots: int):
+    """Keep the last ``slots`` positions of (B, S, Hkv, D) K/V, rolled so
+    that absolute position ``p`` lands in ring slot ``p % slots`` (decode
+    then overwrites the oldest entry).  S counts the padded bucket, as
+    in the reference."""
+    S = k.shape[1]
+    if S <= slots:
+        return k, v
+    shift = S % slots
+    return (torch.roll(k[:, -slots:], shift, dims=1),
+            torch.roll(v[:, -slots:], shift, dims=1))
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None,
+            last_pos: Optional[torch.Tensor] = None,
+            impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
+    """Whole-prompt prefill of the dense and MoE families: tokens (B, S)
+    int, the prompt padded to its bucket.  Every layer attends the whole
+    sequence causally through :func:`~repro_torch.models.attention.
+    attention_block` (the dense flash attention kernel on the card) and
+    its K/V goes into a dense :class:`Cache` sized for ``max_len``
+    (default S): all S positions, or, where an SWA ring of ``min(max_len,
+    window)`` slots is shorter, its last ``slots``, rolled
+    (:func:`_cache_fit`).  ``last_pos`` (B,) picks the position
+    whose logits are returned (default S - 1): the engine passes the
+    prompt's last real token, so the padded tail never reaches a sampled
+    token.  Returns (logits (B, V) f32, cache with ``pos`` = S)."""
+    _check_family(cfg)
+    cdt = torch_dtype(cfg.compute_dtype)
+    B, S = tokens.shape
+    dev = tokens.device
+    cache = init_cache(cfg, B, max_len or S, device=dev)
+    kc = cache.kv["k"]
+    slots = kc.shape[2]
+    fit = min(S, slots)
+    k_all = torch.empty((cfg.num_layers, B, fit) + tuple(kc.shape[3:]),
+                        dtype=kc.dtype, device=dev)
+    v_all = torch.empty_like(k_all)
+    positions = text_positions(cfg, torch.arange(
+        S, dtype=torch.int32, device=dev).expand(B, S))
+    x = embed(params["embed"], tokens, cdt)
+    layers = params["layers"]
+    for l in range(cfg.num_layers):
+        lp = _layer(layers, l)
+        a, (k, v) = attention_block(
+            lp["attn"], cfg, rms_norm(lp["attn_norm"], x, cfg.norm_eps),
+            positions, compute_dtype=cdt, impl=impl)
+        x = x + a
+        h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+        if cfg.num_experts:
+            m, _ = moe_block(lp["mlp"], cfg, h, compute_dtype=cdt, impl=impl)
+        else:
+            m = swiglu(lp["mlp"], h, cdt)
+        x = x + m
+        k, v = _cache_fit(k, v, slots)
+        k_all[l], v_all[l] = k, v
+    if last_pos is None:
+        x_last = x[:, -1:]
+    else:
+        idx = torch.clamp(last_pos.long(), 0, S - 1)
+        x_last = x[torch.arange(B, device=dev), idx][:, None]
+    logits = _logits(params, cfg, x_last, cdt)[:, 0]
+    kv = dict(cache.kv, k=k_all, v=v_all)
+    return logits, cache._replace(
+        kv=kv, pos=torch.full((B,), S, dtype=torch.int32, device=dev))

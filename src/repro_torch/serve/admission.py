@@ -3,17 +3,19 @@
 :class:`AdmissionMixin` owns everything between the queue and a live
 slot: watermark/SLO admission gating, chunk-queue admission (a slot and
 page-table bookkeeping only — the prompt is then computed chunk by
-chunk by the mixed step), prefix-cache mapping, and
+chunk by the mixed step), the whole-prompt dense prefill (padded to a
+bucket, its K/V scattered into the prompt's pool frames, or inserted
+into the slot of the non-paged engine's dense cache) for the prompts the
+chunk queue does not take, prefix-cache mapping, and
 :meth:`admit_handoff`, the DECODE-role entry point that adopts a
 PREFILL-role engine's graduated request straight from the shared far
 tier.  A handoff admission is deliberately *not* a new code path: it
 rebuilds the request parked (pages registered PARKED against the shared
 tier's entries, residue fetched fault-safe) and lets the ordinary resume
 machinery in :class:`~repro_torch.serve.transfer.TransferMixin` slot it
-in.  It is the JAX package's ``serve/admission.py`` without the
-whole-prompt dense prefill, which this port does not have yet.  The
-mixin assumes the host class provides the engine state surface —
-``serve/engine.py`` assembles it.
+in.  It is the JAX package's ``serve/admission.py`` for the dense and
+MoE families.  The mixin assumes the host class provides the engine
+state surface — ``serve/engine.py`` assembles it.
 """
 
 from __future__ import annotations
@@ -21,26 +23,87 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.models.model import Cache, prefill
 from repro_torch.paging import EventKind, PageState, PagingError, pages_for
 from repro_torch.serve.config import EngineRole, Tier
 from repro_torch.serve.disagg import HandoffRecord
+from repro_torch.serve.kv_cache import insert_slot
 from repro_torch.serve.request import Request
+from repro_torch.serve.transfer import (_scatter_seq_pages,
+                                        _scatter_seq_pages_q)
 
 __all__ = ["AdmissionMixin"]
 
 
 class AdmissionMixin:
-    """Chunk-queue admission, prefix mapping and handoff admission (see
-    the module docstring).  Mixed into :class:`~repro_torch.serve.
-    engine.Engine`."""
+    """Chunk-queue and dense-prefill admission, prefix mapping and
+    handoff admission (see the module docstring).  Mixed into
+    :class:`~repro_torch.serve.engine.Engine`."""
 
+    # -- dense prefill -------------------------------------------------------
+    def _bucket(self, plen: int) -> int:
+        """The padded length of a ``plen``-token prompt: the smallest
+        bucket that holds it, else ``max_len`` (entries past ``plen`` are
+        never attended: decode starts at ``plen``)."""
+        for b in self.buckets:
+            if plen <= b:
+                return b
+        return self.max_len
+
+    def _prefill_one(self, req: Request):
+        """Prefill the request's whole prompt, padded to its bucket, in
+        one dense prefill (one launch of the dense flash attention kernel
+        a layer on the card).  Returns (logits (1, V) at the prompt's
+        last real token, the single-sequence dense cache with ``pos`` =
+        the prompt length)."""
+        plen = len(req.prompt)
+        bucket = self._bucket(plen)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :plen] = req.prompt
+        dev = self.device
+        with torch.no_grad():
+            # logits from the prompt's true last token (plen - 1), never
+            # the padded tail: the chunk queue, which never sees the pad,
+            # must agree with this path on the first token
+            logits, single = prefill(
+                self.params, self.cfg, torch.from_numpy(toks).to(dev),
+                max_len=self.max_len,
+                last_pos=torch.full((1,), plen - 1, dtype=torch.int32,
+                                    device=dev))
+        self.stats["prefills"] += 1
+        return logits, single._replace(
+            pos=torch.full((1,), plen, dtype=torch.int32, device=dev))
+
+    def _install_sequence(self, req: Request, single: Cache) -> None:
+        """Dense-prefill admission on the paged layout: scatter the
+        prompt's K/V pages into the frames :meth:`_alloc_pinned` just
+        mapped (the bucket tail past them is never attended) and set the
+        slot's position, the whole residue of a dense or MoE sequence."""
+        slot = req.slot
+        kv = self.cache.kv
+        n_pg = pages_for(min(len(req.prompt), self.slot_tokens),
+                         self.page_size)
+        frames = torch.from_numpy(self._pt_np[slot, :n_pg].astype(
+            np.int64)).to(self.device)
+        if "k_scales" in kv:
+            _scatter_seq_pages_q(kv["k_pages"], kv["v_pages"],
+                                 kv["k_scales"], kv["v_scales"],
+                                 single.kv["k"], single.kv["v"], frames,
+                                 n_pg, self.kv_quant.mode)
+        else:
+            _scatter_seq_pages(kv["k_pages"], kv["v_pages"], single.kv["k"],
+                               single.kv["v"], frames, n_pg)
+        self._set_pos(slot, len(req.prompt))
+
+    # -- scheduling ------------------------------------------------------------
     def _chunkable(self, req: Request) -> bool:
-        """Chunk-queue admission requires the whole prompt to fit the
-        slot's token capacity; :meth:`~repro_torch.serve.engine.Engine.
-        submit` refuses longer prompts, which would need the dense
-        prefill this port does not have."""
-        return 0 < len(req.prompt) <= self.slot_tokens
+        """Chunk-queue admission requires chunking on and the whole prompt
+        within the slot's token capacity (an SWA ring that wraps
+        mid-prompt would rewrite pages the chunk path still attends);
+        the other prompts take the dense prefill."""
+        return self.chunking and 0 < len(req.prompt) <= self.slot_tokens
 
     def _admit_prefix(self, req: Request, hits: List[int]) -> bool:
         """Map prefix-cache hits onto the request's fresh page-table row.
@@ -79,7 +142,8 @@ class AdmissionMixin:
         return far
 
     def _admit(self) -> None:
-        self._try_finish_resumes()
+        if self.paging:
+            self._try_finish_resumes()
         now = self.clock()
         self.sched.order_queue(self.queue, now)
         while self.queue:
@@ -94,32 +158,33 @@ class AdmissionMixin:
                 continue
             if not self.pool.n_free:
                 break
-            need = pages_for(min(len(req.prompt), self.slot_tokens),
-                             self.page_size)
             hits: List[int] = []
-            if self.prefix is not None and self._chunkable(req) \
-                    and req.rid not in self.page_table.sequences():
-                hits = self.prefix.match(req.prompt)
-                # device-resident hits take no new frames
-                need -= sum(
-                    1 for l in hits
-                    if self.prefix.entry_state(l) is PageState.RESIDENT)
-            if not self.sched.may_admit(req, need):
-                # SLO load shedding: the highest-priority admissible
-                # request is batch-tier and the pool is too tight to
-                # take it without risking interactive deadlines
-                self.stats["shed_admissions"] += 1
-                if self.tracer.enabled:
-                    self.tracer.instant(
-                        "engine", "sched", "shed",
-                        {"rid": req.rid, "tier": req.tier.name,
-                         "need_pages": need,
-                         "free": self.page_pool.n_free})
-                break
-            if not self.policy.can_admit(self.page_pool, need) and \
-                    not self._make_room(need + self.policy.low,
-                                        frozenset(), preempt=False):
-                break
+            if self.paging:
+                need = pages_for(min(len(req.prompt), self.slot_tokens),
+                                 self.page_size)
+                if self.prefix is not None and self._chunkable(req) \
+                        and req.rid not in self.page_table.sequences():
+                    hits = self.prefix.match(req.prompt)
+                    # device-resident hits take no new frames
+                    need -= sum(
+                        1 for l in hits
+                        if self.prefix.entry_state(l) is PageState.RESIDENT)
+                if not self.sched.may_admit(req, need):
+                    # SLO load shedding: the highest-priority admissible
+                    # request is batch-tier and the pool is too tight to
+                    # take it without risking interactive deadlines
+                    self.stats["shed_admissions"] += 1
+                    if self.tracer.enabled:
+                        self.tracer.instant(
+                            "engine", "sched", "shed",
+                            {"rid": req.rid, "tier": req.tier.name,
+                             "need_pages": need,
+                             "free": self.page_pool.n_free})
+                    break
+                if not self.policy.can_admit(self.page_pool, need) and \
+                        not self._make_room(need + self.policy.low,
+                                            frozenset(), preempt=False):
+                    break
             if hits and self._admit_prefix(req, hits):
                 # far-tier hits: request left at the queue head, parked;
                 # the next iteration routes it through _start_resume
@@ -127,24 +192,51 @@ class AdmissionMixin:
             self.queue.pop(0)
             slot = self.pool.alloc()
             req.slot = slot
-            # install bookkeeping only: the prompt is computed chunk by
-            # chunk by the mixed step, interleaved with running decodes
-            if req.rid not in self.page_table.sequences():
+            if self._chunkable(req):
+                self._admit_chunked(req, slot)
+                continue
+            logits, single = self._prefill_one(req)
+            if self.paging:
                 self.page_table.register(req.rid)
-            req.target_len = len(req.prompt)
-            req.chunk_rows = np.full((self.pages_per_seq,),
-                                     self.trash_frame, np.int32)
-            # prefix hits already mapped: pin them for the slot and point
-            # the chunk row at the shared frames
-            for logical in range(self.page_table.n_pages(req.rid)):
-                self.page_table.pin_page(req.rid, logical)
-                req.chunk_rows[logical] = \
-                    self.page_table.entry(req.rid, logical).phys
+                self._alloc_pinned(req,
+                                   min(len(req.prompt), self.slot_tokens))
+                self._install_sequence(req, single)
+            else:
+                insert_slot(self.cache, single, slot, self.max_batch)
             req.admit_seq = next(self._admits)
-            self.prefilling[slot] = req
+            req.generated.append(int(torch.argmax(logits[0]).item()))
+            req.first_token_t = self.clock()
+            req.token_ts.append(req.first_token_t)
+            self.active[slot] = req
             self.stats["admitted"] += 1
-            self._obs_phase(req, "prefill")
+            self._obs_phase(req, "decode")
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "requests", f"req{req.rid}", "first_token",
+                    {"ttft_s": req.first_token_t - req.arrival_t})
             self.events.post(EventKind.ADMIT, req.rid)
+            self._finish_if_done(req)
+
+    def _admit_chunked(self, req: Request, slot: int) -> None:
+        """Chunk-queue admission: install bookkeeping only — the prompt
+        is computed chunk by chunk by the mixed step, interleaved with
+        every running slot's decode."""
+        if req.rid not in self.page_table.sequences():
+            self.page_table.register(req.rid)
+        req.target_len = len(req.prompt)
+        req.chunk_rows = np.full((self.pages_per_seq,), self.trash_frame,
+                                 np.int32)
+        # prefix hits already mapped: pin them for the slot and point the
+        # chunk row at the shared frames
+        for logical in range(self.page_table.n_pages(req.rid)):
+            self.page_table.pin_page(req.rid, logical)
+            req.chunk_rows[logical] = \
+                self.page_table.entry(req.rid, logical).phys
+        req.admit_seq = next(self._admits)
+        self.prefilling[slot] = req
+        self.stats["admitted"] += 1
+        self._obs_phase(req, "prefill")
+        self.events.post(EventKind.ADMIT, req.rid)
 
     # -- cross-engine handoff admission (DECODE role) --------------------------
     def admit_handoff(self, rec: HandoffRecord,

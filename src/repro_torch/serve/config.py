@@ -14,17 +14,18 @@ fields (:func:`add_config_args` / :func:`config_from_args`), and
 :class:`VirtualClock` is the one injected time source every request
 timestamp goes through.
 
-The port's engine serves the paged, chunked engine in every role
-(FUSED, and the PREFILL / DECODE halves of a disaggregated pair), with
-speculative verify-K decode, the int8/fp8 quantized pool,
-cross-request prefix sharing and finished-sequence offload; it raises
-``NotImplementedError`` for the rest (the dense per-slot cache, unset
-``chunk_tokens``), which keep their flags so the CLI matches the JAX
-package's.
+The port's engine serves every admission path of the JAX engine: the
+paged engine in every role (FUSED, and the PREFILL / DECODE halves of a
+disaggregated pair), through the chunk queue or, with ``chunk_tokens``
+unset or a prompt longer than the slot, the whole-prompt dense prefill
+padded to ``prefill_buckets``, with speculative verify-K decode, the
+int8/fp8 quantized pool, cross-request prefix sharing and
+finished-sequence offload; and the non-paged engine
+(``paging.enabled=False``: a dense per-slot cache, dense prefill only).
 Two fields differ: ``device`` says where the engine's tensors live
 (``cuda`` unless the caller asks for the CPU), and ``chunk_tokens``
-defaults to 256 instead of unset, because the port admits through the
-chunk queue only.
+defaults to 256 instead of unset, the chunk queue being the engine's
+main path.
 
 Example::
 
@@ -42,7 +43,7 @@ import argparse
 import dataclasses
 import enum
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.paging import WatermarkPolicy
 
@@ -144,8 +145,8 @@ class ChunkingConfig:
     """Chunk-queue admission (chunked paged prefill) + prefix sharing."""
 
     chunk_tokens: Optional[int] = _f(
-        256, "chunked paged prefill: prompt chunk size in tokens (the "
-        "port has no whole-prompt dense prefill, so it must be set)")
+        256, "chunked paged prefill: prompt chunk size in tokens; "
+        "unset = whole-prompt dense prefill at admission")
     chunk_slots: int = _f(
         2, "max admitting slots whose chunks fuse into one mixed "
         "prefill+decode step")
@@ -241,6 +242,9 @@ class EngineConfig:
 
     max_batch: int = _f(4, "decode slots (fixed compiled batch)")
     max_len: int = _f(256, "per-sequence token capacity")
+    prefill_buckets: Tuple[int, ...] = _f(
+        (32, 64, 128, 256), "dense-prefill padding buckets "
+        "(comma-separated on the CLI)")
     device: str = _f("cuda", "device the engine's tensors live on",
                      choices=("cuda", "cpu"))
     role: str = _f(
@@ -288,6 +292,8 @@ def _scalar_type(fld):
         if t == base or t.startswith(f"Optional[{base}]"):
             return {"int": int, "float": float,
                     "str": str, "bool": bool}[base]
+    if "Tuple[int" in t:
+        return lambda s: tuple(int(x) for x in s.split(","))
     raise TypeError(f"field {fld.name}: no CLI mapping for type {t!r}")
 
 
@@ -316,6 +322,11 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
             if typ is bool:
                 parser.add_argument(flag, action="store_true",
                                     default=bool(default), help=help_)
+            elif "Tuple" in fld.type:
+                parser.add_argument(
+                    flag, type=typ,
+                    default=default, metavar="N,N,...",
+                    help=help_ + f" (default {','.join(map(str, default))})")
             else:
                 kw = {}
                 if fld.metadata.get("choices"):

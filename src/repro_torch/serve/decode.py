@@ -187,13 +187,14 @@ class DecodeMixin:
     def _step(self) -> None:
         drafts = self._propose_drafts() \
             if self.speculating and self.active else {}
-        # draft-aware growth: a speculating slot pins frames for its
-        # whole write window [pos, pos + 1 + draft); entries clamp in
-        # place when the pool cannot cover the full draft
-        self._ensure_growth(drafts or None)
-        picks = self._select_chunks()
-        if not picks and not self.active and self.prefilling \
-                and not self._resuming:
+        if self.paging:
+            # draft-aware growth: a speculating slot pins frames for its
+            # whole write window [pos, pos + 1 + draft); entries clamp
+            # in place when the pool cannot cover the full draft
+            self._ensure_growth(drafts or None)
+        picks = self._select_chunks() if self.chunking else []
+        if self.chunking and not picks and not self.active \
+                and self.prefilling and not self._resuming:
             picks = self._force_chunk()
         if not self.active and not picks:
             return
@@ -202,7 +203,7 @@ class DecodeMixin:
             # (its draft dies with the park) or clamped a draft to zero
             live = {req.rid for req in self.active.values()}
             drafts = {r: n for r, n in drafts.items() if r in live and n > 0}
-        if self._pt_dirty:
+        if self.paging and self._pt_dirty:
             # refresh the device page-table rows from the host mirror
             # (skipped on steady-state steps with no scheduling events)
             self.cache.kv["page_table"].copy_(torch.from_numpy(self._pt_np))
@@ -345,8 +346,9 @@ class DecodeMixin:
                     # graduation: pages and residue are in the shared
                     # tier; publish the record the DECODE engine admits
                     self._publish_handoff(req)
-            self._pt_np[slot] = self.trash_frame
-            self._pt_dirty = True
+            if self.paging:
+                self._pt_np[slot] = self.trash_frame
+                self._pt_dirty = True
             self.pool.release(slot)
         req.done_t = self.clock()
         self.finished[req.rid] = req

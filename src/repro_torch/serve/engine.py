@@ -41,10 +41,19 @@ the far tier for a later :meth:`~repro_torch.serve.transfer.
 TransferMixin.fetch_finished`; a PREFILL engine's graduation is that
 park plus a published handoff record.
 
+Admission takes the chunk queue, or, with ``chunk_tokens`` unset or a
+prompt longer than the slot (an SWA ring), the whole-prompt dense
+prefill padded to a ``prefill_buckets`` bucket (the dense flash
+attention kernel on the card), whose K/V is scattered into the prompt's
+pool frames.  With ``paging.enabled=False`` the engine keeps no pool:
+a dense per-slot :class:`~repro_torch.models.model.Cache`, dense
+prefill into the slot at admission, the slot released at finish.
+
 The host logic (pool, page table, pager, far tier, prefix cache,
 virtual clock, scheduling policy) is a copy of the JAX package's, so on
-the same weights both engines make the same scheduling decisions.
-Options this port does not serve yet raise ``NotImplementedError``.
+the same weights both engines make the same scheduling decisions.  The
+families the port does not serve yet (llama4's grouped MoE, the SSM,
+hybrid and encoder-decoder families) raise ``NotImplementedError``.
 
 With ``paging.kv_quant`` int8 or fp8 the pool's frames are quantized with
 per-(frame, KV head) scales (:mod:`repro_torch.kernels.kv_quant`): a
@@ -64,7 +73,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_quant import KVQuantConfig
 from repro_torch.models.model import (cast_params, family_ported,
-                                      init_paged_cache, torch_dtype)
+                                      init_cache, init_paged_cache,
+                                      torch_dtype)
 from repro_torch.obs import (MetricsRegistry, Tracer, to_chrome_trace,
                              write_chrome_trace, write_metrics)
 from repro_torch.paging import (DeadlineQueue, EventKind, EventLoop, PagePool,
@@ -148,22 +158,13 @@ def _check_roles(cfg: ModelConfig, ec: EngineConfig) -> None:
             "speculation has nothing to draft")
 
 
-def _check_supported(cfg: ModelConfig, ec: EngineConfig) -> None:
-    """Raise for every option the port's engine does not serve yet."""
-    pg, ck = ec.paging, ec.chunking
-    unported = {
-        "paging.enabled=False (the dense per-slot cache)":
-            pg.enabled is False,
-        "chunk_tokens unset (whole-prompt dense prefill)":
-            not ck.chunk_tokens,
-        f"family {cfg.family!r} with {cfg.num_experts} experts, moe_every "
-        f"{cfg.moe_every}, shared_expert {cfg.shared_expert}":
-            not family_ported(cfg),
-    }
-    missing = [name for name, on in unported.items() if on]
-    if missing:
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise for a model family the port's engine does not serve yet."""
+    if not family_ported(cfg):
         raise NotImplementedError(
-            "not ported to the PyTorch engine yet: " + ", ".join(missing))
+            f"not ported to the PyTorch engine yet: family {cfg.family!r} "
+            f"with {cfg.num_experts} experts, moe_every {cfg.moe_every}, "
+            f"shared_expert {cfg.shared_expert}")
 
 
 class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
@@ -196,7 +197,7 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.kv_quant = KVQuantConfig.from_name(pg.kv_quant)
         _check_quant(cfg, pg, self.kv_quant)
         _check_roles(cfg, ec)
-        _check_supported(cfg, ec)
+        _check_supported(cfg)
         max_batch, max_len = ec.max_batch, ec.max_len
         self.device = torch.device(ec.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -209,6 +210,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                                   self.device)
         self.max_batch = max_batch
         self.max_len = max_len
+        self.buckets = tuple(sorted(b for b in ec.prefill_buckets
+                                    if b <= max_len)) or (max_len,)
         # ONE clock for every request timestamp: an engine-owned
         # VirtualClock advanced by step_dt per tick, in lockstep with the
         # pager's simulated AMU, unless the caller injects one
@@ -228,46 +231,22 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self._admits = itertools.count()
 
         # -- page-granularity KV residency over a fixed device pool --------
+        # (every family the port serves has attention KV: paged unless
+        # the caller turns paging off)
+        self.paging = pg.enabled is not False
         page_size = pg.page_size
         self.page_size = page_size
         self.step_dt = sc.step_dt
         self.hot_tail_pages = max(0, pg.hot_tail_pages)
         self._resuming: Dict[int, Request] = {}
-        self.slot_tokens = (min(max_len, cfg.window)
-                            if cfg.attention == "swa" else max_len)
-        if self.slot_tokens % page_size:
-            raise PagingError(
-                f"page_size {page_size} must divide the per-sequence "
-                f"token capacity {self.slot_tokens}")
-        self.pages_per_seq = self.slot_tokens // page_size
-        n_pages = pg.device_pages if pg.device_pages is not None \
-            else max_batch * self.pages_per_seq
-        nbytes = _page_nbytes(cfg, page_size, self.kv_quant)
-        self.page_pool = PagePool(n_pages, page_size)
-        self.page_table = PageTable(self.page_pool)
-        if pg.pager_factory is not None:
-            self.pager = pg.pager_factory(self.page_pool, self.page_table,
-                                          page_nbytes=nbytes)
+        if self.paging:
+            self._init_pool(cfg, pg)
         else:
-            self.pager = Pager(self.page_pool, self.page_table,
-                               page_nbytes=nbytes)
-        if self.pager.read_frame is None:        # keep a factory's hook
-            self.pager.read_frame = self._read_frame
-        self.pager.bind_obs(self.metrics, self.tracer)
-        # THE far tier: one FarMemoryTier behind the pager holds every
-        # cold page (preempted or watermark-evicted)
-        self.far_tier = self.pager.tier
-        # device frames: pool frames + one trash frame at the end
-        self.trash_frame = n_pages
-        self.cache = init_paged_cache(cfg, max_batch, max_len,
-                                      n_frames=n_pages + 1,
-                                      page_size=page_size,
-                                      device=self.device,
-                                      quant=self.kv_quant)
-        self._pt_np = np.full((max_batch, self.pages_per_seq),
-                              self.trash_frame, np.int32)
-        self._pt_dirty = True
-        self.paging = True               # read by the SLO scheduler
+            self.slot_tokens = 0
+            self.page_pool = self.page_table = self.pager = None
+            self.far_tier = None
+            self.cache = init_cache(cfg, max_batch, max_len,
+                                    device=self.device)
         # -- engine role: which half of the pipeline this assembly runs ----
         self.role = EngineRole(ec.role)
         self.offload_finished = pg.offload_finished
@@ -287,11 +266,13 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.deadlines = DeadlineQueue()
 
         # -- steps: decode-only, and decode fused with a prompt chunk ------
-        self._decode = make_serve_step(cfg)
-        self._mixed = make_mixed_step(cfg)
-        self.chunk_tokens = int(ck.chunk_tokens)
+        self._decode = make_serve_step(cfg, paged=self.paging)
+        self.chunk_tokens = int(ck.chunk_tokens) if ck.chunk_tokens else 0
         self.chunk_slots = max(1, int(ck.chunk_slots))
+        self.chunking = bool(self.chunk_tokens) and self.paging
         self.prefilling: Dict[int, Request] = {}     # slot -> admitting req
+        if self.chunking:
+            self._mixed = make_mixed_step(cfg)
 
         # -- cross-request prefix sharing (content-addressed prompt pages):
         # supported where the shared KV is position- and content-exact for
@@ -312,6 +293,10 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.speculating = self.speculate_k > 0
         self.proposer = None
         if self.speculating:
+            if not self.paging:
+                raise PagingError(
+                    "speculative decode requires the paged engine "
+                    "(verify-K scatters through the page table)")
             if cfg.attention == "swa":
                 raise PagingError(
                     "speculative decode supports global attention only; "
@@ -323,7 +308,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                 self.proposer = NgramProposer(n=sp.speculate_ngram,
                                               k=self.speculate_k)
             self._verify = make_serve_step(cfg, self.speculate_k)
-            self._mixed_verify = make_mixed_step(cfg, self.speculate_k)
+            if self.chunking:
+                self._mixed_verify = make_mixed_step(cfg, self.speculate_k)
 
         self.events = EventLoop(metrics=self.metrics)
         self.events.on(EventKind.TICK, self._on_tick)
@@ -348,6 +334,46 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                             "accepted": 0, "rejected": 0})
         self.stats = self.metrics.counters("engine", initial=initial)
 
+    def _init_pool(self, cfg: ModelConfig, pg) -> None:
+        """The paged engine's device pool, page table, pager and far tier,
+        and the :class:`~repro_torch.models.model.PagedCache` over the
+        pool's frames plus the trash frame."""
+        max_batch, page_size = self.max_batch, self.page_size
+        self.slot_tokens = (min(self.max_len, cfg.window)
+                            if cfg.attention == "swa" else self.max_len)
+        if self.slot_tokens % page_size:
+            raise PagingError(
+                f"page_size {page_size} must divide the per-sequence "
+                f"token capacity {self.slot_tokens}")
+        self.pages_per_seq = self.slot_tokens // page_size
+        n_pages = pg.device_pages if pg.device_pages is not None \
+            else max_batch * self.pages_per_seq
+        nbytes = _page_nbytes(cfg, page_size, self.kv_quant)
+        self.page_pool = PagePool(n_pages, page_size)
+        self.page_table = PageTable(self.page_pool)
+        if pg.pager_factory is not None:
+            self.pager = pg.pager_factory(self.page_pool, self.page_table,
+                                          page_nbytes=nbytes)
+        else:
+            self.pager = Pager(self.page_pool, self.page_table,
+                               page_nbytes=nbytes)
+        if self.pager.read_frame is None:        # keep a factory's hook
+            self.pager.read_frame = self._read_frame
+        self.pager.bind_obs(self.metrics, self.tracer)
+        # THE far tier: one FarMemoryTier behind the pager holds every
+        # cold page (preempted or watermark-evicted)
+        self.far_tier = self.pager.tier
+        # device frames: pool frames + one trash frame at the end
+        self.trash_frame = n_pages
+        self.cache = init_paged_cache(cfg, max_batch, self.max_len,
+                                      n_frames=n_pages + 1,
+                                      page_size=page_size,
+                                      device=self.device,
+                                      quant=self.kv_quant)
+        self._pt_np = np.full((max_batch, self.pages_per_seq),
+                              self.trash_frame, np.int32)
+        self._pt_dirty = True
+
     # -- public API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
                eos_id: Optional[int] = None,
@@ -360,28 +386,32 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         defaults, and ``arrival_t`` places the request on the clock's
         time axis (the engine admits nothing before its arrival)."""
         prompt = np.asarray(prompt, np.int32)
-        if not 0 < len(prompt) <= self.slot_tokens:
+        if not 0 < len(prompt) <= self.max_len:
             raise NotImplementedError(
-                f"prompt of {len(prompt)} tokens: the port admits prompts "
-                f"of 1..{self.slot_tokens} tokens (the slot) through the "
-                "chunk queue; the dense-prefill fallback is not ported")
-        # a PREFILL-role engine never decodes: its pool only ever holds
-        # the prompt's pages, so the completion horizon is the prompt
-        horizon = len(prompt) + (
-            0 if self.role is EngineRole.PREFILL else max_new_tokens)
-        full = pages_for(min(horizon, self.slot_tokens), self.page_size)
-        if full > self.page_pool.n_pages:
-            raise PagingError(
-                f"request needs {full} pages; pool has only "
-                f"{self.page_pool.n_pages} — it could never complete")
-        # admission only ever needs the prompt's pages (growth is exempt
-        # from the low watermark) — reject what can't admit
-        admit = pages_for(len(prompt), self.page_size)
-        if admit + self.policy.low > self.page_pool.n_pages:
-            raise PagingError(
-                f"request needs {admit} pages at admission; pool of "
-                f"{self.page_pool.n_pages} under low watermark "
-                f"{self.policy.low} can never admit it")
+                f"prompt of {len(prompt)} tokens: the engine serves prompts "
+                f"of 1..{self.max_len} tokens (max_len); a longer one "
+                "outgrows the dense prefill's largest bucket, max_len, in "
+                "the reference too")
+        if self.paging:
+            # a PREFILL-role engine never decodes: its pool only ever
+            # holds the prompt's pages, so the completion horizon is the
+            # prompt
+            horizon = len(prompt) + (
+                0 if self.role is EngineRole.PREFILL else max_new_tokens)
+            full = pages_for(min(horizon, self.slot_tokens), self.page_size)
+            if full > self.page_pool.n_pages:
+                raise PagingError(
+                    f"request needs {full} pages; pool has only "
+                    f"{self.page_pool.n_pages} — it could never complete")
+            # admission only ever needs the prompt's pages (growth is
+            # exempt from the low watermark) — reject what can't admit
+            admit = pages_for(min(len(prompt), self.slot_tokens),
+                              self.page_size)
+            if admit + self.policy.low > self.page_pool.n_pages:
+                raise PagingError(
+                    f"request needs {admit} pages at admission; pool of "
+                    f"{self.page_pool.n_pages} under low watermark "
+                    f"{self.policy.low} can never admit it")
         rid = self._next_rid
         self._next_rid += 1
         now = self.clock()
@@ -432,9 +462,10 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                     if self._own_clock:
                         self.clock.advance(min(future) - self.clock())
                     return
+                free = self.page_pool.n_free if self.paging else "n/a"
                 raise PagingError(
                     f"{len(self.queue)} queued requests can never be "
-                    f"admitted (free pages {self.page_pool.n_free}, "
+                    f"admitted (free pages {free}, "
                     f"low watermark {self.policy.low})")
 
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
@@ -461,6 +492,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
             self.clock.advance(self.step_dt)
         for t, rid in self.deadlines.pop_due(self.clock()):
             self.events.post(EventKind.DEADLINE, (t, rid))
+        if self.pager is None:
+            return
         for seq, logical in self.pager.advance(self.step_dt):
             self.events.post(EventKind.PAGE_ARRIVED, (seq, logical))
         # capacity pressure: push cold RESIDENT pages to the far tier
@@ -477,7 +510,7 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
 
     def _on_complete(self, ev) -> None:
         rid = ev.payload
-        if rid in self.page_table.sequences():
+        if self.paging and rid in self.page_table.sequences():
             self.page_table.drop(rid)
             if not self.offload_finished:
                 # offloaded sequences keep their far-tier pages: that IS
@@ -562,7 +595,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
                 raise PagingError(
                     f"HANDOFF event imbalance: {hoffs} events != "
                     f"{s['handoffs']} published handoffs")
-        self.pager.check_invariants()
+        if self.pager is not None:
+            self.pager.check_invariants()
 
     def export_trace(self, path: Optional[str] = None) -> dict:
         """Chrome-trace/Perfetto JSON of everything traced so far (AMU

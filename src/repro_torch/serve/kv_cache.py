@@ -1,12 +1,15 @@
 """Serving-side KV management: slot pool, aux residue and page helpers.
 
-The engine's device cache is the paged
+The paged engine's device cache is the
 :class:`~repro_torch.models.model.PagedCache` (pool frames + page
-tables) and the KV never leaves its frames; this module is the
-bookkeeping around it, the port of the JAX package's
-``serve/kv_cache.py`` without its dense whole-slot moves:
+tables) and the KV never leaves its frames; the non-paged engine's is a
+dense :class:`~repro_torch.models.model.Cache` of ``max_batch`` rows.
+This module is the bookkeeping around both, the port of the JAX
+package's ``serve/kv_cache.py``:
 
   * :class:`SlotPool` — fixed decode slots, heap-backed alloc/free,
+  * :func:`extract_slot` / :func:`insert_slot` — whole-slot moves of the
+    dense cache: a prefilled single-sequence cache goes into its slot,
   * :func:`extract_aux_slot` / :func:`insert_aux_slot` — the *non-KV*
     park payload (SSM state, cross-attention state, the position): the
     residue every park, finished-sequence offload and handoff carries,
@@ -27,8 +30,8 @@ from repro_torch.core.amu import AMUError
 from repro_torch.models.model import Cache
 from repro_torch.paging.page_table import pages_for
 
-__all__ = ["SlotPool", "extract_aux_slot", "insert_aux_slot",
-           "split_kv_pages", "join_kv_pages"]
+__all__ = ["SlotPool", "extract_slot", "insert_slot", "extract_aux_slot",
+           "insert_aux_slot", "split_kv_pages", "join_kv_pages"]
 
 
 class SlotPool:
@@ -92,6 +95,36 @@ def _slot_axis(leaf: torch.Tensor, n_slots: int) -> Optional[int]:
     if leaf.ndim >= 1 and leaf.shape[0] == n_slots:
         return 0
     return None
+
+
+def extract_slot(cache: Cache, slot: int, n_slots: int) -> Cache:
+    """Copy one sequence's state out of the batched dense cache, batch
+    dim kept at 1 (shared leaves, such as the ``pos``/``slots`` scalars
+    of ``kv``, as they are)."""
+    def ex(leaf):
+        axis = _slot_axis(leaf, n_slots)
+        return leaf if axis is None else leaf.narrow(axis, slot, 1).clone()
+    return _tree_map(ex, cache)
+
+
+def insert_slot(cache: Cache, single: Cache, slot: int, n_slots: int
+                ) -> Cache:
+    """Write a single-sequence cache (batch dim 1) into ``slot`` of the
+    batched dense cache, in place, and return the cache.  A leaf shorter
+    than the slot's (a prefill bucket below ``max_len``) fills the slot
+    from position 0, as the reference's ``dynamic_update_slice`` does;
+    the rest of the slot keeps what it held, never attended."""
+    def ins(dst, src):
+        axis = _slot_axis(dst, n_slots)
+        if axis is None:
+            return
+        view = dst.narrow(axis, slot, 1)
+        for ax, n in enumerate(src.shape):
+            if ax != axis and n != view.shape[ax]:
+                view = view.narrow(ax, 0, n)
+        view.copy_(src)
+    _tree_map(ins, cache, single)
+    return cache
 
 
 def extract_aux_slot(cache, slot: int, n_slots: int) -> Dict[str, Any]:

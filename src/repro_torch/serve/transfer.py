@@ -25,6 +25,10 @@ logic is a copy, and the device operations are rewritten onto tensors —
   * :func:`_copy_frame` / :func:`_copy_frame_q` duplicate a frame in
     place for the copy-on-write break, a quantized frame with both scale
     rows, bytes as they are.
+  * :func:`_scatter_seq_pages` / :func:`_scatter_seq_pages_q` write one
+    sequence's dense-prefill K/V into its pool frames in place (the
+    dense-prefill admission of the paged engine), into a quantized pool
+    with one absmax scale per (layer, frame, KV head).
 
 Every residue (a park, a finished-sequence offload, a handoff) is the
 :func:`~repro_torch.serve.kv_cache.extract_aux_slot` payload, and
@@ -43,6 +47,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.kv_quant import KVQuantConfig, quantize
 from repro_torch.models.model import Cache
 from repro_torch.paging import (NOT_MAPPED, EventKind, PageState,
                                 PagingError, pages_for)
@@ -51,7 +56,56 @@ from repro_torch.serve.kv_cache import (extract_aux_slot, insert_aux_slot,
                                         join_kv_pages)
 from repro_torch.serve.request import Request
 
-__all__ = ["TransferMixin", "_copy_frame", "_copy_frame_q"]
+__all__ = ["TransferMixin", "_scatter_seq_pages", "_scatter_seq_pages_q",
+           "_copy_frame", "_copy_frame_q"]
+
+
+def _seq_pages(single: torch.Tensor, page: int, n_pg: int) -> torch.Tensor:
+    """(L, 1, S, Hkv, D) prefill K or V → its leading ``n_pg`` pages,
+    (L, n_pg, page, Hkv, D), zero-padded past S."""
+    L, _, S, Hkv, D = single.shape
+    take = min(n_pg * page, S)
+    seq = single[:, 0, :take]
+    pad = n_pg * page - take
+    if pad:
+        seq = torch.nn.functional.pad(seq, (0, 0, 0, 0, 0, pad))
+    return seq.reshape(L, n_pg, page, Hkv, D)
+
+
+def _scatter_seq_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       k_single: torch.Tensor, v_single: torch.Tensor,
+                       frames: torch.Tensor, n_pg: int) -> None:
+    """Write one sequence's dense prefill K/V into its pool frames, in
+    place.  ``k_single``/``v_single``: (L, 1, S, Hkv, D) from the
+    prefill, S the bucket (or the SWA ring); only the leading ``n_pg``
+    pages — the prompt's, the frames admission just mapped, ``frames``
+    (n_pg,) — are written, the tail zero-padded to a page multiple."""
+    page = k_pages.shape[2]
+    for pages, single in ((k_pages, k_single), (v_pages, v_single)):
+        pages.index_copy_(1, frames, _seq_pages(single, page, n_pg)
+                          .to(pages.dtype))
+
+
+def _scatter_seq_pages_q(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                         k_scales: torch.Tensor, v_scales: torch.Tensor,
+                         k_single: torch.Tensor, v_single: torch.Tensor,
+                         frames: torch.Tensor, n_pg: int, mode: str) -> None:
+    """The quantized-pool :func:`_scatter_seq_pages`: each frame's K and
+    V quantized with one absmax scale per (layer, frame, KV head), bytes
+    and scales written in place (the bytes through ``uint8`` views).
+    Admission writes whole frames, so each scale is exact for its
+    content; a later decode append grows it by the in-step scatter's
+    requantization."""
+    qcfg = KVQuantConfig(mode)
+    page = k_pages.shape[2]
+    for pages, scales, single in ((k_pages, k_scales, k_single),
+                                  (v_pages, v_scales, v_single)):
+        seq = _seq_pages(single, page, n_pg).float()
+        s_new = seq.abs().amax(dim=(2, 4)) * qcfg.inv_qmax  # (L, n_pg, Hkv)
+        safe = torch.where(s_new > 0, s_new, torch.ones_like(s_new))
+        q = quantize(seq, safe[:, :, None, :, None], qcfg)
+        pages.view(torch.uint8).index_copy_(1, frames, q.view(torch.uint8))
+        scales.index_copy_(1, frames, s_new)
 
 
 def _copy_frame(k_pages: torch.Tensor, v_pages: torch.Tensor, src: int,

@@ -10,6 +10,8 @@ fp8 pool, quantize it there and update the frame's row of
 ``cache.kv["k_scales"]``/``["v_scales"]``, which every step hands each
 layer beside its pool view), and nothing else in the cache is written
 (``pos`` advances into a new tensor; the verify step leaves it alone).
+The non-paged step writes each token's K/V into its slot of the dense
+cache's ``k``/``v`` in place the same way.
 """
 
 from __future__ import annotations
@@ -22,14 +24,22 @@ from repro_torch.models import model as model_mod
 __all__ = ["make_serve_step", "make_mixed_step"]
 
 
-def make_serve_step(cfg: ModelConfig, speculate_k: int = 0):
-    """``fn(params, cache, tokens) -> (logits, cache)``: one paged decode
-    token for every slot, through the kernel the tensors' device selects.
+def make_serve_step(cfg: ModelConfig, speculate_k: int = 0, *,
+                    paged: bool = True):
+    """``fn(params, cache, tokens) -> (logits, cache)``: one decode token
+    for every slot, on a :class:`~repro_torch.models.model.PagedCache`
+    through the kernel the tensors' device selects, or with
+    ``paged=False`` on a dense :class:`~repro_torch.models.model.Cache`
+    (the non-paged engine); a cache of the other layout raises
+    ``TypeError``.
 
-    With ``speculate_k > 0``: ``fn(params, cache, tokens, length) ->
-    (logits, cache)``, the verify-K step — tokens (B, K + 1), length (B,)
-    valid rows per slot, logits (B, K + 1, V); ``cache.pos`` is left for
-    the engine to advance."""
+    With ``speculate_k > 0`` (paged only): ``fn(params, cache, tokens,
+    length) -> (logits, cache)``, the verify-K step — tokens (B, K + 1),
+    length (B,) valid rows per slot, logits (B, K + 1, V); ``cache.pos``
+    is left for the engine to advance."""
+    if speculate_k and not paged:
+        raise ValueError("speculate_k requires the paged serve step")
+    layout = model_mod.PagedCache if paged else model_mod.Cache
 
     if speculate_k:
         @torch.no_grad()
@@ -38,6 +48,9 @@ def make_serve_step(cfg: ModelConfig, speculate_k: int = 0):
     else:
         @torch.no_grad()
         def step(params, cache, tokens):
+            if not isinstance(cache, layout):
+                raise TypeError(f"this step decodes on a {layout.__name__}, "
+                                f"got a {type(cache).__name__}")
             return model_mod.decode_step(params, cfg, cache, tokens)
 
     return step
