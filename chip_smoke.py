@@ -82,9 +82,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    kernels at the heads of other registered configs — dense flash and
    decode, paged decode and verify at G = 5 (llama4, 40/8), G = 12
    (command-r-plus, 96/8) and D = 80 (h2o-danube, 32/8), paged prefill
-   at D = 80 (bf16, and, appended last, int8 and fp8) — at the phase-2
-   bars, verify row s bitwise the decode kernel.  Then wkv6 and ssd at
-   the reference benchmark's f32 shapes
+   at D = 80 (bf16, and, appended last, int8 and fp8) and, after them,
+   at G = 5 (bf16) — at the phase-2 bars, verify row s bitwise the
+   decode kernel.  Then wkv6 and ssd at the reference benchmark's f32
+   shapes
    (``benchmarks/run.py:500-511``: B1 T256 H2 K64, and P64 N64, chunk
    64) within its kernel-vs-chunked bar, < 1e-5, and within 1e-4 of the
    sequential oracles (``tests/test_kernels.py:117-158``), and in bf16
@@ -195,6 +196,21 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    prompt through the layer's norm, K projection and RoPE: a page
    misordered, skipped or repeated breaks it), and the request's tier
    entries be gone after the fetch;
+3w. submits the workload CLI's trace (``repro_torch.launch.serve
+   --workload``: ``generate(32, WorkloadSpec(max_prompt=1024), seed=0)``,
+   bursty diurnal arrivals at 200 a virtual second, lognormal prompts,
+   Zipf outputs of 2-48 tokens, half interactive with TTFT / TPOT SLOs)
+   through the CLI's own submit path on phase 3's settings, once with
+   the watermark policy and once with ``--slo``, on the engine's virtual
+   clock: every request finishes with its count, the counters balance,
+   and the steps, chunks, preemptions, resumes, sheds and the per-tier
+   ``slo_report`` equal a CPU rehearsal of the same settings run in this
+   process (phi4's SMOKE layer over the full vocabulary, frames priced
+   at the full width's bytes: scheduling reads shapes and page bytes
+   only); then ``--slo`` once more on wall seconds (``time.monotonic``
+   from the run's start); then ``repro_torch.launch.far_memory_stream``
+   with its 1 GiB of layer blocks on the card, whose virtual times must
+   be the reference example's (``FAR_STREAM_S``);
 5. checks one prefill chunk, one decode step and one verify step at full
    width over 8 rows (the engine's batch): kernels against plain
    versions on the same cache, finite logits of the right shape within
@@ -263,13 +279,31 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
 then runs ``repro_torch.launch.serve_engine`` as a user calls it, on
 the card: all 10 requests finish, the paged decode and prefill kernels
 launch, and its step, chunk, preemption and resume counts equal a CPU
-run's.  Each engine run prints tok/s, mean TTFT, steps, chunks, dense
-prefills, peak memory and a sha256 of its tokens.
+run's.
+9. frees those weights and serves phase 3's 12 requests with its
+   settings on ``llama4-maverick-400b-a17b`` at full width (d_model
+   5120, 40 / 8 heads of 128, vocab 202048, 128 experts top-1 of d_ff
+   8192 and a shared expert on every second layer) cut to
+   ``LLAMA4_LAYERS`` = 4 of its 48 layers, two groups of a dense and an
+   MoE layer (random bf16 weights drawn on the card, ~65 GiB): (a) on
+   448 frames it preempts and resumes and kernels 1, 2 and 7 launch,
+   (b) a roomy pool gives (a)'s tokens, (c) with ``chunk_tokens`` unset
+   every prompt takes the dense prefill and kernel 4 launches once a
+   layer a prompt (48), request 0's layer-0 K in its frames within
+   phase 2's bars of the chunk queue's; (c) again with the dense flash
+   attention's plain version (kernel 4 launches 0 times), its tokens
+   counted against (c)'s; 9s: phase 8s's dense prefill on llama4 (1000
+   tokens in the 1024 bucket, kernel 4 at G = 5), and layer 1's MoE
+   block with kernel 7 bitwise the same block with plain gathers, at a
+   decode step's 8 rows and at 2 rows of a 256-token chunk.
+Each engine run prints tok/s, mean TTFT, steps, chunks, dense prefills,
+peak memory and a sha256 of its tokens.
 
 It prints the card's name and power limit first, then the lines of each
-phase, then ``{"kernels": [...]}`` (the bf16 paged decode, paged prefill
-and dense flash rows also carry ``engine_launches``, their launches in
-each engine run of phases 8, 8 (a), 8 (b) and 8w) and, last, ``{"ok":
+phase, then ``{"kernels": [...]}`` (the bf16 paged decode, paged
+prefill, dense flash and row gather rows also carry ``engine_launches``,
+their launches in each engine run of phases 8, 8 (a), 8 (b), 8w and 9
+(a), (b), (c)) and, last, ``{"ok":
 true, "device": ...}``.  Without a CUDA device it exits non-zero before any result.
 
 ``--profile-out PATH`` adds one more engine run of phase 3, one of
@@ -308,25 +342,29 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.kernels import amu_matmul as mm_mod  # noqa: E402
 from repro_torch.kernels import mamba2, moe_gather, rwkv6  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
+from repro_torch.launch import far_memory_stream  # noqa: E402
 from repro_torch.launch import quickstart, serve_engine  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (dense, embed, rms_norm,  # noqa: E402
                                        rope, swiglu, unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
                                       init_paged_cache, init_params,
-                                      prefill, prefill_chunk, verify_step)
+                                      layer_params, prefill, prefill_chunk,
+                                      verify_step)
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E402
                                       PagingConfig, SchedulerConfig,
                                       SpeculationConfig)
-from repro_torch.paging import PREFIX_SEQ, PageState, pages_for  # noqa: E402
+from repro_torch.paging import (PREFIX_SEQ, PageState, Pager,  # noqa: E402
+                                pages_for)
 from repro_torch.serve.disagg import (make_shared_tier,  # noqa: E402
                                       run_disaggregated, tier_pager_factory)
 from repro_torch.serve.engine import Engine  # noqa: E402
@@ -385,8 +423,20 @@ DANUBE_ENGINE = dict(max_batch=8, max_len=6144, page_size=16,
 DANUBE_SHORT, DANUBE_WRAP, DANUBE_LONG = (512, 1536), 4080, (4500, 6000)
 #: phases 8c and 8v: the depth each cell keeps (of 64 and 80 layers)
 COMMANDR_LAYERS, QWEN_LAYERS = 4, 8
-#: phase 8s: (arch, prompt tokens, bucket)
-DENSE_PREFILL_CASES = ((NEMO_ARCH, 1000, 1024), (DANUBE_ARCH, 5000, 6144))
+#: phase 9: llama4's grouped MoE at full width, cut to two groups (a
+#: dense layer and an MoE layer each) of its 48 layers
+LLAMA4_ARCH, LLAMA4_LAYERS = "llama4-maverick-400b-a17b", 4
+#: phases 8s and 9s: (arch, prompt tokens, bucket)
+DENSE_PREFILL_CASES = ((NEMO_ARCH, 1000, 1024), (DANUBE_ARCH, 5000, 6144),
+                       (LLAMA4_ARCH, 1000, 1024))
+#: phase 3w: the workload CLI's trace (``--workload``, its default rate
+#: and spec at ``max_len`` 2048) on phase 3's engine settings
+WORKLOAD_REQUESTS = 32
+#: far_memory_stream's virtual seconds by prefetch depth (0: blocking),
+#: the reference example's (``examples/far_memory_stream.py``), pinned by
+#: tests/test_torch_sim.py
+FAR_STREAM_S = {0: 0.29585216, 1: 0.17585215999999995,
+                2: 0.13849076000000007, 4: 0.13849076000000007}
 MODES = ("none", "int8", "fp8")
 QUANT_MODES = ("int8", "fp8")
 
@@ -822,7 +872,8 @@ def check_verify(dev, rng, mode="none"):
 #: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16; last,
 #: the f32 matmul at M = 8 and at 2048^3, where the tile rule takes its
 #: large tile, the f32 flash kernel at phi4's full width, and the int8 /
-#: fp8 paged prefill at D 80 (appended, so every earlier case keeps its
+#: fp8 paged prefill at D 80 and the bf16 paged prefill at llama4's
+#: G = 5, which phase 9 serves (appended, so every earlier case keeps its
 #: seed).  The first case of an entry point heads its row; the paged
 #: kernels' cases join phase 2's rows.
 DENSE_CASES = (
@@ -894,6 +945,8 @@ DENSE_CASES = (
      dict(H=32, Hkv=8, D=80)),
     ("paged_prefill", torch.float8_e4m3fn,
      "h2o-danube 32/8 heads of 80 (fp8)", dict(H=32, Hkv=8, D=80)),
+    ("paged_prefill", torch.bfloat16, "llama4 G=5 (40/8 of 128)",
+     dict(H=40, Hkv=8, D=128)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
@@ -1665,6 +1718,135 @@ def dense_config(device, paging: bool = True, clock=None,
         chunking=dataclasses.replace(econf.chunking, chunk_tokens=None))
 
 
+def workload_args(device: str, slo: bool):
+    """Phase 3w's command line: ``repro_torch.launch.serve`` with
+    ``--workload`` (and ``--slo``) on phase 3's engine settings."""
+    e = ENGINE
+    argv = ["--arch", ARCH, "--requests", str(WORKLOAD_REQUESTS),
+            "--workload", "--seed", str(SEED), "--device", device,
+            "--max-batch", str(e["max_batch"]), "--max-len",
+            str(e["max_len"]), "--page-size", str(e["page_size"]),
+            "--device-pages", str(e["device_pages"]), "--chunk-tokens",
+            str(e["chunk_tokens"]), "--chunk-slots", str(e["chunk_slots"])]
+    return serve_cli.build_parser().parse_args(argv + ["--slo"] * slo)
+
+
+def zero_based(clock):
+    """``clock`` read from 0 at the call: the trace's arrival times are
+    seconds from its start."""
+    t0 = clock()
+    return lambda: clock() - t0
+
+
+def serve_workload(cfg, params, args, clock=None, pager_factory=None):
+    """Submit the CLI's workload trace through its own submit path
+    (``serve.submit_requests``) on an engine of its flags and run it;
+    ``clock`` replaces the engine's virtual clock, ``pager_factory`` its
+    pager.  Returns (engine, outputs, wall seconds, counts)."""
+    econf = serve_cli.engine_config(args)
+    econf = dataclasses.replace(
+        econf, scheduler=dataclasses.replace(econf.scheduler, clock=clock),
+        paging=dataclasses.replace(econf.paging,
+                                   pager_factory=pager_factory))
+    eng = Engine(cfg, params, econf)
+    serve_cli.submit_requests(eng, args, cfg, econf,
+                              np.random.default_rng(args.seed))
+    t0 = time.perf_counter()
+    out = eng.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    eng.check_invariants()
+    counts = {"requests": len(out),
+              "tokens": sum(len(v) for v in out.values()),
+              **{k: eng.stats[k] for k in (
+                  "steps", "chunks", "mixed_steps", "preemptions",
+                  "resumes", "shed_admissions", "deadline_misses")},
+              "slo_report": eng.slo_report()}
+    require(all(len(out[r.rid]) == r.max_new_tokens
+                for r in eng.finished.values()) and len(out) ==
+            WORKLOAD_REQUESTS, "workload: a request did not finish with "
+            "its count")
+    return eng, out, wall, counts
+
+
+def workload_rehearsal() -> dict:
+    """Phase 3w on the CPU: phi4-mini's SMOKE layer (one) over the full
+    vocabulary, its frames priced at the full width's bytes (2,097,152),
+    each policy on the virtual clock.  Scheduling reads shapes and page
+    bytes, never the model's numbers, so the card run's steps,
+    preemptions and ``slo_report`` must be these.  Returns the counts by
+    policy."""
+    full = get_config(ARCH)
+    nbytes = (2 * full.num_layers * ENGINE["page_size"] * full.num_kv_heads
+              * full.head_dim * 2)                        # bf16 K + V
+
+    def factory(pool, table, *, page_nbytes):
+        return Pager(pool, table, page_nbytes=nbytes)
+
+    cfg = dataclasses.replace(get_smoke(ARCH), num_layers=1,
+                              compute_dtype="float32",
+                              vocab_size=full.vocab_size)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    return {policy: serve_workload(cfg, params,
+                                   workload_args("cpu", policy == "slo"),
+                                   pager_factory=factory)[3]
+            for policy in ("watermark", "slo")}
+
+
+def print_workload(tag: str, eng, wall: float, counts: dict) -> None:
+    ttft = [r.ttft for r in eng.finished.values()]
+    print(f"[{tag}] {counts['requests']} requests, {counts['tokens']} "
+          f"tokens in {wall:.2f}s ({counts['tokens'] / wall:.1f} tok/s), "
+          f"mean TTFT {np.mean(ttft) * 1e3:.3f} ms on the engine's clock, "
+          f"steps {counts['steps']} (mixed {counts['mixed_steps']}), chunks "
+          f"{counts['chunks']}, preemptions {counts['preemptions']} resumes "
+          f"{counts['resumes']}, shed {counts['shed_admissions']}, "
+          f"deadline misses {counts['deadline_misses']}")
+    serve_cli.print_slo_report(eng, eng.config)
+
+
+def run_workload(cfg, params) -> dict:
+    """Phase 3w: the workload CLI's trace on the card with the watermark
+    and the SLO policy (virtual clock), each held to the CPU rehearsal's
+    counts and ``slo_report``; then the SLO policy on wall seconds; then
+    ``far_memory_stream`` with its blocks on the card, its times the
+    reference example's.  Returns the kernel launches of the SLO run."""
+    reh = workload_rehearsal()
+    launches = {}
+    for policy in ("watermark", "slo"):
+        for k in ops.KERNELS:
+            k.launches = 0
+        eng, out, wall, counts = serve_workload(
+            cfg, params, workload_args("cuda", policy == "slo"))
+        launches[policy] = {k.name: k.launches for k in ops.KERNELS}
+        print_workload(f"workload:{policy}", eng, wall, counts)
+        print(f"[workload:{policy}] kernel launches "
+              f"{ {n: c for n, c in launches[policy].items() if c} }; "
+              f"tokens digest {tokens_digest(out)}")
+        for key, want in reh[policy].items():
+            require(counts[key] == want, f"workload {policy}: {key} "
+                    f"{counts[key]} on the card, {want} in the CPU "
+                    "rehearsal")
+        for k in (dec_mod.KERNEL, pre_mod.KERNEL):
+            require(launches[policy][k.name] > 0, f"workload {policy}: "
+                    f"kernel {k.name} never launched")
+        print(f"[workload:{policy}] steps, preemptions and slo_report equal "
+              "the CPU rehearsal's")
+        del eng
+    eng, out, wall, counts = serve_workload(
+        cfg, params, workload_args("cuda", True),
+        clock=zero_based(time.monotonic))
+    print_workload("workload:slo:wall", eng, wall, counts)
+    del eng
+    times = far_memory_stream.main([])
+    print(f"[far_memory_stream] virtual seconds by depth {times}; card "
+          f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    require(times == FAR_STREAM_S, f"far_memory_stream: {times}, the "
+            f"reference example's {FAR_STREAM_S}")
+    return launches
+
+
 def prefix_prompts(vocab: int):
     """Phase 3p's prompts: one shared system prompt of
     ``PREFIX_TOKENS`` and a unique tail of ``PREFIX_TAIL`` tokens each."""
@@ -2068,7 +2250,9 @@ def check_moe_steps(cfg, params, dev):
 #: instances, and the bf16 dense flash attention (kernel 4), which runs
 #: the dense prefill
 FLASH_BF16 = pre_mod.DENSE_KERNELS[torch.bfloat16]
-ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16)
+#: (and, since phase 9, the bf16 row gather: the MoE dispatch and combine)
+GATHER_BF16 = moe_gather.KERNELS[torch.bfloat16]
+ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16, GATHER_BF16)
 
 
 def big_params(arch: str, dev, tag: str, layers: int = 0):
@@ -2169,11 +2353,11 @@ def snapshot_request0(eng, store: dict, method: str) -> None:
 
 def check_dense_prefill(tag: str, cfg, params, plen: int, bucket: int,
                         dev) -> dict:
-    """Phase 8s: one dense prefill of a ``plen``-token prompt padded to
-    ``bucket``, as the engine runs it: kernel 4 launches once a layer and
-    the logits at ``plen - 1`` are finite; then kernel 4 on layer 0's q,
-    k, v of the same prompt held against its plain version within phase
-    2's bars, both timed."""
+    """Phases 8s and 9s: one dense prefill of a ``plen``-token prompt
+    padded to ``bucket``, as the engine runs it: kernel 4 launches once a
+    layer and the logits at ``plen - 1`` are finite; then kernel 4 on
+    layer 0's q, k, v of the same prompt held against its plain version
+    within phase 2's bars, both timed."""
     rng = np.random.default_rng(SEED + 6)
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :plen] = rng.integers(0, cfg.vocab_size, plen)
@@ -2192,16 +2376,12 @@ def check_dense_prefill(tag: str, cfg, params, plen: int, bucket: int,
     require(launches == cfg.num_layers, f"{tag}: kernel 4 launched "
             f"{launches} times for {cfg.num_layers} layers")
     window = cfg.window if cfg.attention == "swa" else 0
-    def first(tree):
-        return {k: first(v) if isinstance(v, dict) else v[0]
-                for k, v in tree.items()}
-
     with torch.no_grad():
-        layer = first(params["layers"]["attn"])
-        norm = first(params["layers"]["attn_norm"])
+        layer = layer_params(params, cfg, 0)[0]
         cdt = getattr(torch, cfg.compute_dtype)
-        h = rms_norm(norm, embed(params["embed"], toks, cdt), cfg.norm_eps)
-        q, k, v = attn_mod._project_qkv(layer, cfg, h, cdt)
+        h = rms_norm(layer["attn_norm"], embed(params["embed"], toks, cdt),
+                     cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(layer["attn"], cfg, h, cdt)
         pos = torch.arange(bucket, dtype=torch.int32, device=dev)[None]
         q, k = attn_mod._position_encode(cfg, q, k,
                                          attn_mod.text_positions(cfg, pos))
@@ -2222,30 +2402,34 @@ def check_dense_prefill(tag: str, cfg, params, plen: int, bucket: int,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
 
 
-def serve_nemo(dev) -> dict:
-    """Phase 8: mistral-nemo-12b at full width on phase 3's settings and
-    requests, then on a roomy pool, then (a) with the dense prefill
-    admitting every prompt and (b) with paging off; then phase 8s's
-    nemo prefill.  Returns each run's launch counts."""
-    cfg, params = big_params(NEMO_ARCH, dev, "nemo")
+def serve_family(tag: str, cfg, params, need, nonpaged: bool = False):
+    """Phases 8 and 9's engine runs of one model on phase 3's settings and
+    requests: the chunk queue on 448 frames, which must preempt and
+    resume and launch each kernel of ``need``; a roomy pool with its
+    tokens; the dense prefill admitting every prompt (and, with
+    ``nonpaged``, the engine with paging off), kernel 4 once a layer a
+    prefill; and request 0's layer-0 K that the dense prefill installed
+    in its frames, within phase 2's bars of the chunk queue's.  Returns
+    (tokens, launch counts), each by run: ``"queue"``, ``"roomy"``,
+    ``"dense"`` and ``"nonpaged"``."""
     ps = prompts(cfg.vocab_size)
     snaps = {}
-    eng, out, l8 = run_engine(
-        "nemo", cfg, params,
+    eng, out, lq = run_engine(
+        tag, cfg, params,
         engine_config("cuda", ENGINE["device_pages"], time.perf_counter), ps,
         hook=lambda e: snapshot_request0(e, snaps, "_finalize_prefill"))
-    for k in (dec_mod.KERNEL, pre_mod.KERNEL):
-        require(l8[k.name] > 0, f"nemo: kernel {k.name} never launched")
+    for k in need:
+        require(lq[k.name] > 0, f"{tag}: kernel {k.name} never launched")
     require(eng.stats["preemptions"] > 0 and eng.stats["resumes"] > 0,
-            "nemo: the pool never preempted/resumed")
+            f"{tag}: the pool never preempted/resumed")
     del eng
     pps = ENGINE["max_len"] // ENGINE["page_size"]
-    _, rout, _ = run_engine("nemo:roomy", cfg, params, engine_config(
-        "cuda", ENGINE["max_batch"] * pps), ps)
-    same_tokens("nemo:roomy", rout, out, "the preempting run's")
-    runs = {"8": l8}
-    for tag, paging in (("8a", True), ("8b", False)):
-        name = f"nemo:{'dense' if paging else 'nonpaged'}"
+    _, rout, lr = run_engine(f"{tag}:roomy", cfg, params, engine_config(
+        "cuda", ENGINE["max_batch"] * pps, time.perf_counter), ps)
+    same_tokens(f"{tag}:roomy", rout, out, "the preempting run's")
+    outs, runs = {"queue": out, "roomy": rout}, {"queue": lq, "roomy": lr}
+    for run, paging in (("dense", True), ("nonpaged", False))[:1 + nonpaged]:
+        name = f"{tag}:{run}"
         eng, dout, launches = run_engine(
             name, cfg, params,
             dense_config("cuda", paging=paging, clock=time.perf_counter), ps,
@@ -2260,17 +2444,27 @@ def serve_nemo(dev) -> dict:
         require(paging or launches[dec_mod.KERNEL.name] == 0,
                 f"{name}: the paged decode kernel ran without a pool")
         same_tokens(name, dout, out, "the chunk queue's", required=False)
-        runs[tag] = launches
+        outs[run], runs[run] = dout, launches
         del eng
-    err, row = agree("nemo: request 0's layer-0 K installed by the dense "
+    err, row = agree(f"{tag}: request 0's layer-0 K installed by the dense "
                      "prefill vs the chunk queue's",
                      snaps["_install_sequence"], snaps["_finalize_prefill"])
-    print(f"[nemo] request 0's layer-0 K in its frames, dense prefill vs "
+    print(f"[{tag}] request 0's layer-0 K in its frames, dense prefill vs "
           f"chunk queue ({snaps['_install_sequence'].shape[0]} positions): "
           f"max_abs_err {err:.3e} row_err {row:.3e}")
+    return outs, runs
+
+
+def serve_nemo(dev) -> dict:
+    """Phase 8: mistral-nemo-12b at full width through
+    :func:`serve_family`, with the non-paged engine; then phase 8s's
+    nemo prefill.  Returns each run's launch counts."""
+    cfg, params = big_params(NEMO_ARCH, dev, "nemo")
+    _, runs = serve_family("nemo", cfg, params,
+                           (dec_mod.KERNEL, pre_mod.KERNEL), nonpaged=True)
     check_dense_prefill("8s:nemo", cfg, params, *DENSE_PREFILL_CASES[0][1:],
                         dev)
-    return runs
+    return {"8": runs["queue"], "8a": runs["dense"], "8b": runs["nonpaged"]}
 
 
 def serve_danube(dev) -> dict:
@@ -2352,6 +2546,88 @@ def run_serve_engine_example() -> dict:
         require(card[key] == cpu[key], f"serve_engine: {key} {card[key]} "
                 f"on the card, {cpu[key]} on the CPU")
     return launches
+
+
+def plain_flash(tag: str, cfg, params, ref) -> None:
+    """Phase 9 (c) once more with ``ops.flash_attention`` on its plain
+    version, as the CPU runs it: kernel 4 launches no time, and how many
+    of the tokens equal ``ref``'s (those of (c) on the kernel) is
+    printed.  The two differ by rounding only, which an expert's
+    routing may still turn into another token."""
+    inner = ops.flash_attention
+
+    def plain(*args, impl="auto", **kw):
+        return inner(*args, impl="torch", **kw)
+    ops.flash_attention = plain
+    try:
+        _, out, launches = run_engine(
+            tag, cfg, params,
+            dense_config("cuda", clock=time.perf_counter),
+            prompts(cfg.vocab_size))
+    finally:
+        ops.flash_attention = inner
+    require(launches[FLASH_BF16.name] == 0, f"{tag}: kernel 4 launched "
+            f"{launches[FLASH_BF16.name]} times")
+    same_tokens(tag, out, ref, "kernel 4's", required=False)
+
+
+def serve_llama4(dev) -> dict:
+    """Phase 9: llama4-maverick-400b-a17b at full width cut to
+    ``LLAMA4_LAYERS`` layers (two groups: layers 0 and 2 dense, 1 and 3
+    MoE with 128 experts and the shared expert), random bf16 weights
+    drawn on the card, through :func:`serve_family`: (a) the chunk
+    queue, preempting; (b) a roomy pool; (c) the dense prefill, then
+    (c) on plain attention; then phase 9s.  Returns the launch counts of
+    (a), (b) and (c)."""
+    cfg, params = big_params(LLAMA4_ARCH, dev, "llama4", LLAMA4_LAYERS)
+    weights = torch.cuda.memory_allocated() / 2**30
+    outs, runs = serve_family("llama4", cfg, params,
+                           (dec_mod.KERNEL, pre_mod.KERNEL, GATHER_BF16))
+    la, lb, lc = runs["queue"], runs["roomy"], runs["dense"]
+    require(lc[GATHER_BF16.name] > 0, "llama4 (c): the row gather never "
+            "launched")
+    print(f"[llama4] weights {weights:.2f} GiB; launches of kernels 1 / 2 / "
+          f"4 / 7: (a) {la[dec_mod.KERNEL.name]} / {la[pre_mod.KERNEL.name]}"
+          f" / {la[FLASH_BF16.name]} / {la[GATHER_BF16.name]}, (b) "
+          f"{lb[dec_mod.KERNEL.name]} / {lb[pre_mod.KERNEL.name]} / "
+          f"{lb[FLASH_BF16.name]} / {lb[GATHER_BF16.name]}, (c) "
+          f"{lc[dec_mod.KERNEL.name]} / {lc[pre_mod.KERNEL.name]} / "
+          f"{lc[FLASH_BF16.name]} / {lc[GATHER_BF16.name]}")
+    plain_flash("llama4:dense:plain", cfg, params, outs["dense"])
+    check_dense_prefill("9s:llama4", cfg, params,
+                        *DENSE_PREFILL_CASES[2][1:], dev)
+    check_llama4_block(cfg, params, dev)
+    return {"9": la, "9b": lb, "9c": lc}
+
+
+def check_llama4_block(cfg, params, dev) -> None:
+    """Phase 9s: layer 1's MoE block (128 experts top-1 and the shared
+    expert) with its gathers on kernel 7 against the same block with
+    them plain, at one decode step's shapes (the engine's 8 rows) and at
+    one chunk's (2 rows of 256): the gathers move bits, so the two must
+    be bitwise equal."""
+    lp, is_moe = layer_params(params, cfg, 1)
+    require(is_moe and "shared" in lp["mlp"], "llama4: layer 1 is not the "
+            "first group's MoE layer")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for nrows, S in ((ENGINE["max_batch"], 1),
+                     (ENGINE["chunk_slots"], ENGINE["chunk_tokens"])):
+        x = torch.randn(nrows, S, cfg.d_model, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            GATHER_BF16.launches = 0
+            out, _ = moe.moe_block(lp["mlp"], cfg, x, impl="cuda")
+            launches = GATHER_BF16.launches
+            plain, _ = moe.moe_block(lp["mlp"], cfg, x, impl="torch")
+        require(launches == 2, f"llama4 block: {launches} gather launches")
+        require(torch.isfinite(out.float()).all(), "llama4 block: "
+                "non-finite")
+        require(torch.equal(out, plain), f"llama4 block ({nrows} x {S}): "
+                "the kernel gathers' output is not bitwise the plain "
+                "gathers'")
+        print(f"[llama4:block] moe_block {nrows} x {S} x {cfg.d_model} with "
+              f"the shared expert: kernel 7 ({launches} launches) bitwise "
+              "the plain gathers")
 
 
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
@@ -2910,6 +3186,10 @@ def main(argv=None) -> int:
             "offload: tokens differ from phase 3's")
     del feng
 
+    # 3w. the workload CLI's trace under both policies, held to a CPU
+    #     rehearsal, then on wall seconds; far_memory_stream on the card
+    run_workload(cfg, params)
+
     # 5. full-width step check against the plain versions
     check_steps(cfg, params, dev)
     if args.profile_out:
@@ -2957,6 +3237,11 @@ def main(argv=None) -> int:
     serve_cut(QWEN_ARCH, QWEN_LAYERS, dev, "qwen")
     free_params()
     run_serve_engine_example()
+    # 9. llama4's grouped MoE with its shared expert, cut in depth, in
+    #    the memory the earlier models left
+    free_params()
+    engine_runs.update(serve_llama4(dev))
+    free_params()
 
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
@@ -2970,9 +3255,13 @@ def main(argv=None) -> int:
         rows[3 * i + 2]["launches"] = spec[dec_mod.VERIFY_KERNELS[dt].name]
     # and the bf16 decode, prefill and dense flash kernels' launches in
     # each engine run of phases 8 (a: dense prefill, b: no pool) and 8w
+    # and 9's (llama4: a, b roomy, c dense prefill), where the row gather
+    # also launches
     flash_row = next(r for r in dense_rows if r["name"] == FLASH_BF16.name)
+    gather_row = next(r for r in gather_entries
+                      if r["name"] == GATHER_BF16.name)
     for row, kernel in ((rows[0], dec_mod.KERNEL), (rows[1], pre_mod.KERNEL),
-                        (flash_row, FLASH_BF16)):
+                        (flash_row, FLASH_BF16), (gather_row, GATHER_BF16)):
         row["engine_launches"] = {tag: runs[kernel.name]
                                   for tag, runs in engine_runs.items()}
     print(json.dumps({"kernels": rows + dense_rows + gather_entries}))

@@ -5,8 +5,10 @@
 Registered: the dense decoders ``phi4-mini-3.8b``, ``mistral-nemo-12b``,
 ``h2o-danube-1.8b`` (sliding window), ``command-r-plus-104b`` (qk-norm,
 tied embeddings) and ``qwen2-vl-72b`` (M-RoPE), and the MoE
-``olmoe-1b-7b`` (64 experts top-8 on every layer); the other
-architectures arrive with their model families.
+``olmoe-1b-7b`` (64 experts top-8 on every layer) and
+``llama4-maverick-400b-a17b`` (128 experts top-1 and a shared expert on
+every second layer); the other architectures arrive with their model
+families.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -6,6 +6,7 @@ Layers:
                                        stride, gather, scatter)
   * :mod:`repro_torch.core.spm`      — SPM budget planner / cache-SPM split
   * :mod:`repro_torch.core.offload`  — far-memory tier + streaming prefetcher
+  * :mod:`repro_torch.core.sim`      — Fig-1 discrete-event reproduction
 """
 
 from repro_torch.core.amu import (

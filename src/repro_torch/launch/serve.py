@@ -6,7 +6,8 @@ requests.
 
 ``--arch`` takes every registered architecture
 (:data:`repro_torch.configs.ARCH_IDS`: phi4-mini-3.8b, olmoe-1b-7b,
-mistral-nemo-12b, h2o-danube-1.8b, command-r-plus-104b, qwen2-vl-72b).
+mistral-nemo-12b, h2o-danube-1.8b, command-r-plus-104b, qwen2-vl-72b,
+llama4-maverick-400b-a17b).
 Every engine flag is auto-generated from the
 :class:`repro_torch.serve.config.EngineConfig` dataclass fields (one flag
 per knob, help text included), including ``--device {cuda,cpu}``
@@ -30,7 +31,21 @@ it anyway).  Script extras:
     alone and spools its records *plus their tier entries* to a file;
     ``--role decode --handoff-spool d.pkl`` adopts that spool in a
     separate process (the two-process version of ``--disagg``; both
-    draw the same weights from ``--seed``).
+    draw the same weights from ``--seed``),
+  * ``--workload`` replaces the uniform synthetic requests with the
+    production traffic model (:mod:`repro_torch.serve.workload`): bursty
+    diurnal arrivals at ``--workload-rate`` a virtual second, lognormal
+    prompts, Zipf outputs, and an interactive/batch tier split with
+    per-request TTFT/TPOT SLOs, replayed on the engine's clock,
+  * ``--slo`` is shorthand for ``--policy slo`` (goodput scheduling: EDF
+    chunk order, batch shedding, deadline-aware preemption); with
+    ``--workload`` or ``--slo`` the run ends with the per-tier
+    attainment report (:meth:`~repro_torch.serve.engine.Engine.
+    slo_report`),
+  * ``--dense`` turns paging off (``paging.enabled=False``): the dense
+    per-slot cache, the A/B reference of the paged decode path.
+
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --workload --slo
 """
 
 from __future__ import annotations
@@ -44,17 +59,36 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.models.model import init_params
-from repro_torch.serve.config import add_config_args, config_from_args
+from repro_torch.serve.config import (EngineConfig, add_config_args,
+                                      config_from_args)
 from repro_torch.serve.disagg import (make_shared_tier, run_disaggregated,
                                       spool_load, spool_save,
                                       tier_pager_factory)
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.workload import WorkloadSpec, generate
+
+__all__ = ["build_parser", "engine_config", "submit_requests",
+           "print_slo_report", "main"]
 
 
-def _submit_requests(eng, args, cfg, econf, rng) -> None:
-    """Queue the synthetic requests on ``eng``: ``--shared-prefix``
-    tokens, then a unique tail of 4 to 31 tokens each."""
+def submit_requests(eng, args, cfg, econf, rng) -> None:
+    """Queue the synthetic or workload-model requests on ``eng``: each
+    prompt is ``--shared-prefix`` tokens, then a unique tail — 4 to 31
+    tokens, or with ``--workload`` the trace's prompt length (cut so
+    that the prompt and its outputs fit ``max_len``), submitted with the
+    trace's output length, tier, SLOs and arrival time."""
     shared = rng.integers(0, cfg.vocab_size, args.shared_prefix)
+    if args.workload:
+        spec = WorkloadSpec(rate=args.workload_rate,
+                            max_prompt=max(4, econf.max_len // 2))
+        for wr in generate(args.requests, spec, seed=args.seed):
+            plen = min(wr.prompt_len, econf.max_len - wr.output_len - 1)
+            prompt = np.concatenate(
+                [shared, rng.integers(0, cfg.vocab_size, max(1, plen))])
+            eng.submit(prompt, max_new_tokens=wr.output_len,
+                       tier=wr.tier, ttft_slo=wr.ttft_slo,
+                       tpot_slo=wr.tpot_slo, arrival_t=wr.arrival_t)
+        return
     for _ in range(args.requests):
         plen = int(rng.integers(4, min(32, econf.max_len // 2)))
         prompt = np.concatenate(
@@ -108,6 +142,23 @@ def _report(eng, econf, out, wall) -> None:
               f"{eng.prefix.stats['interned']} pages interned")
 
 
+def print_slo_report(eng, econf) -> dict:
+    """Print the per-tier SLO lines of ``eng.slo_report()`` (on the
+    engine's clock) and the scheduler's shed and miss counts; returns
+    the report."""
+    rep = eng.slo_report()
+    for tier in ("interactive", "batch"):
+        tr = rep[tier]
+        print(f"[serve] {tier}: {tr['n']} reqs, "
+              f"attainment {tr['attainment']:.2f}, "
+              f"goodput {tr['goodput']:.1f} tok/s (engine clock), "
+              f"ttft p95 {tr['ttft_p95']*1e3:.1f} ms")
+    print(f"[serve] scheduler: policy={econf.scheduler.policy} "
+          f"shed={eng.stats['shed_admissions']} "
+          f"deadline_misses={eng.stats['deadline_misses']}")
+    return rep
+
+
 def _role_config(econf, role: str, factory, board=None):
     """The fused CLI config re-targeted at one disaggregated role."""
     return dataclasses.replace(
@@ -123,7 +174,7 @@ def _run_disagg(args, econf, cfg, params, rng):
     pre = Engine(cfg, params, _role_config(econf, "prefill", factory))
     dec = Engine(cfg, pre.params, _role_config(econf, "decode", factory,
                                                board=pre.handoff))
-    _submit_requests(pre, args, cfg, econf, rng)
+    submit_requests(pre, args, cfg, econf, rng)
     t0 = time.time()
     out = run_disaggregated(pre, dec)
     _sync(dec.device)
@@ -154,7 +205,7 @@ def _run_role(args, econf, cfg, params, rng):
     eng = Engine(cfg, params, _role_config(econf, econf.role, factory))
     t0 = time.time()
     if econf.role == "prefill":
-        _submit_requests(eng, args, cfg, econf, rng)
+        submit_requests(eng, args, cfg, econf, rng)
         eng.run()
         recs = eng.handoff.poll()
         spool_save(args.handoff_spool, recs, tier)
@@ -176,17 +227,32 @@ def _run_role(args, econf, cfg, params, rng):
     return out
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags: the script extras and one flag per
+    :class:`~repro_torch.serve.config.EngineConfig` field."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12,
-                    help="new tokens per request")
+                    help="new tokens per request (uniform mode)")
+    ap.add_argument("--dense", action="store_true",
+                    help="force the dense per-slot KV cache (A/B "
+                         "reference for the paged decode path)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many identical prefix tokens to "
                          "every synthetic prompt (system-prompt traffic "
                          "model, makes --prefix-cache visible)")
+    ap.add_argument("--workload", action="store_true",
+                    help="draw requests from the production traffic "
+                         "model (bursty/diurnal arrivals, heavy-tailed "
+                         "lengths, interactive/batch tiers with SLOs)")
+    ap.add_argument("--workload-rate", type=float, default=200.0,
+                    help="mean arrival rate for --workload "
+                         "(requests per virtual second)")
+    ap.add_argument("--slo", action="store_true",
+                    help="shorthand for --policy slo (goodput "
+                         "scheduling; pairs with --workload)")
     ap.add_argument("--disagg", action="store_true",
                     help="run a PREFILL and a DECODE engine over one "
                          "shared far tier in this process (see "
@@ -198,8 +264,23 @@ def main(argv=None):
                          "decode: adopt them from here")
     ap.add_argument("--seed", type=int, default=0)
     add_config_args(ap)     # one --flag per EngineConfig field
-    args = ap.parse_args(argv)
-    econf = config_from_args(args)
+    return ap
+
+
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The :class:`EngineConfig` of parsed flags, with ``--dense`` and
+    ``--slo`` applied."""
+    overrides = {}
+    if args.dense:
+        overrides["paging_enabled"] = False
+    if args.slo:
+        overrides["scheduler_policy"] = "slo"
+    return config_from_args(args, **overrides)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    econf = engine_config(args)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = torch.device(econf.device)
@@ -215,13 +296,15 @@ def main(argv=None):
     eng = Engine(cfg, params, econf)
     del params                       # the engine holds its cast copy
     t0 = time.time()
-    _submit_requests(eng, args, cfg, econf, rng)
+    submit_requests(eng, args, cfg, econf, rng)
     out = eng.run()
     _sync(device)
     wall = time.time() - t0
     _report(eng, econf, out, wall)
     if eng.offload_finished:
         print(f"[serve] far-tier AMU stats: {dict(eng.far_tier.amu.stats)}")
+    if args.workload or args.slo:
+        print_slo_report(eng, econf)
     if econf.obs.trace_out:
         print(f"[serve] trace written to {econf.obs.trace_out}")
     if econf.obs.metrics_out:

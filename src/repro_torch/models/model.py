@@ -7,16 +7,21 @@ the whole-prompt :func:`prefill` builds one, and :func:`decode_step`
 decodes on one, the non-paged engine's layout).  :func:`decode_step`
 takes either.
 
-The MoE family runs with an expert block on every layer
-(``moe_every == 1``, no shared expert): the reference's plain layer
-stack with :func:`repro_torch.models.moe.moe_block` in place of the
-SwiGLU MLP.  The grouped stack of ``moe_every > 1`` (llama4) is not
-ported.
+The MoE family runs with an expert block on every layer (olmoe:
+``moe_every == 1``, the reference's plain layer stack with
+:func:`repro_torch.models.moe.moe_block` in place of the SwiGLU MLP) or
+on every ``moe_every``-th (llama4: the reference's grouped stack of
+``moe_every - 1`` dense layers and one MoE layer a group, with a shared
+expert); :func:`layer_params` maps layer l to its parameters in either
+layout, and every layer walk (:func:`decode_step`, :func:`verify_step`,
+:func:`prefill_chunk`, :func:`prefill`) goes through it.
 
 Parameters are a nested dict of tensors with the JAX package's path
 names, the layer stack stacked on axis 0 (``params["layers"]["attn"]
-["q"]["w"]`` is (L, d, H * D)), so :func:`repro_torch.bridge.
-params_from_numpy` moves JAX weights over by name.  The layer loop is a
+["q"]["w"]`` is (L, d, H * D); grouped: ``params["groups"]["dense"]``
+(G, moe_every - 1, ...) and ``["moe"]`` (G, ...)), so
+:func:`repro_torch.bridge.params_from_numpy` moves JAX weights over by
+name.  The layer loop is a
 Python loop that hands each layer its ``(N, page, Hkv, D)`` view of the
 stacked pool; the attention blocks update those views in place.
 """
@@ -41,7 +46,8 @@ Params = Dict[str, Any]
 
 __all__ = ["init_params", "cast_params", "Cache", "PagedCache", "init_cache",
            "init_paged_cache", "prefill", "decode_step", "verify_step",
-           "prefill_chunk", "torch_dtype", "family_ported"]
+           "prefill_chunk", "torch_dtype", "family_ported",
+           "layer_params"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -49,21 +55,28 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def family_ported(cfg: ModelConfig) -> bool:
-    """A dense decoder, or an MoE one with an expert block on every layer
-    and no shared expert."""
+    """A dense decoder, or an MoE one: an expert block on every layer
+    (olmoe) or on every ``moe_every``-th, with or without a shared expert
+    (llama4's grouped stack, whose groups must tile the layers)."""
     if cfg.family == "dense":
         return not cfg.num_experts
     return (cfg.family == "moe" and cfg.num_experts > 0
-            and cfg.moe_every == 1 and not cfg.shared_expert)
+            and cfg.num_layers % cfg.moe_every == 0)
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if not family_ported(cfg):
         raise NotImplementedError(
             f"family {cfg.family!r} (experts={cfg.num_experts}, moe_every="
-            f"{cfg.moe_every}, shared_expert={cfg.shared_expert}) is not "
-            "ported yet; the port serves dense decoders and MoE ones with "
-            "an expert block on every layer and no shared expert")
+            f"{cfg.moe_every}, layers={cfg.num_layers}) is not ported yet; "
+            "the port serves dense decoders and MoE ones whose expert "
+            "layers tile the stack")
+
+
+def _grouped(cfg: ModelConfig) -> bool:
+    """llama4's layout: groups of ``moe_every - 1`` dense layers and one
+    MoE layer (the reference's ``params["groups"]``)."""
+    return bool(cfg.num_experts) and cfg.moe_every > 1
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -71,7 +84,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the JAX ``init_params`` shapes and scales
     (dense weights ~ N(0, 1/d_in), embeddings ~ N(0, 0.02²), norm scales
     1, the MoE layers' as :func:`~repro_torch.models.moe.moe_init`),
-    drawn from ``generator`` on ``device`` in ``cfg.param_dtype``."""
+    drawn from ``generator`` on ``device`` in ``cfg.param_dtype``.
+
+    The layer stack is ``params["layers"]`` (L, ...), or, for the grouped
+    MoE stack, ``params["groups"]`` with ``"dense"`` (G, moe_every - 1,
+    ...) and ``"moe"`` (G, ...), G = L // moe_every, as in the
+    reference."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     L, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
@@ -82,29 +100,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=device)
         return x.mul_(scale)
 
-    def w(d_in, d_out):
-        return {"w": normal((L, d_in, d_out), d_in ** -0.5)}
-
     def ones(*shape):
         return {"scale": torch.ones(shape, dtype=dtype, device=device)}
 
-    attn = {"q": w(d, H * hd), "k": w(d, Hkv * hd), "v": w(d, Hkv * hd),
-            "o": w(H * hd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(L, hd)
-        attn["k_norm"] = ones(L, hd)
-    params: Params = {
-        "embed": {"table": normal((V, d), 0.02)},
-        "final_norm": ones(d),
-        "layers": {
-            "attn_norm": ones(L, d),
-            "attn": attn,
-            "mlp_norm": ones(L, d),
-            "mlp": (moe_init(cfg, generator, device, dtype, layers=L)
-                    if cfg.num_experts else
-                    {"gate": w(d, ff), "up": w(d, ff), "down": w(ff, d)}),
-        },
-    }
+    def attn(lead):
+        def w(d_in, d_out):
+            return {"w": normal(lead + (d_in, d_out), d_in ** -0.5)}
+        p = {"q": w(d, H * hd), "k": w(d, Hkv * hd), "v": w(d, Hkv * hd),
+             "o": w(H * hd, d)}
+        if cfg.qk_norm:
+            p["q_norm"] = ones(*lead, hd)
+            p["k_norm"] = ones(*lead, hd)
+        return p
+
+    def mlp(lead, moe: bool):
+        if moe:
+            return moe_init(cfg, generator, device, dtype, lead=lead)
+        return {"gate": {"w": normal(lead + (d, ff), d ** -0.5)},
+                "up": {"w": normal(lead + (d, ff), d ** -0.5)},
+                "down": {"w": normal(lead + (ff, d), ff ** -0.5)}}
+
+    def stack(lead, a, m):
+        return {"attn_norm": ones(*lead, d), "attn": a,
+                "mlp_norm": ones(*lead, d), "mlp": m}
+
+    if _grouped(cfg):
+        G = L // cfg.moe_every
+        dl, ml = (G, cfg.moe_every - 1), (G,)
+        params: Params = {"embed": {"table": normal((V, d), 0.02)},
+                          "final_norm": ones(d)}
+        params["groups"] = {
+            "dense": stack(dl, attn(dl), mlp(dl, moe=False)),
+            "moe": stack(ml, attn(ml), mlp(ml, moe=True))}
+    else:
+        # this draw order (attention, embedding, MLP) fixes the weights
+        # every flat config has drawn since its port
+        a = attn((L,))
+        params = {"embed": {"table": normal((V, d), 0.02)},
+                  "final_norm": ones(d)}
+        params["layers"] = stack((L,), a, mlp((L,), bool(cfg.num_experts)))
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": normal((V, d), 0.02)}
     return params
@@ -137,6 +171,21 @@ def _layer(tree: Params, l: int) -> Params:
     """Layer ``l``'s view of the stacked layer params."""
     return {k: _layer(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
+
+
+def layer_params(params: Params, cfg: ModelConfig, l: int
+                 ) -> Tuple[Params, bool]:
+    """(layer ``l``'s params, whether its MLP is an expert block).  In
+    the grouped stack layer l is group ``l // moe_every``'s dense slot
+    ``l % moe_every`` or, at the last slot, its MoE layer; the KV stays
+    indexed by l either way, the reference's cache layout."""
+    if not _grouped(cfg):
+        return _layer(params["layers"], l), bool(cfg.num_experts)
+    g, slot = divmod(l, cfg.moe_every)
+    groups = params["groups"]
+    if slot < cfg.moe_every - 1:
+        return _layer(_layer(groups["dense"], g), slot), False
+    return _layer(groups["moe"], g), True
 
 
 class Cache(NamedTuple):
@@ -205,19 +254,23 @@ def _decode_families(params: Params, cfg: ModelConfig, x: torch.Tensor,
     paged = isinstance(cache, PagedCache)
     kp, vp = (kv["k_pages"], kv["v_pages"]) if paged else (kv["k"], kv["v"])
     ks, vs = kv.get("k_scales"), kv.get("v_scales")
-    layers = params["layers"]
     for l in range(cfg.num_layers):
-        lp = _layer(layers, l)
+        lp, is_moe = layer_params(params, cfg, l)
         scales = None if ks is None else (ks[l], vs[l])
         x = x + attn(lp["attn"], rms_norm(lp["attn_norm"], x, cfg.norm_eps),
                      kp[l], vp[l], scales)
-        h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        if cfg.num_experts:
-            m, _ = moe_block(lp["mlp"], cfg, h, compute_dtype=cdt, impl=impl)
-        else:
-            m = swiglu(lp["mlp"], h, cdt)
-        x = x + m
+        x = x + _mlp(lp, cfg, x, is_moe, cdt, impl)
     return x
+
+
+def _mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor, is_moe: bool, cdt,
+         impl: str) -> torch.Tensor:
+    """A layer's MLP on the pre-norm of ``x``: the expert block (its
+    gathers through ``impl``) or the SwiGLU."""
+    h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+    if is_moe:
+        return moe_block(lp["mlp"], cfg, h, compute_dtype=cdt, impl=impl)[0]
+    return swiglu(lp["mlp"], h, cdt)
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, cdt):
@@ -363,19 +416,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = text_positions(cfg, torch.arange(
         S, dtype=torch.int32, device=dev).expand(B, S))
     x = embed(params["embed"], tokens, cdt)
-    layers = params["layers"]
     for l in range(cfg.num_layers):
-        lp = _layer(layers, l)
+        lp, is_moe = layer_params(params, cfg, l)
         a, (k, v) = attention_block(
             lp["attn"], cfg, rms_norm(lp["attn_norm"], x, cfg.norm_eps),
             positions, compute_dtype=cdt, impl=impl)
         x = x + a
-        h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        if cfg.num_experts:
-            m, _ = moe_block(lp["mlp"], cfg, h, compute_dtype=cdt, impl=impl)
-        else:
-            m = swiglu(lp["mlp"], h, cdt)
-        x = x + m
+        x = x + _mlp(lp, cfg, x, is_moe, cdt, impl)
         k, v = _cache_fit(k, v, slots)
         k_all[l], v_all[l] = k, v
     if last_pos is None:

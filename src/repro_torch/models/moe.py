@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.layers import swiglu
 
 Params = Dict[str, torch.Tensor]
 
@@ -59,22 +60,29 @@ def rows_per_block(M: int) -> int:
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator, device,
-             dtype=torch.float32, layers: Optional[int] = None) -> Params:
+             dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Params:
     """Random MoE parameters with the reference's shapes and scales:
     router ``{"w"}`` (d, E) and the expert stacks ``gate``/``up``
-    (E, d, ff) scaled by d^-0.5, ``down`` (E, ff, d) by ff^-0.5, drawn
-    from ``generator``.  ``layers`` stacks them on a leading axis."""
+    (E, d, ff) scaled by d^-0.5, ``down`` (E, ff, d) by ff^-0.5, and,
+    where ``cfg.shared_expert`` is set, the shared expert ``shared``: a
+    SwiGLU MLP of width ff (``gate``/``up``/``down`` ``{"w"}``), drawn
+    from ``generator`` in that order.  ``lead`` (the layer stack's
+    shape) stacks them on leading axes."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    lead = () if layers is None else (layers,)
 
     def normal(shape, scale):
         return torch.randn(lead + shape, generator=generator, dtype=dtype,
                            device=device).mul_(scale)
 
-    return {"router": {"w": normal((d, E), d ** -0.5)},
-            "gate": normal((E, d, ff), d ** -0.5),
-            "up": normal((E, d, ff), d ** -0.5),
-            "down": normal((E, ff, d), ff ** -0.5)}
+    p = {"router": {"w": normal((d, E), d ** -0.5)},
+         "gate": normal((E, d, ff), d ** -0.5),
+         "up": normal((E, d, ff), d ** -0.5),
+         "down": normal((E, ff, d), ff ** -0.5)}
+    if cfg.shared_expert:
+        p["shared"] = {"gate": {"w": normal((d, ff), d ** -0.5)},
+                       "up": {"w": normal((d, ff), d ** -0.5)},
+                       "down": {"w": normal((ff, d), ff ** -0.5)}}
+    return p
 
 
 def _dispatch_indices(sorted_e: torch.Tensor, E: int, C: int):
@@ -187,7 +195,9 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) → (out (B, S, d) in x's dtype, aux loss f32 scalar).
     ``impl`` selects the gathers' implementation
-    (:func:`repro_torch.kernels.ops.gather_rows`)."""
+    (:func:`repro_torch.kernels.ops.gather_rows`).  A shared expert's
+    SwiGLU (``p["shared"]``, a plain matrix product, as in the
+    reference) adds to every token's combined rows before the cast."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     plan = dispatch(p, cfg, x, capacity=capacity, renorm_gates=renorm_gates)
@@ -210,4 +220,6 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                         rows_per_block=rows_per_block(M))        # (M, d)
     y = y * plan.weights[:, None].to(y.dtype)
     out = y.reshape(B, S, k, d).sum(dim=2)
+    if cfg.shared_expert:                  # every token, in compute dtype
+        out = out + swiglu(p["shared"], xc, compute_dtype).reshape(B, S, d)
     return out.to(x.dtype), plan.aux

@@ -22,6 +22,9 @@ pair, assembled the same way from role components:
     :class:`~repro_torch.serve.disagg.HandoffBoard` handoff protocol,
     the shared-tier pager factory and the
     :func:`~repro_torch.serve.disagg.run_disaggregated` loop,
+  * :mod:`repro_torch.serve.workload` — the production traffic model
+    (bursty diurnal arrivals, lognormal/Zipf lengths, interactive-vs-batch
+    tiers with per-request TTFT/TPOT SLOs),
   * :mod:`repro_torch.serve.kv_cache` — the slot pool, the aux residue
     and page split/join for far-tier payloads.
 
@@ -44,10 +47,12 @@ from repro_torch.serve.disagg import (HandoffBoard, HandoffRecord,
                                       tier_pager_factory)
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.policy import SchedulerPolicy, SLOScheduler
+from repro_torch.serve.workload import WorkloadRequest, WorkloadSpec, generate
 
 __all__ = [
     "Engine", "Request", "SchedulerPolicy", "SLOScheduler", "EngineConfig",
     "PagingConfig", "ChunkingConfig", "SchedulerConfig", "SpeculationConfig",
     "Tier", "VirtualClock", "EngineRole", "HandoffBoard", "HandoffRecord",
     "make_shared_tier", "tier_pager_factory", "run_disaggregated",
+    "WorkloadRequest", "WorkloadSpec", "generate",
 ]

@@ -83,7 +83,8 @@ def weights(arch):
 def test_registry_holds_the_six_served_archs():
     assert tconfigs.ARCH_IDS == [
         "phi4-mini-3.8b", "olmoe-1b-7b", "mistral-nemo-12b",
-        "h2o-danube-1.8b", "command-r-plus-104b", "qwen2-vl-72b"]
+        "h2o-danube-1.8b", "command-r-plus-104b", "qwen2-vl-72b",
+        "llama4-maverick-400b-a17b"]
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
 
 

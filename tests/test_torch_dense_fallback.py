@@ -278,7 +278,7 @@ def test_serve_cli_dense_prefill_and_new_archs(capsys):
     text = capsys.readouterr().out
     assert "dense prefills 3 (buckets (8, 16))" in text
     with pytest.raises(SystemExit):
-        serve_cli.main(["--arch", "llama4-maverick-400b-a17b", "--smoke"])
+        serve_cli.main(["--arch", "rwkv6-7b", "--smoke"])
 
 
 # ---------------------------------------------------------------------------

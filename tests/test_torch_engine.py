@@ -112,30 +112,30 @@ def test_random_init_serves_smoke_config():
 
 
 #: a family the port still refuses for each case: the dense smoke config
-#: with experts, llama4's grouped MoE (``moe_every=2``), the SSM family
+#: with experts, the enc-dec family, the SSM family, the hybrid family
 _DENSE_WITH_EXPERTS = {"num_experts": 4, "experts_per_token": 2}
-_GROUPED_MOE = {"family": "moe", "num_experts": 4, "experts_per_token": 2,
-                "moe_every": 2}
+_ENCDEC = {"family": "encdec"}
 _SSM = {"family": "ssm"}
+_HYBRID = {"family": "hybrid"}
 
 
 @pytest.mark.parametrize("change", [
     ({"role": "prefill",
-      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _GROUPED_MOE),
+      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _ENCDEC),
     ({"role": "decode",
       "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _SSM),
     ({"chunking": tconf.ChunkingConfig(chunk_tokens=None)},
      _DENSE_WITH_EXPERTS),
     ({"paging": tconf.PagingConfig(enabled=False)}, _SSM),
     ({"paging": tconf.PagingConfig(offload_finished=True),
-      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _GROUPED_MOE),
+      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _HYBRID),
 ])
 def test_unported_options_raise(change):
     """Every engine option the JAX engine accepts is served (the roles,
     offload, unset ``chunk_tokens``, ``paging.enabled=False``); each case
     pairs one with a model family the port still refuses — dense with
-    experts, llama4's grouped MoE, the SSM family — which raises
-    ``NotImplementedError`` whatever the options."""
+    experts, enc-dec, SSM, hybrid — which raises ``NotImplementedError``
+    whatever the options."""
     econf_change, cfg_change = change
     cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), **cfg_change)
     econf = dataclasses.replace(tconf.EngineConfig(device="cpu"),
