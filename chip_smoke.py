@@ -91,7 +91,10 @@ Drives ``repro_torch`` only (nothing of JAX or of the ``repro`` package):
    sequential oracles (``tests/test_kernels.py:117-158``), and in bf16
    at rwkv6-7b's full width (64 heads of K = V = 64, T = 2048, chunk 64)
    and zamba2-1.2b's Mamba2 layer (64 heads of P = 64, N = 64, T = 2048,
-   chunk 128), decay inputs in f32, within the bars of phase 2.  It
+   chunk 128), decay inputs in f32, within the bars of phase 2, and at
+   those widths once more with an initial state in and the final state
+   out (output and state within the bars), as phases 10 and 11 run
+   them.  It
    times kernel, plain version and a library yardstick where one
    PyTorch call computes the function (``torch.matmul``,
    ``scaled_dot_product_attention``; none computes WKV6 or SSD) and
@@ -296,14 +299,56 @@ run's.
    tokens in the 1024 bucket, kernel 4 at G = 5), and layer 1's MoE
    block with kernel 7 bitwise the same block with plain gathers, at a
    decode step's 8 rows and at 2 rows of a 256-token chunk.
+10. frees those weights and serves phase 3's requests and settings on
+   ``rwkv6-7b`` at full width and depth (32 RWKV-6 layers, d_model
+   4096, 64 heads of 64; random bf16 weights drawn on the card): the
+   family has no KV, so no pool, and every prompt takes the dense
+   prefill at its exact length; kernel 9 launches once a layer a prompt
+   (384), each call asked for the final state.  10s: a 1000-token
+   prompt (not a multiple of the chunk) through ``prefill``, every
+   layer also run plain on the kernel run's own input: each layer's
+   output (the row bar) and final state within phase 2's bars; in f32
+   compute (kernel 9's f32 instance) the whole depth against plain and
+   ``prefill(1000)`` + one ``decode_step`` against ``prefill(1001)``
+   (the kernel's final state handed to the step) within them.  bf16
+   rounding grows through 32 layers of random weights past those bars,
+   so the bf16 run on the kernel (logits read at the last token and
+   just past a segment boundary, every layer's final S, the step) may
+   stand at most twice as far from the plain f32 run as the plain bf16
+   run does, and a control with the kernel's carry lost must stand
+   farther.
+11. serves the same on ``zamba2-1.2b`` at full width and depth (38
+   Mamba2 layers of 64 heads, P 64, N 64, and the shared attention block
+   six times, 32 / 32 heads of 64): (a) the chunk queue on 448 frames of
+   786,432 B, which preempts and resumes with every resumed state
+   bitwise the parked one, kernel 10 once a Mamba2 layer a mixed step
+   with the state in and out; (b) a roomy pool; (c) the dense prefill,
+   kernel 4 once a shared block a prompt, kernel 10 once a Mamba2 layer
+   a prompt; (d) paging off; (e) as (a) on 300 frames, where a running
+   slot is preempted too and its state comes back through
+   ``insert_aux_slot``: each resumed state is held bitwise against its
+   copy at the park, in ``cache.ssm`` or in the next chunk's operand;
+   each run prints its launches of kernels 1, 2, 4 and 10.  11s: a
+   1000-token prompt in 256-token chunks with the carry (one cut to two
+   tokens, to read logits just past a boundary), every Mamba2 layer of
+   every chunk also run plain on its input and carry, held to phase 2's
+   bars; in f32 compute, the chunked run on plain versions and with
+   kernel 10's f32 instance, and the dense prefill on kernels 4 and 10,
+   against the plain dense prefill within the bars; in bf16, the
+   chunked and the dense run on the kernels at most twice as far from
+   the plain f32 run as the plain bf16 runs, controls with the carry
+   lost (zeroed between chunks; kernel 10's dropped in the dense run)
+   farther.  Tokens across runs are printed, not gated.
 Each engine run prints tok/s, mean TTFT, steps, chunks, dense prefills,
 peak memory and a sha256 of its tokens.
 
 It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` (the bf16 paged decode, paged
-prefill, dense flash and row gather rows also carry ``engine_launches``,
-their launches in each engine run of phases 8, 8 (a), 8 (b), 8w and 9
-(a), (b), (c)) and, last, ``{"ok":
+prefill, dense flash, row gather, wkv6 and ssd rows also carry
+``engine_launches``, their launches in each engine run of phases 8, 8
+(a), 8 (b), 8w, 9 (a), (b), (c), 10 and 11 (a)–(e); the bf16 wkv6 and
+ssd rows' ``launches`` are phase 10's and 11 (a)'s, phase 6's kept as
+``entry_point_launches``) and, last, ``{"ok":
 true, "device": ...}``.  Without a CUDA device it exits non-zero before any result.
 
 ``--profile-out PATH`` adds one more engine run of phase 3, one of
@@ -322,6 +367,7 @@ time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -353,11 +399,13 @@ from repro_torch.launch import far_memory_stream  # noqa: E402
 from repro_torch.launch import quickstart, serve_engine  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (dense, embed, rms_norm,  # noqa: E402
                                        rope, swiglu, unembed)
 from repro_torch.models.model import (cast_params, decode_step,  # noqa: E402
                                       init_paged_cache, init_params,
+                                      init_ssm_state, kv_layers,
                                       layer_params, prefill, prefill_chunk,
                                       verify_step)
 from repro_torch.serve.config import (ChunkingConfig, EngineConfig,  # noqa: E402
@@ -368,6 +416,7 @@ from repro_torch.paging import (PREFIX_SEQ, PageState, Pager,  # noqa: E402
 from repro_torch.serve.disagg import (make_shared_tier,  # noqa: E402
                                       run_disaggregated, tier_pager_factory)
 from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.kv_cache import extract_aux_slot  # noqa: E402
 from repro_torch.serve.request import Request  # noqa: E402
 
 # the kernel modules by name: the package's attributes of these names are
@@ -429,6 +478,21 @@ LLAMA4_ARCH, LLAMA4_LAYERS = "llama4-maverick-400b-a17b", 4
 #: phases 8s and 9s: (arch, prompt tokens, bucket)
 DENSE_PREFILL_CASES = ((NEMO_ARCH, 1000, 1024), (DANUBE_ARCH, 5000, 6144),
                        (LLAMA4_ARCH, 1000, 1024))
+#: phases 10 and 11: the SSM and the hybrid family at full width and depth
+RWKV6_ARCH, ZAMBA2_ARCH = "rwkv6-7b", "zamba2-1.2b"
+#: phases 10s and 11s: the prompt (a multiple of neither recurrence's
+#: chunk, 64 and 128) and 11s's chunk of the paged prefill
+SSM_CHECK_TOKENS, SSM_CHECK_CHUNK = 1000, 256
+#: phases 10s and 11s over the whole depth in bf16: the kernels' run may
+#: stand at most ``DEPTH_FACTOR`` times as far from the plain f32 run as
+#: the plain bf16 run does, and a control with the carry lost (at
+#: ``SSM_DROP_AT`` in every recurrence kernel call, a boundary of both
+#: kernels' segments and of 11s's prompt chunks, or between those
+#: chunks) must stand farther
+DEPTH_FACTOR, SSM_DROP_AT = 2.0, 768
+#: phase 11 (e): a pool on which the chunk queue also preempts a running
+#: slot (CPU rehearsal: tests/test_torch_hybrid.py)
+ZAMBA2_TIGHT_PAGES = 300
 #: phase 3w: the workload CLI's trace (``--workload``, its default rate
 #: and spec at ``max_len`` 2048) on phase 3's engine settings
 WORKLOAD_REQUESTS = 32
@@ -871,10 +935,11 @@ def check_verify(dev, rng, mode="none"):
 #: no tiles), and the linear recurrences at the reference benchmark's f32
 #: shapes and at rwkv6-7b's and zamba2-1.2b's full width in bf16; last,
 #: the f32 matmul at M = 8 and at 2048^3, where the tile rule takes its
-#: large tile, the f32 flash kernel at phi4's full width, and the int8 /
-#: fp8 paged prefill at D 80 and the bf16 paged prefill at llama4's
-#: G = 5, which phase 9 serves (appended, so every earlier case keeps its
-#: seed).  The first case of an entry point heads its row; the paged
+#: large tile, the f32 flash kernel at phi4's full width, the int8 /
+#: fp8 paged prefill at D 80, the bf16 paged prefill at llama4's G = 5,
+#: which phase 9 serves, and the recurrences at full width with a state
+#: in and out, as phases 10 and 11 run them (appended, so every earlier
+#: case keeps its seed).  The first case of an entry point heads its row; the paged
 #: kernels' cases join phase 2's rows.
 DENSE_CASES = (
     ("matmul", torch.bfloat16, "MLP gate/up, 2 chunks of 256 tokens",
@@ -947,6 +1012,12 @@ DENSE_CASES = (
      "h2o-danube 32/8 heads of 80 (fp8)", dict(H=32, Hkv=8, D=80)),
     ("paged_prefill", torch.bfloat16, "llama4 G=5 (40/8 of 128)",
      dict(H=40, Hkv=8, D=128)),
+    ("wkv6", torch.bfloat16,
+     "rwkv6-7b B1 T2048 H64 K64, state in and out",
+     dict(B=1, T=2048, H=64, K=64, chunk=64, state=True)),
+    ("ssd", torch.bfloat16,
+     "zamba2-1.2b B1 T2048 H64 P64 N64, state in and out",
+     dict(B=1, T=2048, H=64, P=64, N=64, chunk=128, state=True)),
 )
 _DENSE_SOURCE = {"matmul": ("amu_matmul", "amu_matmul.py:117"),
                  "flash": ("flash_attention", "flash_attention.py:114"),
@@ -963,8 +1034,9 @@ _MODE_OF = {KVQuantConfig(m).dtype: m for m in MODES}
 #: 117-158): kernel vs chunked form, and vs the sequential oracle
 SSM_TOL, SSM_SEQ_TOL = 1e-5, 1e-4
 #: kernels one call of the recurrences enqueues, at most (since their
-#: redesign: the segments' states, their scan, the outputs)
-SSM_LAUNCHES = 3
+#: redesign: the segments' states, their scan, the outputs; and ssd's
+#: pass over the last segment for the final state)
+SSM_LAUNCHES = 4
 _NO_LIBRARY = {"wkv6": "no single PyTorch call computes WKV6",
                "ssd": "no single PyTorch call computes SSD"}
 
@@ -1011,39 +1083,55 @@ def ssm_inputs(kind: str, c: dict, dt, rand):
     """A recurrence case of :data:`DENSE_CASES`, drawn as the reference's
     test draws it, the decay path in f32: (call, sequential oracle or
     None, bytes, flops, (kernel, operands) for :func:`cold_times`).  The
-    flops are the chunked form's products."""
+    flops are the chunked form's products.  A case with ``state`` also
+    draws an initial state (normal, f32) and asks for the final one: its
+    call returns (output, final state), and its bytes count the two
+    states."""
     el = torch.tensor([], dtype=dt).element_size()
     B, T, H, n = c["B"], c["T"], c["H"], c["chunk"]
     chunks, cc = T // min(n, T), min(n, T)
+    state = c.get("state", False)
     if kind == "wkv6":
         K = V = c["K"]
         r, k, v = (rand(B, T, H, K).to(dt) for _ in range(3))
         w = -torch.exp(rand(B, T, H, K) - 2)
         u = rand(H, K) * 0.1
+        ops_in = (r, k, v, w, u)
+        S_shape, fn = (B, H, K, V), ops.wkv6
+        nbytes = el * B * T * H * (2 * K + 2 * V) + 4 * (B * T * H * K
+                                                         + H * K)
         per_chunk = (2 * cc * K * V + cc * (cc - 1) // 2 * K
                      + cc * (cc + 1) // 2 * V + cc * K)
-        return ((lambda impl="auto": ops.wkv6(r, k, v, w, u, impl=impl,
-                                              chunk=n)),
-                (lambda: kref.wkv6_ref(r, k, v, w, u)) if T <= 256 else None,
-                el * B * T * H * (2 * K + 2 * V) + 4 * (B * T * H * K + H * K),
-                2 * B * H * chunks * per_chunk,
-                ((lambda *a: ops.wkv6(*a, impl="cuda", chunk=n)),
-                 (r, k, v, w, u)))
-    P, N = c["P"], c["N"]
-    x = rand(B, T, H, P).to(dt)
-    dts = torch.nn.functional.softplus(rand(B, T, H))
-    A = torch.linspace(0.5, 4.0, H, device=x.device)
-    Bm, Cm = (rand(B, T, N).to(dt) for _ in range(2))
-    Dh = rand(H)
-    per_chunk = (2 * cc * N * P + cc * (cc + 1) // 2 * (N + P)) * 2 + cc * P
-    return ((lambda impl="auto": ops.ssd(x, dts, A, Bm, Cm, Dh, impl=impl,
-                                         chunk=n)),
-            (lambda: kref.ssd_ref(x, dts, A, Bm, Cm, Dh)) if T <= 256
-            else None,
-            el * (2 * B * T * H * P + 2 * B * T * N) + 4 * (B * T * H + 2 * H),
-            B * H * chunks * per_chunk,
-            ((lambda *a: ops.ssd(*a, impl="cuda", chunk=n)),
-             (x, dts, A, Bm, Cm, Dh)))
+        flops = 2 * B * H * chunks * per_chunk
+        seq = (lambda: kref.wkv6_ref(r, k, v, w, u)) if T <= 256 else None
+    else:
+        P, N = c["P"], c["N"]
+        x = rand(B, T, H, P).to(dt)
+        dts = torch.nn.functional.softplus(rand(B, T, H))
+        A = torch.linspace(0.5, 4.0, H, device=x.device)
+        Bm, Cm = (rand(B, T, N).to(dt) for _ in range(2))
+        Dh = rand(H)
+        ops_in = (x, dts, A, Bm, Cm, Dh)
+        S_shape, fn = (B, H, N, P), ops.ssd
+        nbytes = el * (2 * B * T * H * P + 2 * B * T * N) + 4 * (
+            B * T * H + 2 * H)
+        per_chunk = (2 * cc * N * P + cc * (cc + 1) // 2 * (N + P)) * 2 \
+            + cc * P
+        flops = B * H * chunks * per_chunk
+        seq = ((lambda: kref.ssd_ref(x, dts, A, Bm, Cm, Dh)) if T <= 256
+               else None)
+    if not state:
+        return ((lambda impl="auto": fn(*ops_in, impl=impl, chunk=n)), seq,
+                nbytes, flops,
+                ((lambda *a: fn(*a, impl="cuda", chunk=n)), ops_in))
+    S0 = rand(*S_shape)
+    m = len(ops_in)
+    return ((lambda impl="auto": fn(*ops_in, impl=impl, chunk=n,
+                                    initial_state=S0, return_state=True)),
+            None, nbytes + 2 * 4 * S0.numel(), flops,
+            ((lambda *a: fn(*a[:m], impl="cuda", chunk=n,
+                            initial_state=a[m], return_state=True)),
+             ops_in + (S0,)))
 
 
 def dense_inputs(i: int, dev):
@@ -1277,13 +1365,21 @@ def check_case(i: int, dev):
     """Case ``i``: kernel against plain version at its bar (and a verify
     case's rows against the decode kernel, bitwise; an f32 recurrence
     against its sequential oracle too; a bf16 matmul against a selection
-    matrix, exactly), timed; returns (the case's numbers, the kernel
-    output on the host)."""
+    matrix, exactly; a recurrence with a state its final state too, at
+    the same bars), timed; returns (the case's numbers, the kernel output
+    on the host: a tuple of (output, final state) where there is one)."""
     kind, dt, label, shape = DENSE_CASES[i]
     call, lib, nbytes, flops, extra = dense_inputs(i, dev)
     out, ref = call("cuda"), call("torch")
     torch.cuda.synchronize()
     what = f"{kind} {label} ({dt})"
+    host = tuple(t.cpu() for t in out) if isinstance(out, tuple) \
+        else out.cpu()
+    state_acc = {}
+    if isinstance(out, tuple):           # (output, final state), bf16
+        s_err, s_row = agree(f"{what}: final state", out[1], ref[1])
+        state_acc = {"state_max_abs_err": s_err, "state_row_err": s_row}
+        out, ref = out[0], ref[0]
     require(torch.isfinite(out.float()).all(), f"{what}: non-finite")
     if kind == "paged_prefill":          # rows past lengths: don't-care
         errs = [agree(what, out[c, :m], ref[c, :m])
@@ -1292,7 +1388,7 @@ def check_case(i: int, dev):
             r for _, r in errs)}
     elif dt == torch.bfloat16:
         err, row_err = agree(what, out, ref)
-        acc = {"row_err": row_err}
+        acc = {"row_err": row_err, **state_acc}
     else:
         err, rel = _rel(out, ref)
         tol = SSM_TOL if kind in _NO_LIBRARY else F32_TOL
@@ -1364,7 +1460,7 @@ def check_case(i: int, dev):
           + f" plain_ms {case['plain_ms']:.4f} library_ms {lib_txt} bound_ms "
           f"{b_ms:.4f} ({b_by}) max_abs_err {err:.3e} "
           + " ".join(f"{k} {v:.3e}" for k, v in acc.items()))
-    return case, out.cpu()
+    return case, host
 
 
 def check_dense(dev):
@@ -1425,7 +1521,9 @@ def run_dense_path(dev, outs) -> dict:
     for i, (kind, dt, label, _) in enumerate(DENSE_CASES):
         out = dense_inputs(i, dev)[0]()
         torch.cuda.synchronize()
-        require(torch.equal(out.cpu(), outs[i]),
+        parts = (out, outs[i]) if isinstance(out, tuple) \
+            else ((out,), (outs[i],))
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(*parts)),
                 f"{kind} {label} ({dt}): the default impl's output is not "
                 "phase 2d's kernel output")
     launches = {k.name: k.launches for k in entry_points}
@@ -2074,7 +2172,7 @@ def check_steps(cfg, params, dev):
 
     def prefilled(impl):
         cache = init_paged_cache(cfg, B, 512, n_frames, PAGE, device=dev)
-        cl, cache = prefill_chunk(params, cfg, cache, chunk, impl=impl)
+        cl, cache, _ = prefill_chunk(params, cfg, cache, chunk, impl=impl)
         cache.kv["page_table"].copy_(rows)
         return cl, cache._replace(pos=chunk["length"].clone())
 
@@ -2216,7 +2314,7 @@ def check_moe_steps(cfg, params, dev):
     res = {}
     for impl in ("cuda", "torch"):
         cache = init_paged_cache(cfg, B, 512, n_frames, PAGE, device=dev)
-        cl, cache = prefill_chunk(params, cfg, cache, chunk, impl=impl)
+        cl, cache, _ = prefill_chunk(params, cfg, cache, chunk, impl=impl)
         cache.kv["page_table"].copy_(rows)
         cache = cache._replace(pos=chunk["length"].clone())
         dl, _ = decode_step(params, cfg, cache, toks[:, -1:], impl=impl)
@@ -2252,7 +2350,12 @@ def check_moe_steps(cfg, params, dev):
 FLASH_BF16 = pre_mod.DENSE_KERNELS[torch.bfloat16]
 #: (and, since phase 9, the bf16 row gather: the MoE dispatch and combine)
 GATHER_BF16 = moe_gather.KERNELS[torch.bfloat16]
-ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16, GATHER_BF16)
+#: (and, since phases 10 and 11, the bf16 recurrences: RWKV6's wkv6,
+#: Mamba2's ssd)
+WKV6_BF16, SSD_BF16 = rwkv6.KERNELS[torch.bfloat16], \
+    mamba2.KERNELS[torch.bfloat16]
+ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16, GATHER_BF16, WKV6_BF16,
+                  SSD_BF16)
 
 
 def big_params(arch: str, dev, tag: str, layers: int = 0):
@@ -2628,6 +2731,584 @@ def check_llama4_block(cfg, params, dev) -> None:
         print(f"[llama4:block] moe_block {nrows} x {S} x {cfg.d_model} with "
               f"the shared expert: kernel 7 ({launches} launches) bitwise "
               "the plain gathers")
+
+
+@contextlib.contextmanager
+def state_calls():
+    """Count the calls of the recurrences' CUDA wrappers
+    (``rwkv6.wkv6_cuda``, ``mamba2.ssd_cuda``, which ``ops`` looks up at
+    each call) by name: [calls, with an initial state, with the final
+    state asked for]."""
+    counts = {"wkv6": [0, 0, 0], "ssd": [0, 0, 0]}
+    saved = []
+    for mod, name in ((rwkv6, "wkv6_cuda"), (mamba2, "ssd_cuda")):
+        inner = getattr(mod, name)
+        saved.append((mod, name, inner))
+
+        def counted(*args, _inner=inner, _c=counts[name[:-5]], **kw):
+            _c[0] += 1
+            _c[1] += kw.get("initial_state") is not None
+            _c[2] += bool(kw.get("return_state"))
+            return _inner(*args, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def serve_rwkv6(dev) -> dict:
+    """Phase 10: rwkv6-7b at full width and depth (32 layers, d_model
+    4096, 64 heads of 64; random bf16 weights drawn on the card) on phase
+    3's requests and settings: the family has no KV, so the engine keeps
+    no pool and admits every prompt through the dense prefill at its
+    exact length; kernel 9 launches once a layer an admission (32 x 12),
+    each launch asked for the final state.  Then phase 10s.  Returns the
+    run's launch counts."""
+    cfg, params = big_params(RWKV6_ARCH, dev, "rwkv6")
+    weights = torch.cuda.memory_allocated() / 2**30
+    with state_calls() as calls:
+        eng, _, launches = run_engine(
+            "rwkv6", cfg, params,
+            engine_config("cuda", ENGINE["device_pages"], time.perf_counter),
+            prompts(cfg.vocab_size))
+    want = cfg.num_layers * N_REQUESTS
+    st = eng.stats
+    require(not eng.paging and eng.page_pool is None,
+            "rwkv6: the engine built a page pool for a family without KV")
+    require(st["prefills"] == N_REQUESTS and st["chunks"] == 0,
+            f"rwkv6: {st['prefills']} dense prefills, {st['chunks']} chunks")
+    require(launches[WKV6_BF16.name] == want, f"rwkv6: kernel 9 launched "
+            f"{launches[WKV6_BF16.name]} times, not {want}")
+    require(calls["wkv6"] == [want, 0, want], f"rwkv6: kernel 9's calls "
+            f"[all, state in, state out] {calls['wkv6']}, not "
+            f"[{want}, 0, {want}]")
+    slot = sum(t[:, :1].numel() * t.element_size() for t in eng.cache.ssm)
+    print(f"[rwkv6] weights {weights:.2f} GiB; no pool, {want} launches of "
+          f"kernel 9, each with the final state; recurrent state "
+          f"{slot} B a slot")
+    del eng
+    check_rwkv6_prefill(cfg, params, dev)
+    return {"10": launches}
+
+
+@contextlib.contextmanager
+def layer_pairs(name: str, tag: str, errs: dict):
+    """Run every call of ``models.model.<name>`` (a recurrent layer over a
+    sequence: ``rwkv6_block``, ``mamba2_seq``) a second time with
+    ``impl="torch"`` on the same input and state, and hold the kernel's
+    output and final state to the plain version's within phase 2's bars;
+    the kernel's result goes on, so each layer is compared on the
+    kernel run's own input (the layer's output, a residual sum, within
+    the row bar).  ``errs`` keeps the largest errors."""
+    inner = getattr(model_mod, name)
+
+    def both(*args, **kw):
+        out = inner(*args, **kw)
+        ref = inner(*args, **dict(kw, impl="torch"))
+        n = errs.setdefault("layers", 0)
+        errs["layers"] = n + 1
+        for key, a, b in (("out", out[0], ref[0]),
+                          *((f, x, y) for f, x, y in zip(
+                              out[1]._fields, out[1], ref[1]))):
+            what = (f"{tag}: layer call {n}'s {key}, kernel vs plain on the "
+                    "same input")
+            if key == "out":
+                # the residual sum x + f(x), rounded to bf16 at the scale
+                # of x: where the two cancel, a bit of f(x) is more than
+                # the elementwise bar of the small sum allows, so rows
+                o, r = a.float(), b.float()
+                err = float((o - r).abs().max())
+                row = float(((o - r).norm(dim=-1)
+                             / r.norm(dim=-1).clamp_min(1e-30)).max())
+                require(row <= ROW_TOL, f"{what}: row error {row}")
+            else:
+                err, row = agree(what, a, b)
+            old = errs.get(key, (0.0, 0.0))
+            errs[key] = (max(old[0], err), max(old[1], row))
+        return out
+    setattr(model_mod, name, both)
+    try:
+        yield errs
+    finally:
+        setattr(model_mod, name, inner)
+
+
+def _rel_err(a, b) -> float:
+    """Relative L2 error of ``a`` against ``b`` (f32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _layer_rel(a, b) -> float:
+    """The largest relative L2 error of a layer's slice of ``a`` (L, ...)
+    against ``b``'s: a state's whole tensor per layer, where single rows
+    of a state that has decayed to nothing carry no scale."""
+    a, b = a.float().flatten(1), b.float().flatten(1)
+    return float(((a - b).norm(dim=1) / b.norm(dim=1)).max())
+
+
+def state_agree(what: str, out, ref):
+    """:func:`agree` on a recurrent state (..., H, K, V), a row being one
+    head's whole state: a single row of a head can decay to ~0 (1e-18)
+    in one run and to 0 in another, which no row bar of its own can
+    hold."""
+    return agree(what, out.flatten(-2), ref.flatten(-2))
+
+
+def depth_gate(what: str, kern, plain, ctrl, truth, per_layer=False,
+               blind=False):
+    """Hold a bf16 run on the kernels to the plain f32 run (``truth``)
+    over the whole depth, where bf16 rounding grows through the layers
+    past phase 2's bars: its relative L2 error (per layer for a state)
+    may be at most ``DEPTH_FACTOR`` times the plain bf16 run's, and the
+    control's (the kernels with the carry lost) must be more, or the
+    gate could not see such a fault — unless ``blind``: the reading
+    cannot depend on the lost carry (a state that forgets it before
+    the end), and the control is printed.  Returns (kernels, plain,
+    control) errors."""
+    err = _layer_rel if per_layer else _rel_err
+    k, p, c = err(kern, truth), err(plain, truth), err(ctrl, truth)
+    limit = DEPTH_FACTOR * p
+    require(k <= limit, f"{what}: the kernels' bf16 run stands {k:.3e} "
+            f"from the plain f32 run, more than {DEPTH_FACTOR} x the plain "
+            f"bf16 run's {p:.3e}")
+    require(blind or c > limit, f"{what}: the control with the carry lost "
+            f"stands {c:.3e} from the plain f32 run, within the limit "
+            f"{limit:.3e}: the gate cannot see a lost carry")
+    return k, p, c
+
+
+def _depth_line(name: str, errs) -> str:
+    k, p, c = errs
+    return (f"{name} kernels {k:.3e} / plain {p:.3e} / control {c:.3e}")
+
+
+@contextlib.contextmanager
+def carry_dropped(mod, name: str, at: int):
+    """The control's fault: every call of ``mod.<name>`` (a recurrence's
+    CUDA wrapper) longer than ``at`` runs as two calls, [0, at) and
+    [at, T), the second from a zero state: the carry lost at a chunk
+    boundary.  Time is axis 1 of every operand of three or more axes."""
+    inner = getattr(mod, name)
+
+    def split(*args, initial_state=None, return_state=False, **kw):
+        T = args[0].shape[1]
+        if T <= at:
+            return inner(*args, initial_state=initial_state,
+                         return_state=return_state, **kw)
+        head = [a[:, :at].contiguous() if a.dim() >= 3 else a for a in args]
+        tail = [a[:, at:].contiguous() if a.dim() >= 3 else a for a in args]
+        y0 = inner(*head, initial_state=initial_state, **kw)
+        y1 = inner(*tail, return_state=return_state, **kw)
+        if return_state:
+            return torch.cat([y0, y1[0]], dim=1), y1[1]
+        return torch.cat([y0, y1], dim=1)
+    setattr(mod, name, split)
+    try:
+        yield
+    finally:
+        setattr(mod, name, inner)
+
+
+@contextlib.contextmanager
+def kernel_recurrences():
+    """``ops.wkv6`` / ``ops.ssd`` on their kernels whatever ``impl`` the
+    caller passes: a run with ``impl="torch"`` then takes the
+    recurrence kernels' f32 instances with every other op plain (the
+    paged attention kernels have no f32 instance)."""
+    saved = ops.wkv6, ops.ssd
+
+    def on_kernel(inner):
+        return lambda *a, impl="auto", **kw: inner(*a, impl="auto", **kw)
+    ops.wkv6, ops.ssd = (on_kernel(f) for f in saved)
+    try:
+        yield
+    finally:
+        ops.wkv6, ops.ssd = saved
+
+
+def check_rwkv6_prefill(cfg, params, dev) -> None:
+    """Phase 10s: one ``SSM_CHECK_TOKENS``-token prompt (not a multiple of
+    kernel 9's chunk of 64: the blocks pad it) through ``prefill`` with
+    the kernel, every layer also run plain on the kernel run's own input
+    (:func:`layer_pairs`): each layer's output and final state within
+    phase 2's bars.  The prompt goes in twice, as a batch of two rows
+    whose logits are read at its last token and at the one after
+    ``SSM_DROP_AT``: under the reference's initialisation rwkv6 keeps
+    a token at 0.87 a step (``w0`` = -2), so only a read a few tokens
+    past a segment boundary can see the carry across it.  In f32
+    compute (the weights widened, kernel 9's f32 instance) the kernel's
+    run and the plain run agree within the bars over the whole depth,
+    logits and every layer's final S, and so do ``prefill`` of those
+    tokens plus one ``decode_step`` of the next and the prefill of all
+    of them (the state the kernel hands to the step).  In bf16,
+    rounding grows through 32 layers of random weights past the bars,
+    so :func:`depth_gate` holds the kernel's run to the plain f32 run
+    at twice the plain bf16 run's distance, with the kernel's carry
+    dropped at ``SSM_DROP_AT`` as the control (for the step: the step
+    from a zero state; the final S has forgotten that carry, its
+    control is printed)."""
+    n = SSM_CHECK_TOKENS
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n + 1))
+                            .astype(np.int32)).to(dev).expand(2, n + 1)
+    probe = torch.tensor([n - 1, SSM_DROP_AT + 1], device=dev)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = rwkv6.KERNELS[torch.float32]
+
+    def zeroed(cache):
+        return cache._replace(ssm=type(cache.ssm)(
+            *(torch.zeros_like(t) for t in cache.ssm)))
+    with torch.no_grad():
+        WKV6_BF16.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, toks[:, :n], last_pos=probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = WKV6_BF16.launches
+        with layer_pairs("rwkv6_block", "10s", {}) as errs:
+            prefill(params, cfg, toks[:, :n])
+        require(launches == cfg.num_layers and errs["layers"]
+                == cfg.num_layers, f"10s: kernel 9 launched {launches} "
+                f"times, {errs['layers']} layers compared, for "
+                f"{cfg.num_layers} layers")
+        plain, pcache = prefill(params, cfg, toks[:, :n], last_pos=probe,
+                                impl="torch")
+        with carry_dropped(rwkv6, "wkv6_cuda", SSM_DROP_AT):
+            ctrl, ccache = prefill(params, cfg, toks[:, :n], last_pos=probe)
+        p32 = cast_params(params, torch.float32, dev)
+        truth, tcache = prefill(p32, cfg32, toks[:, :n], last_pos=probe,
+                                impl="torch")
+        deep = depth_gate("10s: bf16 logits over the depth", logits, plain,
+                          ctrl, truth)
+        deep_s = depth_gate("10s: bf16 final S over the depth", cache.ssm.S,
+                            pcache.ssm.S, ccache.ssm.S, tcache.ssm.S,
+                            per_layer=True, blind=True)
+        kp = (_rel_err(logits, plain), _layer_rel(cache.ssm.S, pcache.ssm.S))
+        del ccache
+        z_step, _ = decode_step(params, cfg, zeroed(cache), toks[:, n:])
+        b_step, _ = decode_step(params, cfg, cache, toks[:, n:])
+        p_step, _ = decode_step(params, cfg, pcache, toks[:, n:])
+        truth_next, _ = prefill(p32, cfg32, toks, impl="torch")
+        deep_h = depth_gate("10s: bf16 prefill + step vs the f32 longer "
+                            "prefill", b_step, p_step, z_step, truth_next)
+        del cache, pcache
+        f32.launches = 0
+        l32, c32 = prefill(p32, cfg32, toks[:, :n], last_pos=probe)
+        d_err, d_row = agree("10s: f32 prefill logits, kernel 9 vs plain",
+                             l32, truth)
+        s_err, s_row = agree("10s: f32 prefill, every layer's final S, "
+                             "kernel 9 vs plain", c32.ssm.S, tcache.ssm.S)
+        del tcache
+        step, _ = decode_step(p32, cfg32, c32, toks[:, n:])
+        whole, _ = prefill(p32, cfg32, toks)
+        require(f32.launches == 2 * cfg.num_layers, f"10s: the f32 "
+                f"instance of kernel 9 launched {f32.launches} times")
+        h_err, h_row = agree(f"10s: f32 prefill({n}) + one step vs "
+                             f"prefill({n + 1})", step, whole)
+        del p32, c32
+    print(f"[rwkv6:10s] prefill of {n} tokens x 2 rows in {wall:.3f}s, "
+          f"kernel 9 launches {launches}; each of {errs['layers']} layers "
+          f"vs plain on its input: output max_abs_err {errs['out'][0]:.3e} "
+          f"row_err {errs['out'][1]:.3e}, S max_abs_err {errs['S'][0]:.3e} "
+          f"row_err {errs['S'][1]:.3e}; f32 over the depth: logits "
+          f"max_abs_err {d_err:.3e} row_err {d_row:.3e}, S max_abs_err "
+          f"{s_err:.3e} row_err {s_row:.3e}; f32 prefill({n}) + step vs "
+          f"prefill({n + 1}): max_abs_err {h_err:.3e} row_err {h_row:.3e}")
+    print(f"[rwkv6:10s] bf16 over the depth, rel err from the plain f32 "
+          f"run (limit {DEPTH_FACTOR} x plain; control: the carry dropped "
+          f"at {SSM_DROP_AT}, the step from a zero state; logits at "
+          f"{n - 1} and {SSM_DROP_AT + 1}): {_depth_line('logits', deep)}; "
+          f"{_depth_line('S per layer', deep_s)}; "
+          f"{_depth_line('prefill + step', deep_h)}; kernels vs plain bf16 "
+          f"logits {kp[0]:.3e} S per layer {kp[1]:.3e}")
+
+
+def watch_residues(eng, seen: dict) -> None:
+    """Phase 11 (a), (e): every state the engine parks is copied on the
+    device as the park starts — a running slot's row of ``cache.ssm``, a
+    half-prefilled request's chunk carry — and held, bitwise, against
+    what the request's next step consumes: the slot's row of
+    ``cache.ssm`` once :func:`insert_aux_slot` put the residue back, or
+    the request's row of the next chunk operand that ``_build_chunk``
+    assembles.  ``seen`` counts the resumes held so, by kind."""
+    copies = {}
+    park, park_pre = eng._park, eng._park_prefilling
+    resume, build = eng._try_finish_resumes, eng._build_chunk
+    seen.update(slot=0, carry=0)
+
+    def parked(req):
+        copies[req.rid] = [t.clone() for t in extract_aux_slot(
+            eng.cache, req.slot, eng.max_batch)["ssm"]]
+        park(req)
+
+    def parked_prefilling(req):
+        copies[req.rid] = [t.clone() for t in req.chunk_ssm]
+        park_pre(req)
+
+    def resumed():
+        waiting = dict(eng._resuming)
+        resume()
+        for rid, req in waiting.items():
+            if rid in eng._resuming or req.mid_prefill:
+                continue
+            now = extract_aux_slot(eng.cache, req.slot, eng.max_batch)["ssm"]
+            require(all(torch.equal(a, b) for a, b in
+                        zip(copies.pop(rid), now)),
+                    f"zamba2: rid {rid}'s slot resumed with another state "
+                    "than the one parked")
+            seen["slot"] += 1
+
+    def built(picks):
+        chunk = build(picks)
+        for i, (req, _, _) in enumerate(picks):
+            if req.rid not in copies:
+                continue
+            row = [a[:, i:i + 1] for a in chunk["ssm"]]
+            require(all(torch.equal(a, b) for a, b in
+                        zip(copies.pop(req.rid), row)),
+                    f"zamba2: rid {req.rid}'s next chunk starts from "
+                    "another carry than the one parked")
+            seen["carry"] += 1
+        return chunk
+    eng._park, eng._park_prefilling = parked, parked_prefilling
+    eng._try_finish_resumes, eng._build_chunk = resumed, built
+
+
+def serve_zamba2(dev) -> dict:
+    """Phase 11: zamba2-1.2b at full width and depth (38 Mamba2 layers of
+    64 heads, P 64, N 64, and the shared block six times, 32 / 32 heads of
+    64; random bf16 weights drawn on the card) on phase 3's requests and
+    settings: (a) the chunk queue on 448 frames of 786,432 B (16
+    positions x 6 layers x K and V x 32 x 64 x 2 B), which must preempt
+    and resume, every resumed state bitwise the parked one, kernel 10
+    once a Mamba2 layer a mixed step, each call with the state in and
+    out; (b) a roomy pool; (c) the dense prefill (``chunk_tokens``
+    unset), kernel 4 once a shared block a prompt and kernel 10 once a
+    Mamba2 layer a prompt; (d) paging off; (e) as (a) on
+    ``ZAMBA2_TIGHT_PAGES`` frames, where a running slot is preempted
+    too and its state comes back through ``insert_aux_slot``.  Each run
+    prints its launches of kernels 1, 2, 4 and 10; tokens across runs
+    are printed, not gated.  Then phase 11s.  Returns the launch counts
+    by run."""
+    cfg, params = big_params(ZAMBA2_ARCH, dev, "zamba2")
+    weights = torch.cuda.memory_allocated() / 2**30
+    ps = prompts(cfg.vocab_size)
+    frame = 2 * kv_layers(cfg) * PAGE * cfg.num_kv_heads * cfg.head_dim * 2
+    require(frame == 786_432, f"zamba2: frame of {frame} B")
+    pps = ENGINE["max_len"] // ENGINE["page_size"]
+    runs, outs = {}, {}
+    for tag, econf in (
+            ("11a", engine_config("cuda", ENGINE["device_pages"],
+                                  time.perf_counter)),
+            ("11b", engine_config("cuda", ENGINE["max_batch"] * pps,
+                                  time.perf_counter)),
+            ("11c", dense_config("cuda", clock=time.perf_counter)),
+            ("11d", dense_config("cuda", paging=False,
+                                 clock=time.perf_counter)),
+            ("11e", engine_config("cuda", ZAMBA2_TIGHT_PAGES,
+                                  time.perf_counter))):
+        seen = {}
+        with state_calls() as calls:
+            eng, outs[tag], launches = run_engine(
+                f"zamba2:{tag}", cfg, params, econf, ps,
+                hook=(lambda e: watch_residues(e, seen))
+                if tag in ("11a", "11e") else None)
+        st = eng.stats
+        ssd = launches[SSD_BF16.name]
+        require(ssd > 0, f"zamba2 {tag}: kernel 10 never launched")
+        if st["chunks"]:
+            want = cfg.num_layers * st["mixed_steps"]
+            require(ssd == want and calls["ssd"] == [want] * 3,
+                    f"zamba2 {tag}: kernel 10's calls [all, state in, "
+                    f"state out] {calls['ssd']}, not {want} each")
+        else:
+            want = cfg.num_layers * N_REQUESTS
+            require(ssd == want and calls["ssd"] == [want, 0, want],
+                    f"zamba2 {tag}: kernel 10's calls {calls['ssd']}, not "
+                    f"[{want}, 0, {want}]")
+            require(st["prefills"] == N_REQUESTS and launches[
+                FLASH_BF16.name] == kv_layers(cfg) * N_REQUESTS,
+                f"zamba2 {tag}: {st['prefills']} dense prefills, kernel 4 "
+                f"launched {launches[FLASH_BF16.name]} times")
+        if seen:
+            require(eng.pager.page_nbytes == frame,
+                    f"zamba2: page_nbytes {eng.pager.page_nbytes}")
+            require(st["preemptions"] > 0 and st["resumes"] > 0,
+                    f"zamba2 {tag}: the pool never preempted/resumed")
+            require(seen["slot"] + seen["carry"] == st["resumes"],
+                    f"zamba2 {tag}: {seen} of {st['resumes']} resumes held "
+                    "to their parked state")
+            running = st["preemptions"] - st["prefill_preempts"]
+            require(tag != "11e" or (running > 0 and seen["slot"] > 0),
+                    f"zamba2 (e): {running} running slots preempted, "
+                    f"{seen['slot']} resumed through insert_aux_slot")
+        if tag == "11d":
+            require(not eng.paging and launches[dec_mod.KERNEL.name] == 0,
+                    "zamba2 (d): the paged decode kernel ran without a "
+                    "pool")
+        print(f"[zamba2:{tag}] launches of kernels 1 / 2 / 4 / 10: "
+              f"{launches[dec_mod.KERNEL.name]} / "
+              f"{launches[pre_mod.KERNEL.name]} / "
+              f"{launches[FLASH_BF16.name]} / {ssd}"
+              + (f"; preemptions {st['preemptions']} ("
+                 f"{st['prefill_preempts']} mid-prefill), resumes held "
+                 f"bitwise to the parked state: {seen['slot']} slots "
+                 f"(cache.ssm after insert_aux_slot), {seen['carry']} "
+                 "carries (the next chunk's ssm row)" if seen else ""))
+        if tag != "11a":
+            same_tokens(f"zamba2:{tag}", outs[tag], outs["11a"],
+                        "run (a)'s", required=False)
+        runs[tag] = launches
+        del eng
+    print(f"[zamba2] weights {weights:.2f} GiB")
+    check_zamba2_chunks(cfg, params, dev)
+    return runs
+
+
+def check_zamba2_chunks(cfg, params, dev) -> None:
+    """Phase 11s: one ``SSM_CHECK_TOKENS``-token prompt through
+    ``prefill_chunk`` in ``SSM_CHECK_CHUNK``-token chunks with the state
+    carry on the kernels, the chunk from ``SSM_DROP_AT`` cut at two
+    tokens: under the reference's initialisation (``dt_bias`` 0, A from 1
+    to 16) a Mamba2 state forgets within tens of tokens, so only a read
+    just past a boundary sees the carry across it, and logits are read
+    there (``SSM_DROP_AT`` + 1) and at the prompt's last token.  Every
+    Mamba2 layer of every chunk is also run plain on the kernel run's
+    own input and carry (:func:`layer_pairs`): each one's output and
+    state (S, conv) within phase 2's bars.  In f32 compute, over the
+    whole depth, against the dense ``prefill`` on plain versions (two
+    rows, the same two reads), within the bars: the chunked run on
+    plain versions (the carry through the model), the chunked run with
+    kernel 10's f32 instance carrying the state (the paged kernels have
+    no f32 instance, so its attention stays plain; the chunked f32 runs
+    keep their K/V in an f32 pool, as the dense prefill attends its f32
+    K/V), and the dense prefill on kernels 4 and 10.  In bf16,
+    :func:`depth_gate` holds the chunked and the dense run on the
+    kernels to the plain f32 dense run at twice the plain bf16 runs'
+    distance, the chunked control with the carry zeroed between chunks
+    and the dense one with kernel 10's carry dropped at ``SSM_DROP_AT``
+    farther (the final S has forgotten that carry: its controls are
+    printed)."""
+    n, c = SSM_CHECK_TOKENS, SSM_CHECK_CHUNK
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))
+                            .astype(np.int32)).to(dev)
+    pages = pages_for(n, PAGE)
+    rows = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    cuts = sorted({*range(0, n, c), SSM_DROP_AT + 2, n})
+    spans = list(zip(cuts, cuts[1:]))
+    chunks = len(spans)
+    probe = torch.tensor([n - 1, SSM_DROP_AT + 1], device=dev)
+
+    def chunked(p, cfg, impl, f32_pool=False, zero_carry=False):
+        """Logits at the prompt's last token and at the probe after
+        ``SSM_DROP_AT`` (2, V), the final carry, kernel 10's and kernel
+        2's launches."""
+        cache = init_paged_cache(cfg, 1, pages * PAGE, pages + 1, PAGE,
+                                 device=dev)
+        if f32_pool:
+            cache = cache._replace(kv=dict(
+                cache.kv, k_pages=cache.kv["k_pages"].float(),
+                v_pages=cache.kv["v_pages"].float()))
+        carry = init_ssm_state(cfg, 1, device=dev)
+        SSD_BF16.launches = pre_mod.KERNEL.launches = 0
+        read = {}
+        with torch.no_grad():
+            for lo, hi in spans:
+                if zero_carry:
+                    carry = init_ssm_state(cfg, 1, device=dev)
+                read[hi - 1], cache, carry = prefill_chunk(p, cfg, cache, {
+                    "tokens": toks[:, lo:hi],
+                    "offset": torch.tensor([lo], dtype=torch.int32,
+                                           device=dev),
+                    "length": torch.tensor([hi - lo], dtype=torch.int32,
+                                           device=dev),
+                    "page_rows": rows, "ssm": carry}, impl=impl)
+        logits = torch.cat([read[int(i)] for i in probe])
+        return logits, carry, SSD_BF16.launches, pre_mod.KERNEL.launches
+
+    with layer_pairs("mamba2_seq", "11s", {}) as errs:
+        logits, carry, ssd, pre = chunked(params, cfg, "auto")
+    require(ssd == cfg.num_layers * chunks and pre == kv_layers(cfg) * chunks
+            and errs["layers"] == ssd, f"11s: kernels 10 / 2 launched {ssd} "
+            f"/ {pre} times, {errs['layers']} layer calls compared")
+    plain, pcarry, ssd0, pre0 = chunked(params, cfg, "torch")
+    require(ssd0 == pre0 == 0, f"11s: the plain run launched kernels 10 / 2 "
+            f"{ssd0} / {pre0} times")
+    ctrl, ccarry, _, _ = chunked(params, cfg, "auto", zero_carry=True)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = (mamba2.KERNELS[torch.float32],
+           pre_mod.DENSE_KERNELS[torch.float32])
+    two = toks.expand(2, n)
+    with torch.no_grad():
+        dense, dcache = prefill(params, cfg, two, last_pos=probe)
+        pdense, pdcache = prefill(params, cfg, two, last_pos=probe,
+                                  impl="torch")
+        with carry_dropped(mamba2, "ssd_cuda", SSM_DROP_AT):
+            cdense, cdcache = prefill(params, cfg, two, last_pos=probe)
+        p32 = cast_params(params, torch.float32, dev)
+        truth, tcache = prefill(p32, cfg32, two, last_pos=probe,
+                                impl="torch")
+        for k in f32:
+            k.launches = 0
+        k32, kc32 = prefill(p32, cfg32, two, last_pos=probe)
+    tss = type(tcache.ssm)(*(t[:, :1] for t in tcache.ssm))
+    f32_runs = [("the dense prefill on kernels 4 and 10", k32,
+                 type(kc32.ssm)(*(t[:, :1] for t in kc32.ssm)))]
+    del kc32, tcache
+    f32_runs.append(("the chunked run on plain versions",
+                     *chunked(p32, cfg32, "torch", f32_pool=True)[:2]))
+    with kernel_recurrences():
+        f32_runs.append(("the chunked run with kernel 10's carry",
+                         *chunked(p32, cfg32, "torch", f32_pool=True)[:2]))
+    launches32 = [k.launches for k in f32]
+    require(launches32 == [cfg.num_layers * (1 + chunks), kv_layers(cfg)],
+            f"11s: the f32 instances of kernels 10 / 4 launched "
+            f"{launches32} times")
+    f32_errs = []
+    for what, lg, st in f32_runs:
+        what = f"11s: f32, {what} vs the dense prefill on plain versions"
+        f32_errs.append((agree(f"{what}: logits", lg, truth)[1],
+                         state_agree(f"{what}: every layer's S", st.S,
+                                     tss.S)[1],
+                         agree(f"{what}: every layer's conv state",
+                               st.conv, tss.conv)[1]))
+    del p32, f32_runs
+    deep = {
+        "chunked logits": depth_gate("11s: bf16 chunked logits", logits,
+                                     plain, ctrl, truth),
+        "chunked S per layer": depth_gate(
+            "11s: bf16 chunked S", carry.S, pcarry.S, ccarry.S, tss.S,
+            per_layer=True, blind=True),
+        "dense logits": depth_gate("11s: bf16 dense logits", dense, pdense,
+                                   cdense, truth),
+        "dense S per layer": depth_gate(
+            "11s: bf16 dense S", dcache.ssm.S, pdcache.ssm.S,
+            cdcache.ssm.S, tss.S.expand_as(dcache.ssm.S), per_layer=True,
+            blind=True)}
+    print(f"[zamba2:11s] {n} tokens in {chunks} chunks {spans} with the "
+          f"carry (kernel 10: {ssd} launches, kernel 2: {pre}); each of "
+          f"{errs['layers']} layer calls vs plain on its input and carry: "
+          f"output max_abs_err {errs['out'][0]:.3e} row_err "
+          f"{errs['out'][1]:.3e}, S {errs['S'][0]:.3e} / {errs['S'][1]:.3e}"
+          f", conv {errs['conv'][0]:.3e} / {errs['conv'][1]:.3e}; f32 over "
+          f"the depth vs the plain dense prefill, row_err of logits / S "
+          f"(a head a row) / conv: dense on kernels "
+          f"{'/'.join(f'{e:.3e}' for e in f32_errs[0])}, chunked plain "
+          f"{'/'.join(f'{e:.3e}' for e in f32_errs[1])}, chunked on kernel "
+          f"10 {'/'.join(f'{e:.3e}' for e in f32_errs[2])}")
+    print(f"[zamba2:11s] bf16 over the depth, rel err from the plain f32 "
+          f"dense prefill (limit {DEPTH_FACTOR} x plain; control: the carry "
+          f"zeroed between chunks, dropped at {SSM_DROP_AT} in the dense "
+          f"run; logits at {n - 1} and {SSM_DROP_AT + 1}): "
+          + "; ".join(_depth_line(k, v) for k, v in deep.items())
+          + f"; chunked vs dense: kernels logits {_rel_err(logits, dense):.3e}"
+          f" S per layer {_layer_rel(carry.S, dcache.ssm.S[:, :1]):.3e}, "
+          f"plain logits {_rel_err(plain, pdense):.3e} S per layer "
+          f"{_layer_rel(pcarry.S, pdcache.ssm.S[:, :1]):.3e}")
 
 
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
@@ -3242,6 +3923,12 @@ def main(argv=None) -> int:
     free_params()
     engine_runs.update(serve_llama4(dev))
     free_params()
+    # 10-11. the SSM and the hybrid family at full width and depth, their
+    #     recurrences on kernels 9 and 10 with the state in and out
+    engine_runs.update(serve_rwkv6(dev))
+    free_params()
+    engine_runs.update(serve_zamba2(dev))
+    free_params()
 
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
@@ -3260,8 +3947,16 @@ def main(argv=None) -> int:
     flash_row = next(r for r in dense_rows if r["name"] == FLASH_BF16.name)
     gather_row = next(r for r in gather_entries
                       if r["name"] == GATHER_BF16.name)
+    # and kernels 9 and 10 (bf16): their main path is since phases 10 and
+    # 11 an engine's, phase 6's count kept beside
+    wkv6_row, ssd_row = (next(r for r in dense_rows if r["name"] == k.name)
+                         for k in (WKV6_BF16, SSD_BF16))
+    for row, tag in ((wkv6_row, "10"), (ssd_row, "11a")):
+        row["entry_point_launches"] = row["launches"]
+        row["launches"] = engine_runs[tag][row["name"]]
     for row, kernel in ((rows[0], dec_mod.KERNEL), (rows[1], pre_mod.KERNEL),
-                        (flash_row, FLASH_BF16), (gather_row, GATHER_BF16)):
+                        (flash_row, FLASH_BF16), (gather_row, GATHER_BF16),
+                        (wkv6_row, WKV6_BF16), (ssd_row, SSD_BF16)):
         row["engine_launches"] = {tag: runs[kernel.name]
                                   for tag, runs in engine_runs.items()}
     print(json.dumps({"kernels": rows + dense_rows + gather_entries}))

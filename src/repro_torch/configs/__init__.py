@@ -7,8 +7,9 @@ Registered: the dense decoders ``phi4-mini-3.8b``, ``mistral-nemo-12b``,
 tied embeddings) and ``qwen2-vl-72b`` (M-RoPE), and the MoE
 ``olmoe-1b-7b`` (64 experts top-8 on every layer) and
 ``llama4-maverick-400b-a17b`` (128 experts top-1 and a shared expert on
-every second layer); the other architectures arrive with their model
-families.
+every second layer), the SSM ``rwkv6-7b`` (RWKV-6) and the hybrid
+``zamba2-1.2b`` (Mamba2 with a shared attention block); the
+encoder-decoder architecture arrives with its model family.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen2-vl-72b": "qwen2_vl_72b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "rwkv6-7b": "rwkv6_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -396,3 +396,19 @@ def check_operand(name: str, t, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def state_operand(state, shape, device):
+    """A recurrence kernel's initial state: None, or ``state`` widened to
+    f32 and made contiguous, checked to be ``shape`` on ``device`` (the
+    kernel reads it 16 bytes at a time)."""
+    if state is None:
+        return None
+    state = state.float().contiguous()
+    check_operand("initial_state", state, torch.float32, len(shape), device)
+    if tuple(state.shape) != tuple(shape):
+        raise ValueError(f"initial_state has shape {tuple(state.shape)}, "
+                         f"expected {tuple(shape)}")
+    if state.data_ptr() % 16:
+        raise ValueError("initial_state must be 16-byte aligned")
+    return state

@@ -5,10 +5,14 @@
 // src/repro/kernels/mamba2.py (its pallas_call at line 93).  Same
 // function: per batch row b and head h, with one scalar decay per head
 // and step,
-//   S_t = e^{-A_h dt_t} S_{t-1} + dt_t B_t x_t^T,   S_0 = 0 (N x P, f32),
-//   y_t = C_t^T S_t + D_h x_t.
+//   S_t = e^{-A_h dt_t} S_{t-1} + dt_t B_t x_t^T,   S_0 = s_in or 0 (N x P,
+//   f32), y_t = C_t^T S_t + D_h x_t.
 // Entry points ssd_f32 and ssd_bf16: x, B, C and y of that type; dt, A and
 // D f32 (in the model dt is a softplus in f32 and A, D are f32 params).
+// Their last two arguments carry the state across calls (a prompt served
+// in chunks): s_in, the initial state S_0 (B, H, N, P) f32, and s_out,
+// where the final state S_T goes, (B, H, N, P) f32; either may be null
+// (S_0 = 0; no final state).
 //
 // Layout: the model layout, read in place: x and y (B, T, H, P), dt
 // (B, T, H), B and C (B, T, N) shared by all heads, A and D (H,).
@@ -33,7 +37,13 @@
 //   (B) repro_ssm::state_scan: S_{g+1} = e^{d_g} S_g + U_g in place;
 //   (C) one block per (segment, head, batch row): its outputs, from the
 //       state entering it, carried through its pieces.
-// With one segment (B) is skipped and (A) computes C B^T alone.  At
+// With one segment (B) is skipped and (A) computes C B^T alone.  With
+// s_in, (B) starts from it and the first segment of (C) enters with it.
+// With s_out, a fourth kernel, (A)'s body as an instance of its own, runs
+// after (C): a block per (head, batch row) over the last segment from the
+// state entering it (the scan's, or s_in), writing S_T straight into
+// s_out.  The plan and the workspace stay as they are, and (A) and (C),
+// at the 128 registers of two blocks an SM, carry none of its code.  At
 // zamba2-1.2b's width (B 1, T 2048, H 64, chunk 128) the plan takes
 // pieces of 64 rows (two blocks an SM) and segments of 4: 512 blocks of
 // (C), where the kernel before them ran 128 blocks that each walked 16
@@ -79,6 +89,8 @@ struct Args {
   float* cb;        // (B, pieces, cp, cp): C B^T of each piece
   float* states;    // (B, H, segments - 1, N, P)
   float* decays;    // (B, H, segments - 1)
+  const float* s_in;   // (B, H, N, P) initial state, or null (zero)
+  float* s_out;        // (B, H, N, P) final state, or null (not asked for)
   int T_len, H, rows, seg, nseg, pieces, n_cb;
 };
 
@@ -188,8 +200,10 @@ __device__ void cb_block(const Args<T>& a, float* sm, int b, int pc) {
 }
 
 // (A) for blocks past the C B^T ones (kOut false), (C) (kOut true): the
-// pieces of segment g of head h of batch row b.
-template <typename T, bool kOut, int P, int N>
+// pieces of segment g of head h of batch row b.  kFinal: (A)'s body over
+// the last segment, a block per (head, batch row), from the state entering
+// it, into s_out (a template constant: (A) and (C) carry none of it).
+template <typename T, bool kOut, int P, int N, bool kFinal = false>
 __global__ void __launch_bounds__(kThreads, 2) ssd_pieces(Args<T> a) {
   constexpr bool kSplit = !std::is_same<T, __nv_bfloat16>::value;
   constexpr int sx = stride_b(P), sb = stride_b(N), sc = stride_a(N);
@@ -199,6 +213,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_pieces(Args<T> a) {
     g = blockIdx.x;
     h = blockIdx.y;
     b = blockIdx.z;
+  } else if (kFinal) {
+    g = a.nseg - 1;
+    h = blockIdx.x % a.H;
+    b = blockIdx.x / a.H;
   } else {
     if (static_cast<int>(blockIdx.x) < a.n_cb) {
       cb_block<T, N>(a, sm, blockIdx.x / a.pieces, blockIdx.x % a.pieces);
@@ -227,9 +245,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_pieces(Args<T> a) {
   const float Ah = a.A[h], Dh = a.D[h];
   const int nsub = cp / kSub;
   constexpr int kCols = 8 * kGroup, kGroups = P / kCols;
+  // the state entering the segment: (C) and the final pass start from
+  // it, (A)'s segments from zero
+  constexpr bool enter = kOut || kFinal;
 
-  if (kOut && g > 0)
+  if (enter && g > 0)
     load_block<P>(S, sx, a.states + (slot + g - 1) * N * P, N);
+  else if (enter && a.s_in != nullptr)
+    load_block<P>(S, sx, a.s_in + (static_cast<long>(b) * a.H + h) * N * P,
+                  N);
   else
     zero_block<P>(S, sx, N);
   float lsum = 0.f;   // (A): the segment's log decay, in thread 0
@@ -265,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_pieces(Args<T> a) {
     const float l_last = ls[cp - 1];
 
     if (kOut) {
-      const bool state_in = g > 0 || p > 0;
+      const bool state_in = g > 0 || p > 0 || a.s_in != nullptr;
       // y = e^{L} (C . S_in) + M . x + D x, a warp a row sub-chunk and 32
       // columns
       for (int unit = warp; unit < nsub * kGroups; unit += kWarps) {
@@ -339,19 +363,24 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_pieces(Args<T> a) {
   }
   if (!kOut) {
     __syncthreads();
-    store_block<P>(a.states + (slot + g) * N * P, S, sx, N);
-    if (threadIdx.x == 0) a.decays[slot + g] = lsum;
+    if (kFinal) {
+      store_block<P>(a.s_out + (static_cast<long>(b) * a.H + h) * N * P, S,
+                     sx, N);
+    } else {
+      store_block<P>(a.states + (slot + g) * N * P, S, sx, N);
+      if (threadIdx.x == 0) a.decays[slot + g] = lsum;
+    }
   }
 }
 
-template <typename T, bool kOut, int P, int N>
+template <typename T, bool kOut, int P, int N, bool kFinal = false>
 int launch_phase(const Args<T>& a, dim3 grid, size_t smem,
                  cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_pieces<T, kOut, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ssd_pieces<T, kOut, P, N, kFinal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  ssd_pieces<T, kOut, P, N><<<grid, kThreads, smem, stream>>>(a);
+  ssd_pieces<T, kOut, P, N, kFinal><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -367,13 +396,17 @@ int launch_widths(const Args<T>& a, int batch, cudaStream_t s) {
       a, dim3(a.n_cb + static_cast<int>(slots)), sizeof(float) * first, s);
   if (err) return err;
   if (a.nseg > 1) {
-    err = launch_scan(a.states, a.decays, batch * a.H, a.nseg - 1, N, P, 1,
-                      s);
+    err = launch_scan(a.states, a.decays, a.s_in, batch * a.H, a.nseg - 1, N,
+                      P, 1, s);
     if (err) return err;
   }
-  return launch_phase<T, true, P, N>(
+  err = launch_phase<T, true, P, N>(
       a, dim3(a.nseg, a.H, batch),
       sizeof(float) * Layout(P, N, cp, true, a.seg > 1).total, s);
+  if (err || a.s_out == nullptr) return err;
+  return launch_phase<T, false, P, N, true>(
+      a, dim3(batch * a.H),
+      sizeof(float) * Layout(P, N, cp, false, true).total, s);
 }
 
 // The instance of the widths: P 32, 64 or 128, N 16, 32, 64 or 128.
@@ -391,7 +424,8 @@ int launch_n(const Args<T>& a, int N, int batch, cudaStream_t s) {
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* D, void* out, void* ws, int batch,
-           int T_len, int H, int P, int N, int rows, int seg, void* stream) {
+           int T_len, int H, int P, int N, int rows, int seg, void* stream,
+           const void* s_in, void* s_out) {
   if (batch <= 0 || T_len <= 0 || H <= 0 || rows <= 0 || rows > kMaxRows
       || seg <= 0 || T_len % (rows * seg) || ws == nullptr)
     return cudaErrorInvalidValue;
@@ -401,6 +435,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
             static_cast<const float*>(A), static_cast<const T*>(Bm),
             static_cast<const T*>(Cm), static_cast<const float*>(D),
             static_cast<T*>(out), static_cast<float*>(ws), nullptr, nullptr,
+            static_cast<const float*>(s_in), static_cast<float*>(s_out),
             T_len, H, rows, seg, nseg, pieces, batch * pieces};
   a.states = a.cb + static_cast<long>(batch) * pieces * cp * cp;
   a.decays = a.states + static_cast<long>(batch) * H * (nseg - 1) * N * P;
@@ -420,9 +455,10 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
                               const void* Bm, const void* Cm, const void* D, \
                               void* out, void* ws, int batch, int T, int H,  \
                               int P, int N, int rows, int seg,               \
-                              void* stream) {                                \
+                              void* stream, const void* s_in,                \
+                              void* s_out) {                                 \
     return launch<ELEM>(x, dt, A, Bm, Cm, D, out, ws, batch, T, H, P, N,     \
-                        rows, seg, stream);                                  \
+                        rows, seg, stream, s_in, s_out);                     \
   }
 
 REPRO_SSD_ENTRY(f32, float)

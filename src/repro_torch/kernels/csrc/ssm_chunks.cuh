@@ -312,13 +312,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // The state scan between the segments, in place: ws holds, per (batch row,
 // head), the states U_g (R x C each) that segments g < n built from zero,
-// and leaves S_{g+1} = 2^{d_g} S_g + U_g, S_0 = 0: the state entering
-// segment g + 1.  dec holds the log2 decays d_g <= 0, per row of the state
-// (dec_rows = R) or one per segment (dec_rows = 1).  A thread carries 4
-// columns of one row; the loads of a batch of segments go out together.
+// and leaves S_{g+1} = 2^{d_g} S_g + U_g: the state entering segment g + 1,
+// from S_0 = s_in (the caller's initial state, (batch row, head, R, C)
+// dense) or 0 where s_in is null.  dec holds the log2 decays d_g <= 0, per
+// row of the state (dec_rows = R) or one per segment (dec_rows = 1).  A
+// thread carries 4 columns of one row; the loads of a batch of segments go
+// out together.
 __global__ void __launch_bounds__(kScanThreads) state_scan(
-    float* __restrict__ ws, const float* __restrict__ dec, int bh_count,
-    int n, int R, int C, int dec_rows) {
+    float* __restrict__ ws, const float* __restrict__ dec,
+    const float* __restrict__ s_in, int bh_count, int n, int R, int C,
+    int dec_rows) {
   constexpr int kBatch = 8;
   const int per = R * C / 4;
   const long i = static_cast<long>(blockIdx.x) * kScanThreads + threadIdx.x;
@@ -328,7 +331,8 @@ __global__ void __launch_bounds__(kScanThreads) state_scan(
   float4* p = reinterpret_cast<float4*>(ws) + static_cast<long>(bh) * n * per
               + e;
   const float* d = dec + static_cast<long>(bh) * n * dec_rows + row;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s = s_in ? reinterpret_cast<const float4*>(s_in)[i]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int g0 = 0; g0 < n; g0 += kBatch) {
     float4 u[kBatch];
     float f[kBatch];
@@ -351,13 +355,14 @@ __global__ void __launch_bounds__(kScanThreads) state_scan(
   }
 }
 
-inline int launch_scan(float* ws, const float* dec, int bh_count, int n,
-                       int R, int C, int dec_rows, cudaStream_t stream) {
+inline int launch_scan(float* ws, const float* dec, const float* s_in,
+                       int bh_count, int n, int R, int C, int dec_rows,
+                       cudaStream_t stream) {
   const long threads = static_cast<long>(bh_count) * R * C / 4;
   const int blocks = static_cast<int>((threads + kScanThreads - 1)
                                       / kScanThreads);
-  state_scan<<<blocks, kScanThreads, 0, stream>>>(ws, dec, bh_count, n, R,
-                                                  C, dec_rows);
+  state_scan<<<blocks, kScanThreads, 0, stream>>>(ws, dec, s_in, bh_count, n,
+                                                  R, C, dec_rows);
   return cudaGetLastError();
 }
 

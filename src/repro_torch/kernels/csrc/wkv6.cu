@@ -5,9 +5,13 @@
 // src/repro/kernels/rwkv6.py (its pallas_call at line 93).  Same
 // function: per batch row b and head h, with log decay w <= 0 and bonus u,
 //   o_t = S_{t-1}^T r_t + (r_t . (u * k_t)) v_t,
-//   S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,   S_0 = 0 (K x V, f32).
+//   S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,   S_0 = s_in or 0 (K x V, f32).
 // Entry points wkv6_f32 and wkv6_bf16: r, k, v and out of that type; w
-// and u f32 (the decay path stays f32, as in the model).
+// and u f32 (the decay path stays f32, as in the model).  Their last two
+// arguments carry the recurrent state across calls (a prompt served in
+// pieces, a prefill handing its state to the one-token step): s_in, the
+// initial state S_0 (B, H, K, V) f32, and s_out, where the final state
+// S_T goes, (B, H, K, V) f32; either may be null (S_0 = 0; no final state).
 //
 // Layout: the model layout, read in place: r, k, w (B, T, H, K), v and
 // out (B, T, H, V), u (H, K).
@@ -29,9 +33,13 @@
 //   (B) repro_ssm::state_scan: S_{g+1} = e^{d_g} S_g + U_g in place, a
 //       thread per 4 state elements, the segments in a loop;
 //   (C) one block per (segment, head, batch row): its outputs, from the
-//       state entering it (zero for the first), carried through its
-//       pieces.
-// With one segment (A) and (B) are skipped.  At rwkv6-7b's width (B 1,
+//       state entering it (s_in or zero for the first), carried through
+//       its pieces.
+// With one segment (A) and (B) are skipped.  With s_in, (B) starts from
+// it and the first segment of (C) enters with it.  With s_out, the block
+// of (C) that holds the last segment also applies the last piece's state
+// update, which (C) otherwise skips, and writes S_T straight into s_out:
+// the plan and the workspace stay as they are.  At rwkv6-7b's width (B 1,
 // T 2048, H 64, chunk 64) the plan takes pieces of 64 rows, segments of
 // 4: 512 blocks of (C) and 448 of (A), where the kernel before them ran
 // 128 blocks that each walked 32 chunks in turn.
@@ -85,6 +93,8 @@ struct Args {
   T* out;
   float* states;    // (B, H, segments - 1, K, V)
   float* decays;    // (B, H, segments - 1, K)
+  const float* s_in;   // (B, H, K, V) initial state, or null (zero)
+  float* s_out;        // (B, H, K, V) final state, or null (not asked for)
   int T_len, H, rows, seg, nseg;
 };
 
@@ -188,10 +198,15 @@ __global__ void __launch_bounds__(kThreads, K > 64 ? 1 : 2)
   const long ldk = static_cast<long>(a.H) * K;
   const long ldv = static_cast<long>(a.H) * V;
   const long slot = (static_cast<long>(b) * a.H + h) * (a.nseg - 1);
+  const long own = (static_cast<long>(b) * a.H + h) * K * V;
   const int nsub = cp / kSub;
+  // (C)'s last segment also builds the final state, when it is asked for
+  const bool final_state = kOut && a.s_out != nullptr && g == a.nseg - 1;
 
   if (kOut && g > 0)
     load_block<V>(S, sv, a.states + (slot + g - 1) * K * V, K);
+  else if (kOut && a.s_in != nullptr)
+    load_block<V>(S, sv, a.s_in + own, K);
   else
     zero_block<V>(S, sv, K);
   if (kOut)
@@ -242,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, K > 64 ? 1 : 2)
     const float* const wl = wx + cp * sk;   // W_last (w = 0 past the piece)
 
     if (kOut) {
-      const bool state_in = g > 0 || p > 0;
+      const bool state_in = g > 0 || p > 0 || a.s_in != nullptr;
       // att off the diagonal: sub-chunk i's rows against columns s < 16 i,
       // scaled about ref = W_{16i-1}, a warp a (sub-chunk, 8 kGroup
       // columns) unit, the heaviest sub-chunks first
@@ -366,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, K > 64 ? 1 : 2)
         }
       }
     }
-    if (!kOut || p + 1 < a.seg) {
+    if (!kOut || p + 1 < a.seg || final_state) {
       if (kOut) __syncthreads();   // every output has read S_in
       // S = e^{W_last} S + (k e^{W_last - W})^T v, a warp 16 key rows and
       // 32 columns
@@ -405,6 +420,10 @@ __global__ void __launch_bounds__(kThreads, K > 64 ? 1 : 2)
     for (int c = threadIdx.x; c < K; c += kThreads)
       a.decays[(slot + g) * K + c] = wsum;
   }
+  if (final_state) {
+    __syncthreads();
+    store_block<V>(a.s_out + own, S, sv, K);
+  }
 }
 
 template <typename T, bool kOut, int K, int V>
@@ -426,8 +445,8 @@ int launch_widths(const Args<T>& a, int batch, cudaStream_t s) {
   if (a.nseg > 1) {
     int err = launch_phase<T, false, K, V>(a, a.nseg - 1, batch, s);
     if (err) return err;
-    err = launch_scan(a.states, a.decays, batch * a.H, a.nseg - 1, K, V, K,
-                      s);
+    err = launch_scan(a.states, a.decays, a.s_in, batch * a.H, a.nseg - 1, K,
+                      V, K, s);
     if (err) return err;
   }
   return launch_phase<T, true, K, V>(a, a.nseg, batch, s);
@@ -436,7 +455,8 @@ int launch_widths(const Args<T>& a, int batch, cudaStream_t s) {
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, void* out, void* ws, int batch, int T_len, int H,
-           int K, int V, int rows, int seg, void* stream) {
+           int K, int V, int rows, int seg, void* stream, const void* s_in,
+           void* s_out) {
   if (batch <= 0 || T_len <= 0 || H <= 0 || rows <= 0 || rows > kMaxRows
       || seg <= 0 || T_len % (rows * seg))
     return cudaErrorInvalidValue;
@@ -445,7 +465,9 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   Args<T> a{static_cast<const T*>(r), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<const float*>(w),
             static_cast<const float*>(u), static_cast<T*>(out),
-            static_cast<float*>(ws), nullptr, T_len, H, rows, seg, nseg};
+            static_cast<float*>(ws), nullptr,
+            static_cast<const float*>(s_in), static_cast<float*>(s_out),
+            T_len, H, rows, seg, nseg};
   a.decays = a.states + static_cast<long>(batch) * H * (nseg - 1) * K * V;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the instance of the width: K = V, 32, 64 or 128
@@ -463,9 +485,10 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   extern "C" int wkv6_##SUFFIX(const void* r, const void* k, const void* v,  \
                                const void* w, const void* u, void* out,      \
                                void* ws, int batch, int T, int H, int K,     \
-                               int V, int rows, int seg, void* stream) {     \
+                               int V, int rows, int seg, void* stream,       \
+                               const void* s_in, void* s_out) {              \
     return launch<ELEM>(r, k, v, w, u, out, ws, batch, T, H, K, V, rows,     \
-                        seg, stream);                                        \
+                        seg, stream, s_in, s_out);                           \
   }
 
 REPRO_WKV6_ENTRY(f32, float)

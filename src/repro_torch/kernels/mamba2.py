@@ -10,6 +10,8 @@ every piece's outputs, with the products on the tensor cores;
 :func:`ssd_plan` cuts the sequence, and the source's header gives the
 design and its bound.  One entry point per dtype of x, B, C and the
 output (f32, bf16); dt, A and D go in as f32, as the model computes them.
+The state crosses calls: an initial state in, the final state out (both
+(B, H, N, P) f32), so a prompt can be served in chunks.
 
 :func:`ssd_torch` is the plain version: the chunked form
 :func:`repro_torch.models.ssm.ssd_chunked`, which is what the
@@ -30,7 +32,7 @@ import torch
 from repro_torch.kernels.build import (DENSE_DTYPES, SMEM_OPTIN,
                                       RecurrencePlan, check_operand,
                                       dense_kernels, kernel_chunk,
-                                      recurrence_plan)
+                                      recurrence_plan, state_operand)
 from repro_torch.kernels.decode_attention import sm_count, smem_optin
 
 __all__ = ["ssd_torch", "ssd_cuda", "ssd_plan", "ssd_smem", "P_WIDTHS",
@@ -40,16 +42,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: head and state widths P, N with an instance in ``csrc/ssd.cu``
 P_WIDTHS, N_WIDTHS = (32, 64, 128), (16, 32, 64, 128)
 #: entry point per dtype of x, B, C and out
+#: (the last two: the initial state in, the final state out, or null)
 KERNELS = dense_kernels("ssd.cu", "ssd",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P])
+                         _I, _I, _P, _P, _P])
 
 
-def ssd_torch(x, dt, A, B, C, D, chunk: int = 128):
+def ssd_torch(x, dt, A, B, C, D, chunk: int = 128,
+              initial_state: Optional[torch.Tensor] = None,
+              return_state: bool = False):
     """Plain version: x (B, T, H, P); dt (B, T, H); A, D (H,); B, C
-    (B, T, N).  Returns (B, T, H, P) in x's dtype."""
+    (B, T, N); ``initial_state`` (B, H, N, P) or None (zero).  Returns
+    (B, T, H, P) in x's dtype, and with ``return_state`` the final
+    (B, H, N, P) f32 state too."""
     from repro_torch.models.ssm import ssd_chunked
-    return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+    return ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
+                       initial_state=initial_state,
+                       return_state=return_state)
 
 
 def ssd_smem(P: int, N: int, cp: int, outputs: bool = True,
@@ -96,12 +105,15 @@ def ssd_plan(B: int, T: int, H: int, P: int, N: int, chunk: int, sms: int,
 
 
 def ssd_cuda(x, dt, A, B, C, D, chunk: int = 128,
-             rows: Optional[int] = None, seg: Optional[int] = None):
+             rows: Optional[int] = None, seg: Optional[int] = None,
+             initial_state: Optional[torch.Tensor] = None,
+             return_state: bool = False):
     """Launch the kernel: x (B, T, H, P), B and C (B, T, N), all f32 or
-    all bf16, contiguous; dt (B, T, H), A and D (H,), widened to f32.
+    all bf16, contiguous; dt (B, T, H), A and D (H,), widened to f32;
+    ``initial_state`` (B, H, N, P), widened to f32, or None (zero).
     ValueError unless ``min(chunk, T)`` divides T.  ``rows`` / ``seg``
     force the plan's pieces and segments.  Returns (B, T, H, P) in x's
-    dtype."""
+    dtype, and with ``return_state`` the final (B, H, N, P) f32 state."""
     Bb, T, H, P = x.shape
     c = kernel_chunk("ssd", T, chunk)
     if not x.is_cuda:
@@ -124,9 +136,12 @@ def ssd_cuda(x, dt, A, B, C, D, chunk: int = 128,
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}, D "
                          f"{tuple(D.shape)} do not match")
+    s_in = state_operand(initial_state, (Bb, H, N, P), dev)
     plan = ssd_plan(Bb, T, H, P, N, c, sm_count(dev), smem_optin(dev),
                     rows=rows, seg=seg)
     out = torch.empty_like(x)
+    s_out = (torch.empty((Bb, H, N, P), dtype=torch.float32, device=dev)
+             if return_state else None)
     ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -134,5 +149,7 @@ def ssd_cuda(x, dt, A, B, C, D, chunk: int = 128,
         KERNELS[x.dtype].launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), out.data_ptr(), ws.data_ptr(), Bb,
-            T, H, P, N, plan.rows, plan.seg, stream)
-    return out
+            T, H, P, N, plan.rows, plan.seg, stream,
+            None if s_in is None else s_in.data_ptr(),
+            None if s_out is None else s_out.data_ptr())
+    return (out, s_out) if return_state else out

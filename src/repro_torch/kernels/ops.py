@@ -167,24 +167,34 @@ def paged_prefill_attention(q, k_pages, v_pages, page_rows, offset, lengths,
               k_scales=k_scales, v_scales=v_scales)
 
 
-def wkv6(r, k, v, w, u, *, impl: str = "auto", chunk: int = 64):
+def wkv6(r, k, v, w, u, *, impl: str = "auto", chunk: int = 64,
+         initial_state=None, return_state: bool = False):
     """Chunked RWKV-6 WKV: r, k, w (B, T, H, K), w the log decay (<= 0);
-    v (B, T, H, V); u (H, K) the bonus.  Returns (B, T, H, V) in r's
-    dtype.  The plain version pads a T that ``min(chunk, T)`` does not
-    divide, as the reference's XLA path; the kernel refuses it
-    (ValueError), as the TPU kernel asserts."""
+    v (B, T, H, V); u (H, K) the bonus; ``initial_state`` (B, H, K, V) or
+    None (zero).  Returns (B, T, H, V) in r's dtype, and with
+    ``return_state`` the final (B, H, K, V) f32 state too.  The plain
+    version pads a T that ``min(chunk, T)`` does not divide, as the
+    reference's XLA path; the kernel refuses it (ValueError), as the TPU
+    kernel asserts."""
+    kw = dict(chunk=chunk, initial_state=initial_state,
+              return_state=return_state)
     if resolve_impl(impl, r) == "torch":
-        return _rwkv6.wkv6_torch(r, k, v, w, u, chunk=chunk)
-    return _rwkv6.wkv6_cuda(r, k, v, w, u, chunk=chunk)
+        return _rwkv6.wkv6_torch(r, k, v, w, u, **kw)
+    return _rwkv6.wkv6_cuda(r, k, v, w, u, **kw)
 
 
-def ssd(x, dt, A, B, C, D, *, impl: str = "auto", chunk: int = 128):
+def ssd(x, dt, A, B, C, D, *, impl: str = "auto", chunk: int = 128,
+        initial_state=None, return_state: bool = False):
     """Chunked Mamba2 SSD: x (B, T, H, P); dt (B, T, H) after the
-    softplus; A, D (H,); B, C (B, T, N) shared by the heads.  Returns
-    (B, T, H, P) in x's dtype.  T and the chunk as for :func:`wkv6`."""
+    softplus; A, D (H,); B, C (B, T, N) shared by the heads;
+    ``initial_state`` (B, H, N, P) or None (zero).  Returns (B, T, H, P)
+    in x's dtype, and with ``return_state`` the final (B, H, N, P) f32
+    state too.  T and the chunk as for :func:`wkv6`."""
+    kw = dict(chunk=chunk, initial_state=initial_state,
+              return_state=return_state)
     if resolve_impl(impl, x) == "torch":
-        return _mamba2.ssd_torch(x, dt, A, B, C, D, chunk=chunk)
-    return _mamba2.ssd_cuda(x, dt, A, B, C, D, chunk=chunk)
+        return _mamba2.ssd_torch(x, dt, A, B, C, D, **kw)
+    return _mamba2.ssd_cuda(x, dt, A, B, C, D, **kw)
 
 
 def gather_rows(src, idx, *, impl: str = "auto", **kw):

@@ -7,7 +7,8 @@ requests.
 ``--arch`` takes every registered architecture
 (:data:`repro_torch.configs.ARCH_IDS`: phi4-mini-3.8b, olmoe-1b-7b,
 mistral-nemo-12b, h2o-danube-1.8b, command-r-plus-104b, qwen2-vl-72b,
-llama4-maverick-400b-a17b).
+llama4-maverick-400b-a17b, rwkv6-7b, zamba2-1.2b; rwkv6-7b, which has
+no attention KV, is served without a page pool).
 Every engine flag is auto-generated from the
 :class:`repro_torch.serve.config.EngineConfig` dataclass fields (one flag
 per knob, help text included), including ``--device {cuda,cpu}``
@@ -119,10 +120,14 @@ def _report(eng, econf, out, wall) -> None:
               f"of {eng.pager.page_nbytes} B: preemptions "
               f"{eng.stats['preemptions']}, resumes {eng.stats['resumes']}, "
               f"pager {dict(eng.pager.stats)}")
-    else:
+    elif "k" in eng.cache.kv:
         print(f"[serve] dense per-slot cache, "
               f"{eng.cache.kv['k'].dtype} K/V of "
               f"{tuple(eng.cache.kv['k'].shape)}")
+    if eng.cache.ssm:
+        state = sum(t.numel() * t.element_size() for t in eng.cache.ssm)
+        print(f"[serve] recurrent state: {state // econf.max_batch} B a "
+              f"slot ({', '.join(str(tuple(t.shape)) for t in eng.cache.ssm)})")
     print(f"[serve] chunked prefill: {eng.stats['chunks']} chunks of "
           f"<= {eng.chunk_tokens} tok across "
           f"{eng.stats['mixed_steps']} mixed steps; dense prefills "

@@ -18,8 +18,8 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["dense", "rms_norm", "embed", "unembed", "rope", "mrope",
-           "rope_freqs", "swiglu"]
+__all__ = ["dense", "rms_norm", "layer_norm", "embed", "unembed", "rope",
+           "mrope", "rope_freqs", "swiglu"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -36,6 +36,15 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (population) variance in f32, then scale and bias."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:

@@ -13,8 +13,10 @@ tier.  A handoff admission is deliberately *not* a new code path: it
 rebuilds the request parked (pages registered PARKED against the shared
 tier's entries, residue fetched fault-safe) and lets the ordinary resume
 machinery in :class:`~repro_torch.serve.transfer.TransferMixin` slot it
-in.  It is the JAX package's ``serve/admission.py`` for the dense and
-MoE families.  The mixin assumes the host class provides the engine
+in.  It is the JAX package's ``serve/admission.py`` for the dense, MoE,
+SSM and hybrid families (the last two prefill at the prompt's exact
+length and install the prefill's recurrent state beside its KV).  The
+mixin assumes the host class provides the engine
 state surface — ``serve/engine.py`` assembles it.
 """
 
@@ -29,7 +31,7 @@ from repro_torch.models.model import Cache, prefill
 from repro_torch.paging import EventKind, PageState, PagingError, pages_for
 from repro_torch.serve.config import EngineRole, Tier
 from repro_torch.serve.disagg import HandoffRecord
-from repro_torch.serve.kv_cache import insert_slot
+from repro_torch.serve.kv_cache import insert_aux_slot, insert_slot
 from repro_torch.serve.request import Request
 from repro_torch.serve.transfer import (_scatter_seq_pages,
                                         _scatter_seq_pages_q)
@@ -46,7 +48,11 @@ class AdmissionMixin:
     def _bucket(self, plen: int) -> int:
         """The padded length of a ``plen``-token prompt: the smallest
         bucket that holds it, else ``max_len`` (entries past ``plen`` are
-        never attended: decode starts at ``plen``)."""
+        never attended: decode starts at ``plen``).  The SSM and hybrid
+        families take ``plen`` itself: pad tokens would enter their
+        state."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return plen
         for b in self.buckets:
             if plen <= b:
                 return b
@@ -79,8 +85,9 @@ class AdmissionMixin:
     def _install_sequence(self, req: Request, single: Cache) -> None:
         """Dense-prefill admission on the paged layout: scatter the
         prompt's K/V pages into the frames :meth:`_alloc_pinned` just
-        mapped (the bucket tail past them is never attended) and set the
-        slot's position, the whole residue of a dense or MoE sequence."""
+        mapped (the bucket tail past them is never attended) and install
+        the rest of the prefill's state in the slot: its position and the
+        hybrid family's recurrent state."""
         slot = req.slot
         kv = self.cache.kv
         n_pg = pages_for(min(len(req.prompt), self.slot_tokens),
@@ -95,7 +102,8 @@ class AdmissionMixin:
         else:
             _scatter_seq_pages(kv["k_pages"], kv["v_pages"], single.kv["k"],
                                single.kv["v"], frames, n_pg)
-        self._set_pos(slot, len(req.prompt))
+        insert_aux_slot(self.cache, {"ssm": single.ssm, "cross": single.cross,
+                                     "pos": single.pos}, slot, self.max_batch)
 
     # -- scheduling ------------------------------------------------------------
     def _chunkable(self, req: Request) -> bool:
@@ -144,7 +152,7 @@ class AdmissionMixin:
     def _admit(self) -> None:
         if self.paging:
             self._try_finish_resumes()
-        now = self.clock()
+        now = self._admit_now = self.clock()
         self.sched.order_queue(self.queue, now)
         while self.queue:
             req = self.queue[0]
@@ -226,6 +234,8 @@ class AdmissionMixin:
         req.target_len = len(req.prompt)
         req.chunk_rows = np.full((self.pages_per_seq,), self.trash_frame,
                                  np.int32)
+        if self.cfg.family == "hybrid":
+            req.chunk_ssm = self._zero_chunk_ssm     # read, never written
         # prefix hits already mapped: pin them for the slot and point the
         # chunk row at the shared frames
         for logical in range(self.page_table.n_pages(req.rid)):

@@ -11,7 +11,11 @@ the ordinary ``offload_finished`` park plus a published handoff record
 hand it to the decode side.  It is the JAX package's
 ``serve/decode.py``.  Greedy sampling takes ``torch.argmax`` on the
 device and copies back only the token ids; like ``np.argmax`` it picks
-the first maximum.  The mixin assumes the host class provides the engine
+the first maximum.  The hybrid family's chunks are of one exact shape
+(pad tokens would enter the recurrent state), and each row's state rides
+from chunk to chunk in ``Request.chunk_ssm`` (on the device while it
+prefills; host memory while it is parked) until graduation writes it
+into the slot.  The mixin assumes the host class provides the engine
 state surface — ``serve/engine.py`` assembles it.
 """
 
@@ -25,6 +29,7 @@ import torch
 from repro_torch.core.amu import QoS
 from repro_torch.paging import EventKind, PagingError
 from repro_torch.serve.config import EngineRole, Tier
+from repro_torch.serve.kv_cache import tree_map
 from repro_torch.serve.request import Request
 
 __all__ = ["DecodeMixin"]
@@ -61,15 +66,21 @@ class DecodeMixin:
         if self._resuming and not self.pager.windows.has_room(QoS.LATENCY):
             return []
         picks: List = []
+        t_exact = None
+        exact = self.cfg.family == "hybrid"    # pad tokens corrupt SSM state
         for req in self.sched.chunk_order(self.prefilling.values()):
             if len(picks) >= self.chunk_slots:
                 break
             start = req.prefill_pos
             end = min(req.target_len, start + self.chunk_tokens)
+            if exact and t_exact is not None and end - start != t_exact:
+                continue                   # exact-shape batch: next step
             need = self.page_table.pages_needed(req.rid, end)
             if need and not self._make_room(need, frozenset({req.rid}),
                                             preempt=False):
                 continue                   # pool tight: decode-only step
+            if exact and t_exact is None:
+                t_exact = end - start      # pin shape only once a row fits
             self._alloc_pinned(req, end)
             picks.append((req, start, end))
         return picks
@@ -93,8 +104,12 @@ class DecodeMixin:
     def _build_chunk(self, picks) -> Dict[str, Any]:
         """Assemble the mixed step's chunk operand (C = ``chunk_slots``
         rows of T = ``chunk_tokens``, unused rows inert with length 0 /
-        trash page rows), as int32 tensors on the engine's device."""
-        C, T = self.chunk_slots, self.chunk_tokens
+        trash page rows), as int32 tensors on the engine's device.  The
+        hybrid family's T is the picks' one exact length, and its rows'
+        carries (zero for the unused rows) go in as ``ssm``."""
+        C = self.chunk_slots
+        hybrid = self.cfg.family == "hybrid"
+        T = picks[0][2] - picks[0][1] if hybrid else self.chunk_tokens
         tokens = np.zeros((C, T), np.int32)
         offset = np.zeros((C,), np.int32)
         length = np.zeros((C,), np.int32)
@@ -104,12 +119,21 @@ class DecodeMixin:
             offset[i] = start
             length[i] = end - start
             rows[i] = req.chunk_rows
-        return {name: torch.from_numpy(a).to(self.device)
-                for name, a in (("tokens", tokens), ("offset", offset),
-                                ("length", length), ("page_rows", rows))}
+        chunk = {name: torch.from_numpy(a).to(self.device)
+                 for name, a in (("tokens", tokens), ("offset", offset),
+                                 ("length", length), ("page_rows", rows))}
+        if hybrid:
+            trees = [r.chunk_ssm for r, _, _ in picks]
+            trees += [self._zero_chunk_ssm] * (C - len(picks))
+            chunk["ssm"] = tree_map(
+                lambda *xs: torch.cat([x.to(self.device) for x in xs],
+                                      dim=1), *trees)
+        return chunk
 
-    def _finish_chunks(self, picks, first_tokens: np.ndarray) -> None:
-        """Advance every picked request past its chunk; rows that just
+    def _finish_chunks(self, picks, first_tokens: np.ndarray,
+                       carry=None) -> None:
+        """Advance every picked request past its chunk, its row of the
+        chunk's ``carry`` (hybrid) its state so far; rows that just
         covered their prompt's last token graduate to the decode batch
         (their first token is the argmax of the chunk's last-valid
         logits)."""
@@ -120,6 +144,9 @@ class DecodeMixin:
                 tr.instant("requests", f"req{req.rid}", "chunk",
                            {"start": start, "end": end,
                             "target": req.target_len})
+            if carry is not None:
+                req.chunk_ssm = tree_map(lambda a: a[:, i:i + 1].clone(),
+                                          carry)
             if end >= req.target_len:
                 self._finalize_prefill(req, int(first_tokens[i]))
 
@@ -127,11 +154,16 @@ class DecodeMixin:
         """Graduate a fully-prefilled request into the decode batch: the
         device page-table row flips from the trash frame to the real
         frames (one host-mirror write — the KV is already in its pool
-        frames) and the slot's position lands in the cache."""
+        frames) and the slot's position, and the hybrid family's state
+        carry, land in the cache."""
         slot = req.slot
         self._pt_np[slot] = req.chunk_rows
         self._pt_dirty = True
         self._set_pos(slot, req.target_len)
+        if req.chunk_ssm is not None:
+            tree_map(lambda dst, src: dst[:, slot:slot + 1].copy_(src),
+                      self.cache.ssm, req.chunk_ssm)
+            req.chunk_ssm = None
         req.chunk_rows = None
         del self.prefilling[slot]
         if self.prefix is not None:
@@ -216,7 +248,7 @@ class DecodeMixin:
             toks[slot, 0] = req.generated[-1]
         toks = torch.from_numpy(toks).to(self.device)
         if picks:
-            logits, chunk_logits, self.cache = self._mixed(
+            logits, chunk_logits, carry, self.cache = self._mixed(
                 self.params, self.cache, toks, self._build_chunk(picks))
             self.stats["mixed_steps"] += 1
             self.stats["chunks"] += len(picks)
@@ -236,7 +268,8 @@ class DecodeMixin:
                 self._finish_if_done(req)
         if picks:
             self._finish_chunks(
-                picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy())
+                picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy(),
+                carry)
 
     def _spec_step(self, drafts: Dict[int, int], picks: List) -> None:
         """One speculative verify-K step: score every slot's draft in one
@@ -268,7 +301,7 @@ class DecodeMixin:
         toks = torch.from_numpy(toks).to(self.device)
         length = torch.from_numpy(length).to(self.device)
         if picks:
-            logits, chunk_logits, self.cache = self._mixed_verify(
+            logits, chunk_logits, carry, self.cache = self._mixed_verify(
                 self.params, self.cache, toks, length,
                 self._build_chunk(picks))
             self.stats["mixed_steps"] += 1
@@ -329,7 +362,8 @@ class DecodeMixin:
             tr.counter("engine", "spec_rejected", self.stats["rejected"])
         if picks:
             self._finish_chunks(
-                picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy())
+                picks, torch.argmax(chunk_logits, dim=-1).cpu().numpy(),
+                carry)
 
     def _finish_if_done(self, req: Request) -> None:
         if not self._role_done(req):

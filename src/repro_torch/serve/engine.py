@@ -52,8 +52,14 @@ prefill into the slot at admission, the slot released at finish.
 The host logic (pool, page table, pager, far tier, prefix cache,
 virtual clock, scheduling policy) is a copy of the JAX package's, so on
 the same weights both engines make the same scheduling decisions.  The
-families the port does not serve yet (llama4's grouped MoE, the SSM,
-hybrid and encoder-decoder families) raise ``NotImplementedError``.
+SSM family (rwkv6) has no attention KV, so it is served without a pool,
+as in the reference (paging resolves to off); the hybrid family (zamba2)
+pages the KV of its shared attention block, and its recurrent state rides
+beside it: a whole-prompt prefill at the prompt's exact length (pad
+tokens would enter the state), chunks of one exact shape that carry the
+state from chunk to chunk, and the state in every park, offload and
+handoff residue.  The encoder-decoder family (and an MoE stack whose
+groups do not tile the layers) raises ``NotImplementedError``.
 
 With ``paging.kv_quant`` int8 or fp8 the pool's frames are quantized with
 per-(frame, KV head) scales (:mod:`repro_torch.kernels.kv_quant`): a
@@ -74,7 +80,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_quant import KVQuantConfig
 from repro_torch.models.model import (cast_params, family_ported,
                                       init_cache, init_paged_cache,
-                                      torch_dtype)
+                                      init_ssm_state, kv_layers, torch_dtype)
 from repro_torch.obs import (MetricsRegistry, Tracer, to_chrome_trace,
                              write_chrome_trace, write_metrics)
 from repro_torch.paging import (DeadlineQueue, EventKind, EventLoop, PagePool,
@@ -98,12 +104,20 @@ __all__ = ["Request", "Engine"]
 POOL_DTYPE = torch.bfloat16
 
 
-def _check_quant(cfg: ModelConfig, pg, kv_quant: KVQuantConfig) -> None:
+def _paging(cfg: ModelConfig, pg) -> bool:
+    """Whether the engine pages: a family with attention KV, unless the
+    caller turns paging off (``repro/serve/engine.py:226-231``)."""
+    has_kv = kv_layers(cfg) > 0
+    return has_kv if pg.enabled is None else bool(pg.enabled) and has_kv
+
+
+def _check_quant(cfg: ModelConfig, paging: bool,
+                 kv_quant: KVQuantConfig) -> None:
     """The JAX engine's two rules for a quantized pool
     (``repro/serve/engine.py:241-252``), checked first, as there."""
     if not kv_quant.enabled:
         return
-    if pg.enabled is False:
+    if not paging:
         raise PagingError(
             "kv_quant requires the paged engine: quantized frames live in "
             "the device page pool")
@@ -117,33 +131,32 @@ def _check_quant(cfg: ModelConfig, pg, kv_quant: KVQuantConfig) -> None:
 
 def _page_nbytes(cfg: ModelConfig, page_size: int,
                 kv_quant: KVQuantConfig) -> int:
-    """Bytes of one page frame, K + V of every layer — the unit the pager
-    moves; a quantized frame adds its (L, Hkv) f32 scale pair."""
-    kv = 2 * cfg.num_layers * page_size * cfg.num_kv_heads * cfg.head_dim
+    """Bytes of one page frame, K + V of every KV layer — the unit the
+    pager moves; a quantized frame adds its (L, Hkv) f32 scale pair."""
+    L = kv_layers(cfg)
+    kv = 2 * L * page_size * cfg.num_kv_heads * cfg.head_dim
     if kv_quant.enabled:
-        return int(kv * kv_quant.itemsize + 2 * cfg.num_layers
-                   * cfg.num_kv_heads * 4)
+        return int(kv * kv_quant.itemsize + 2 * L * cfg.num_kv_heads * 4)
     return int(kv * POOL_DTYPE.itemsize)
 
 
-def _check_roles(cfg: ModelConfig, ec: EngineConfig) -> None:
+def _check_roles(cfg: ModelConfig, ec: EngineConfig, paging: bool) -> None:
     """The JAX engine's rules for finished-sequence offload, the
-    disaggregated roles, the prefix cache and a speculating PREFILL
-    engine (``repro/serve/engine.py:311-320``, ``:378-388``,
-    ``:414-417``), checked in its order, before the port's own
-    refusals."""
+    disaggregated roles, the prefix cache and speculation
+    (``repro/serve/engine.py:311-320``, ``:378-388``, ``:403-417``),
+    checked in its order, before the port's own refusals."""
     pg, ck = ec.paging, ec.chunking
     role = EngineRole(ec.role)
-    if pg.offload_finished and pg.enabled is False:
+    if pg.offload_finished and not paging:
         raise PagingError(
             "offload_finished requires the paged engine: finished KV is "
             "parked page-by-page through the pager's far tier")
-    if role is not EngineRole.FUSED and pg.enabled is False:
+    if role is not EngineRole.FUSED and not paging:
         raise PagingError(
             "disaggregated roles require the paged engine: the "
             "prefill/decode handoff travels through the far tier")
     if ck.prefix_cache:
-        if not ck.chunk_tokens or pg.enabled is False:
+        if not ck.chunk_tokens or not paging:
             raise PagingError(
                 "prefix_cache requires chunked paged admission "
                 "(chunk_tokens > 0 on the paged engine)")
@@ -152,10 +165,20 @@ def _check_roles(cfg: ModelConfig, ec: EngineConfig) -> None:
                 "prefix_cache supports global-attention dense/moe "
                 f"families; got family={cfg.family!r} "
                 f"attention={cfg.attention!r}")
-    if ec.speculation.speculate_k and role is EngineRole.PREFILL:
-        raise PagingError(
-            "a PREFILL-role engine never decodes past the first token — "
-            "speculation has nothing to draft")
+    if ec.speculation.speculate_k:
+        if not paging:
+            raise PagingError(
+                "speculative decode requires the paged engine "
+                "(verify-K scatters through the page table)")
+        if cfg.family not in ("dense", "moe") or cfg.attention == "swa":
+            raise PagingError(
+                "speculative decode supports global-attention dense/moe "
+                f"families; got family={cfg.family!r} "
+                f"attention={cfg.attention!r}")
+        if role is EngineRole.PREFILL:
+            raise PagingError(
+                "a PREFILL-role engine never decodes past the first token "
+                "— speculation has nothing to draft")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -195,8 +218,9 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         # and the far-tier payloads agree; "none" keeps the bf16 pool with
         # no scale tensors
         self.kv_quant = KVQuantConfig.from_name(pg.kv_quant)
-        _check_quant(cfg, pg, self.kv_quant)
-        _check_roles(cfg, ec)
+        paging = _paging(cfg, pg)
+        _check_quant(cfg, paging, self.kv_quant)
+        _check_roles(cfg, ec, paging)
         _check_supported(cfg)
         max_batch, max_len = ec.max_batch, ec.max_len
         self.device = torch.device(ec.device)
@@ -217,6 +241,7 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         # pager's simulated AMU, unless the caller injects one
         self.clock = sc.clock if sc.clock is not None else VirtualClock()
         self._own_clock = sc.clock is None
+        self._admit_now = 0.0     # the instant the last admission read
         self.metrics = MetricsRegistry()
         self.tracer = Tracer(clock=self.clock, enabled=ec.obs.tracing)
         self._phase_span: Dict[int, int] = {}    # rid -> open lifecycle sid
@@ -231,9 +256,9 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self._admits = itertools.count()
 
         # -- page-granularity KV residency over a fixed device pool --------
-        # (every family the port serves has attention KV: paged unless
-        # the caller turns paging off)
-        self.paging = pg.enabled is not False
+        # (paged when the family has attention KV, unless the caller
+        # turns paging off)
+        self.paging = paging
         page_size = pg.page_size
         self.page_size = page_size
         self.step_dt = sc.step_dt
@@ -273,6 +298,10 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.prefilling: Dict[int, Request] = {}     # slot -> admitting req
         if self.chunking:
             self._mixed = make_mixed_step(cfg)
+            if cfg.family == "hybrid":
+                # the carry of a row that starts its prompt, (L, 1, ...)
+                self._zero_chunk_ssm = init_ssm_state(cfg, 1,
+                                                      device=self.device)
 
         # -- cross-request prefix sharing (content-addressed prompt pages):
         # supported where the shared KV is position- and content-exact for
@@ -293,14 +322,6 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         self.speculating = self.speculate_k > 0
         self.proposer = None
         if self.speculating:
-            if not self.paging:
-                raise PagingError(
-                    "speculative decode requires the paged engine "
-                    "(verify-K scatters through the page table)")
-            if cfg.attention == "swa":
-                raise PagingError(
-                    "speculative decode supports global attention only; "
-                    f"got attention={cfg.attention!r}")
             if sp.proposer_factory is not None:
                 self.proposer = sp.proposer_factory(sp.speculate_ngram,
                                                     self.speculate_k)
@@ -454,13 +475,17 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
             self._admit()
             if not self.active and not self.prefilling \
                     and not self._resuming:
+                # "not arrived" as the admission saw it: an injected
+                # wall clock may pass an arrival after that read, and the
+                # next step admits that request
                 future = [r.arrival_t for r in self.queue
-                          if r.arrival_t > self.clock()]
+                          if r.arrival_t > self._admit_now]
                 if future and len(future) == len(self.queue):
                     # idle only because the trace is: fast-forward the
                     # virtual clock to the next arrival
                     if self._own_clock:
-                        self.clock.advance(min(future) - self.clock())
+                        self.clock.advance(max(0.0, min(future)
+                                               - self.clock()))
                     return
                 free = self.page_pool.n_free if self.paging else "n/a"
                 raise PagingError(

@@ -30,8 +30,9 @@ from repro_torch.core.amu import AMUError
 from repro_torch.models.model import Cache
 from repro_torch.paging.page_table import pages_for
 
-__all__ = ["SlotPool", "extract_slot", "insert_slot", "extract_aux_slot",
-           "insert_aux_slot", "split_kv_pages", "join_kv_pages"]
+__all__ = ["SlotPool", "tree_map", "extract_slot", "insert_slot",
+           "extract_aux_slot", "insert_aux_slot", "split_kv_pages",
+           "join_kv_pages"]
 
 
 class SlotPool:
@@ -73,14 +74,14 @@ class SlotPool:
         return len(self.free)
 
 
-def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Map ``fn`` over the tensor leaves of dict / tuple / NamedTuple
     trees of one structure."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        out = [_tree_map(fn, v, *(r[i] for r in rest))
+        out = [tree_map(fn, v, *(r[i] for r in rest))
                for i, v in enumerate(tree)]
         return type(tree)(*out) if hasattr(tree, "_fields") \
             else type(tree)(out)
@@ -104,7 +105,7 @@ def extract_slot(cache: Cache, slot: int, n_slots: int) -> Cache:
     def ex(leaf):
         axis = _slot_axis(leaf, n_slots)
         return leaf if axis is None else leaf.narrow(axis, slot, 1).clone()
-    return _tree_map(ex, cache)
+    return tree_map(ex, cache)
 
 
 def insert_slot(cache: Cache, single: Cache, slot: int, n_slots: int
@@ -123,7 +124,7 @@ def insert_slot(cache: Cache, single: Cache, slot: int, n_slots: int
             if ax != axis and n != view.shape[ax]:
                 view = view.narrow(ax, 0, n)
         view.copy_(src)
-    _tree_map(ins, cache, single)
+    tree_map(ins, cache, single)
     return cache
 
 
@@ -132,17 +133,16 @@ def extract_aux_slot(cache, slot: int, n_slots: int) -> Dict[str, Any]:
 
     The paged engine's park payload: the KV never leaves its page
     frames, so a park, a finished-sequence offload and a handoff all
-    carry only this remainder.  A :class:`~repro_torch.models.model.
-    PagedCache` has no SSM or cross-attention state, so for the dense
-    and MoE families the residue is ``{"ssm": (), "cross": {}, "pos":
-    (1,) int32}``."""
+    carry only this remainder.  For the dense and MoE families the
+    residue is ``{"ssm": (), "cross": {}, "pos": (1,) int32}``; for the
+    hybrid family ``ssm`` is the slot's MambaState, leaves (L, 1, ...)."""
     def ex(leaf):
         axis = _slot_axis(leaf, n_slots)
         if axis is not None:
             leaf = leaf.narrow(axis, slot, 1)
         return leaf.to("cpu", copy=True)
-    return {"ssm": _tree_map(ex, getattr(cache, "ssm", ())),
-            "cross": _tree_map(ex, getattr(cache, "cross", {})),
+    return {"ssm": tree_map(ex, getattr(cache, "ssm", ())),
+            "cross": tree_map(ex, getattr(cache, "cross", {})),
             "pos": cache.pos[slot:slot + 1].to("cpu", copy=True)}
 
 
@@ -156,7 +156,7 @@ def insert_aux_slot(cache, aux: Dict[str, Any], slot: int, n_slots: int):
             dst.narrow(axis, slot, 1).copy_(src)
     for name in ("ssm", "cross"):
         if hasattr(cache, name):
-            _tree_map(ins, getattr(cache, name), aux[name])
+            tree_map(ins, getattr(cache, name), aux[name])
     cache.pos[slot:slot + 1].copy_(aux["pos"])
     return cache
 

@@ -60,6 +60,7 @@ class Request:
     prefill_pos: int = 0                # prompt tokens already prefilled
     target_len: int = 0                 # tokens the chunk path must cover
     chunk_rows: Any = None              # host page-table row while prefilling
+    chunk_ssm: Any = None               # hybrid: SSM carry between chunks
 
     @property
     def done(self) -> bool:

@@ -53,7 +53,7 @@ from repro_torch.paging import (NOT_MAPPED, EventKind, PageState,
                                 PagingError, pages_for)
 from repro_torch.serve.disagg import HandoffRecord
 from repro_torch.serve.kv_cache import (extract_aux_slot, insert_aux_slot,
-                                        join_kv_pages)
+                                        join_kv_pages, tree_map)
 from repro_torch.serve.request import Request
 
 __all__ = ["TransferMixin", "_scatter_seq_pages", "_scatter_seq_pages_q",
@@ -272,9 +272,14 @@ class TransferMixin:
         """Cancel a half-prefilled sequence: its *completed* chunks park
         exactly like a running sequence's pages (hot tail pooled, cold
         written back), and the prompt remainder simply re-enters the
-        chunk queue on resume — no prefill work is redone."""
+        chunk queue on resume — no prefill work is redone.  The hybrid
+        family's state carry (``req.chunk_ssm``) parks in host memory
+        beside the pages, as the reference keeps it host-side."""
         slot = req.slot
         self._shed_pages(req, req.prefill_pos)
+        if req.chunk_ssm is not None:
+            req.chunk_ssm = tree_map(lambda a: a.to("cpu", copy=True),
+                                     req.chunk_ssm)
         req.parked = True
         req.n_preempts += 1
         req.slot = None

@@ -58,9 +58,11 @@ def make_serve_step(cfg: ModelConfig, speculate_k: int = 0, *,
 
 def make_mixed_step(cfg: ModelConfig, speculate_k: int = 0):
     """``fn(params, cache, tokens, chunk) -> (logits, chunk_logits,
-    cache)``: one decode token for every running slot, then one prompt
-    chunk for up to C admitting slots, in that order (as the JAX mixed
-    step runs them), both on the same pool.
+    chunk_carry, cache)``: one decode token for every running slot, then
+    one prompt chunk for up to C admitting slots, in that order (as the
+    JAX mixed step runs them), both on the same pool; ``chunk_carry`` is
+    the chunk rows' recurrent state for their next chunk (hybrid family;
+    else None).
 
     With ``speculate_k > 0``: ``fn(params, cache, tokens, length, chunk)``
     runs the verify-K step in place of the decode token, then the
@@ -71,15 +73,15 @@ def make_mixed_step(cfg: ModelConfig, speculate_k: int = 0):
         def step(params, cache, tokens, length, chunk):
             logits, cache = model_mod.verify_step(params, cfg, cache, tokens,
                                                   length)
-            chunk_logits, cache = model_mod.prefill_chunk(params, cfg, cache,
-                                                          chunk)
-            return logits, chunk_logits, cache
+            chunk_logits, cache, carry = model_mod.prefill_chunk(
+                params, cfg, cache, chunk)
+            return logits, chunk_logits, carry, cache
     else:
         @torch.no_grad()
         def step(params, cache, tokens, chunk):
             logits, cache = model_mod.decode_step(params, cfg, cache, tokens)
-            chunk_logits, cache = model_mod.prefill_chunk(params, cfg, cache,
-                                                          chunk)
-            return logits, chunk_logits, cache
+            chunk_logits, cache, carry = model_mod.prefill_chunk(
+                params, cfg, cache, chunk)
+            return logits, chunk_logits, carry, cache
 
     return step

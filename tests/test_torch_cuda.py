@@ -21,7 +21,9 @@ configs (G 5 and 12, head dims 16, 32 and 80).  The linear recurrences
 (wkv6, ssd) are held to their plain chunked versions in f32 at the
 reference's kernel-vs-chunked bar, < 1e-5, and to the sequential
 oracles at < 1e-4 (``tests/test_kernels.py:117-158``), in bf16 at the
-bars above.  The indexed gathers (gather_rows, gather_blocks) only move
+bars above; with a state in and out too (the final state at the f32
+bar), and a sequence served in two halves with the state carried
+between them against the whole.  The indexed gathers (gather_rows, gather_blocks) only move
 bits, so they are held to their plain versions bitwise, the reference's
 bar (``tests/test_kernels.py:174``, ``:183``), on the 16-byte vector path
 and the element path; the MoE block must give the same bits with its
@@ -512,6 +514,80 @@ def test_ssm_kernels_match_plain(full_f32, dtype, kind, B, T, H, W, N,
         _assert_agree(out, plain)
     with pytest.raises(ValueError, match="not a multiple"):
         call("cuda", T // 2 + 8)
+
+
+def _ssm_agree(out, ref):
+    """f32 (an f32 instance's output, any final state): the reference's
+    kernel-vs-chunked bar, max |err| / max |ref| < 1e-5; bf16: the bars
+    of the paged kernels."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if out.dtype == torch.float32:
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        assert rel < 1e-5, rel
+    else:
+        _assert_agree(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,B,T,H,W,N,chunk,seg", [
+    ("wkv6", 1, 512, 2, 64, None, 64, None),     # the plan's segments
+    ("wkv6", 2, 256, 3, 32, None, 32, 1),        # a piece a segment
+    ("wkv6", 1, 64, 2, 128, None, 64, None),     # one segment
+    ("ssd", 1, 512, 4, 64, 64, 128, None),       # zamba2's chunk
+    ("ssd", 2, 256, 3, 32, 16, 32, 1),           # B staged for the last
+    ("ssd", 1, 128, 2, 64, 32, 128, None),       # one segment
+])
+def test_ssm_kernels_carry_the_state(full_f32, dtype, kind, B, T, H, W, N,
+                                     chunk, seg):
+    """Kernels 9 and 10 with an initial state in and the final state out
+    against their plain versions (output and state); the sequence in two
+    halves, the state carried from the first to the second, against the
+    whole; a zero state in against none."""
+    dev = full_f32
+    gen = torch.Generator(device=dev).manual_seed(T + H + W + 7)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    if kind == "wkv6":
+        mod, fn, S_shape = rwkv6, ops.wkv6, (B, H, W, W)
+        r, k, v = (rand(B, T, H, W).to(dtype) for _ in range(3))
+        args = (r, k, v, -torch.exp(rand(B, T, H, W) - 2),
+                rand(H, W) * 0.1)
+        timed = (0, 1, 2, 3)                # the inputs with a T axis
+    else:
+        mod, fn, S_shape = mamba2, ops.ssd, (B, H, N, W)
+        args = (rand(B, T, H, W).to(dtype),
+                torch.nn.functional.softplus(rand(B, T, H)),
+                torch.linspace(0.5, 4.0, H, device=dev),
+                rand(B, T, N).to(dtype), rand(B, T, N).to(dtype), rand(H))
+        timed = (0, 1, 3, 4)
+    cuda = mod.wkv6_cuda if kind == "wkv6" else mod.ssd_cuda
+    S0 = rand(*S_shape)
+    kernel = mod.KERNELS[dtype]
+    before = kernel.launches
+    out, S = cuda(*args, chunk=chunk, seg=seg, initial_state=S0,
+                  return_state=True)
+    assert kernel.launches == before + 1
+    assert S.dtype == torch.float32 and tuple(S.shape) == S_shape
+    pout, pS = fn(*args, impl="torch", chunk=chunk, initial_state=S0,
+                  return_state=True)
+    _ssm_agree(out, pout)
+    _ssm_agree(S, pS)
+
+    def part(lo, hi):
+        return tuple(a[:, lo:hi].contiguous() if i in timed else a
+                     for i, a in enumerate(args))
+    o1, S1 = fn(*part(0, T // 2), chunk=chunk, initial_state=S0,
+                return_state=True)
+    o2, S2 = fn(*part(T // 2, T), chunk=chunk, initial_state=S1,
+                return_state=True)
+    assert kernel.launches == before + 3
+    _ssm_agree(torch.cat([o1, o2], 1), out)
+    _ssm_agree(S2, S)
+    zero, _ = fn(*args, chunk=chunk, initial_state=torch.zeros_like(S0),
+                 return_state=True)
+    _ssm_agree(zero, fn(*args, chunk=chunk))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -42,6 +42,16 @@ PHASE_2D = [(8, 8, 3, 2000), (2, 2, 4, 1000), (8, 8, 5, 2000),
 VALID = (0, 1, 63, 64, 65, 255, 256, 257, 1000, 2000, 2048, 4096, 10000)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("B,Hkv,G", [(1, 1, 1), (2, 2, 4), (8, 8, 3),
                                      (1, 8, 16), (64, 8, 12), (4, 1, 40)])
 @pytest.mark.parametrize("valid", VALID)

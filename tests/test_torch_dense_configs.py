@@ -48,6 +48,16 @@ COUNTERS = ("preemptions", "resumes", "prefill_preempts", "chunks",
             "mixed_steps", "steps", "admitted", "prefills")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, tol=TOL):
     np.testing.assert_allclose(np.asarray(a, np.float32),
                                np.asarray(b, np.float32), atol=tol, rtol=tol)
@@ -84,7 +94,7 @@ def test_registry_holds_the_six_served_archs():
     assert tconfigs.ARCH_IDS == [
         "phi4-mini-3.8b", "olmoe-1b-7b", "mistral-nemo-12b",
         "h2o-danube-1.8b", "command-r-plus-104b", "qwen2-vl-72b",
-        "llama4-maverick-400b-a17b"]
+        "llama4-maverick-400b-a17b", "rwkv6-7b", "zamba2-1.2b"]
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
 
 

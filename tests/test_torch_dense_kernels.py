@@ -37,6 +37,16 @@ ROOT = Path(__file__).resolve().parents[1]
 H100_SMEM = 232448      # shared memory a block may opt in to on an H100
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_err(out, expected):
     out = np.asarray(out, np.float32)
     expected = np.asarray(expected, np.float32)

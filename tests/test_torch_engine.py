@@ -33,6 +33,16 @@ COUNTERS = ("preemptions", "resumes", "prefill_preempts", "chunks",
             "mixed_steps", "steps", "admitted")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _econf(mod, device_pages, **extra):
     return mod.EngineConfig(
         max_batch=3, max_len=32,
@@ -112,30 +122,30 @@ def test_random_init_serves_smoke_config():
 
 
 #: a family the port still refuses for each case: the dense smoke config
-#: with experts, the enc-dec family, the SSM family, the hybrid family
+#: with experts, the enc-dec family
 _DENSE_WITH_EXPERTS = {"num_experts": 4, "experts_per_token": 2}
 _ENCDEC = {"family": "encdec"}
-_SSM = {"family": "ssm"}
-_HYBRID = {"family": "hybrid"}
 
 
 @pytest.mark.parametrize("change", [
     ({"role": "prefill",
       "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _ENCDEC),
     ({"role": "decode",
-      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _SSM),
+      "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
+     _DENSE_WITH_EXPERTS),
     ({"chunking": tconf.ChunkingConfig(chunk_tokens=None)},
      _DENSE_WITH_EXPERTS),
-    ({"paging": tconf.PagingConfig(enabled=False)}, _SSM),
+    ({"paging": tconf.PagingConfig(enabled=False)}, _ENCDEC),
     ({"paging": tconf.PagingConfig(offload_finished=True),
-      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _HYBRID),
+      "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
+     _DENSE_WITH_EXPERTS),
 ])
 def test_unported_options_raise(change):
     """Every engine option the JAX engine accepts is served (the roles,
     offload, unset ``chunk_tokens``, ``paging.enabled=False``); each case
     pairs one with a model family the port still refuses — dense with
-    experts, enc-dec, SSM, hybrid — which raises ``NotImplementedError``
-    whatever the options."""
+    experts, enc-dec — which raises ``NotImplementedError`` whatever the
+    options."""
     econf_change, cfg_change = change
     cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), **cfg_change)
     econf = dataclasses.replace(tconf.EngineConfig(device="cpu"),

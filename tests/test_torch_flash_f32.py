@@ -46,6 +46,16 @@ LOG2E = 1.4426950408889634
 F32_BAR = 5e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(out, expected):
     out = np.asarray(out, np.float64)
     expected = np.asarray(expected, np.float64)

@@ -65,6 +65,16 @@ LENGTH = np.array([100, 71, 9, 0], np.int32)
 T, HKV, MAX_LEN = 100, 2, 256
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # CPU: the plan, the sources, the plain versions against JAX
 # ---------------------------------------------------------------------------

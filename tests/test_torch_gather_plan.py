@@ -42,6 +42,16 @@ SHAPES = [(32, 512), (64, 1024), (8, 512), (512, 4096), (5120, 4096),
           (1, 16), (1000, 48), (2048, 4096 + 48)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def row_pieces(plan, row_bytes):
     """(start, bytes) of the pieces of one row, in order."""
     starts = np.arange(plan.per_row, dtype=np.int64) * plan.piece_bytes

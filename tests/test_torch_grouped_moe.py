@@ -40,6 +40,16 @@ ATOL = RTOL = 1e-5
 K = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = dataclasses.replace(jax_smoke(ARCH), compute_dtype="float32")
@@ -236,7 +246,7 @@ def test_steps_match_jax(setup, quant):
     jl, jc, _ = jmodel.prefill_chunk(
         jparams, jcfg, jc, {k: jnp.asarray(v) for k, v in chunk.items()},
         impl="xla")
-    tl, tc = tmodel.prefill_chunk(
+    tl, tc, _ = tmodel.prefill_chunk(
         tparams, tcfg, tc, {k: torch.from_numpy(v) for k, v in chunk.items()})
     _close(jl, tl.numpy())
     _pools_close(jc, tc)

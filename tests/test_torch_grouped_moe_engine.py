@@ -286,10 +286,11 @@ def test_random_init_serves_smoke_config():
     assert eng.stats["preemptions"] > 0
 
 
-@pytest.mark.parametrize("change", [dict(num_layers=3), dict(family="ssm")])
+@pytest.mark.parametrize("change", [dict(num_layers=3),
+                                    dict(family="encdec")])
 def test_engine_refuses_unported_layouts(change):
     """Groups must tile the stack (3 layers of moe_every 2 do not, and
-    the reference's reshape would fail), and the SSM family is not
+    the reference's reshape would fail), and the enc-dec family is not
     ported."""
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
     with pytest.raises(NotImplementedError):

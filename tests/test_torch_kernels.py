@@ -20,6 +20,16 @@ from repro_torch.kernels import ops
 N, PAGE, HKV, D, H = 9, 4, 2, 16, 6          # G = 3, trash frame N - 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pool(rng, dtype):
     k = rng.standard_normal((N, PAGE, HKV, D)).astype(np.float32)
     v = rng.standard_normal((N, PAGE, HKV, D)).astype(np.float32)

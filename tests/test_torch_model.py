@@ -32,6 +32,16 @@ from repro_torch.models import model as tmodel
 ATOL = RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = dataclasses.replace(jax_smoke("phi4-mini-3.8b"),
@@ -197,7 +207,7 @@ def test_prefill_chunk_then_decode_step_match_jax(setup):
     jl, jc, _ = jmodel.prefill_chunk(
         jparams, jcfg, jc, {k: jnp.asarray(v) for k, v in chunk.items()},
         impl="xla")
-    tl, tc = tmodel.prefill_chunk(
+    tl, tc, _ = tmodel.prefill_chunk(
         tparams, tcfg, tc, {k: torch.from_numpy(v) for k, v in chunk.items()})
     _close(jl, tl.numpy())
     _pool_close(jc.kv["k_pages"][:, :-1], tc.kv["k_pages"][:, :-1])

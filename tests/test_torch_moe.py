@@ -42,6 +42,16 @@ COUNTERS = ("preemptions", "resumes", "prefill_preempts", "chunks",
             "mixed_steps", "steps", "admitted")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = dataclasses.replace(jax_smoke(ARCH), compute_dtype="float32")
@@ -251,7 +261,7 @@ def test_steps_match_jax(setup):
     jl, jc, _ = jmodel.prefill_chunk(
         jparams, jcfg, jc, {k: jnp.asarray(v) for k, v in chunk.items()},
         impl="xla")
-    tl, tc = tmodel.prefill_chunk(
+    tl, tc, _ = tmodel.prefill_chunk(
         tparams, tcfg, tc, {k: torch.from_numpy(v) for k, v in chunk.items()})
     _close(jl, tl.numpy())
     _close(jc.kv["k_pages"][:, :-1], tc.kv["k_pages"][:, :-1].numpy())
@@ -408,10 +418,10 @@ def test_speculation_and_quant_pool_serve_moe(setup, engines, kv_quant,
     assert eng.cache.kv["k_pages"].dtype == want
 
 
-#: the families the port still refuses: hybrid and enc-dec (each with
-#: the option that was refused until the grouped MoE stack was ported),
-#: and the dense family with experts
-@pytest.mark.parametrize("change", [dict(moe_every=2, family="hybrid"),
+#: the families the port still refuses: enc-dec (with each option that
+#: was refused until the grouped MoE stack was ported), and the dense
+#: family with experts
+@pytest.mark.parametrize("change", [dict(moe_every=2, family="encdec"),
                                     dict(shared_expert=True,
                                          family="encdec"),
                                     dict(family="dense")])

@@ -60,6 +60,16 @@ SHAPES = [
 ENGINE_SHAPES = [("phi4-mini-3.8b", 8, 8, 3), ("olmoe-1b-7b", 8, 16, 1)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _live_blocks(B, Hkv, G, capacity, lengths, span):
     """Blocks of a decode grid that read K/V: a sequence's ranges below
     its length, per KV head and block of query heads."""

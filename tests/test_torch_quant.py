@@ -53,6 +53,16 @@ N, PAGE, HKV, D, H = 9, 4, 2, 16, 6          # G = 3, trash frame N - 1
 TOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_torch(a, mode):
     """A JAX int8/fp8 array as a torch tensor of the same bytes."""
     raw = np.asarray(a).view(np.uint8).copy()

@@ -57,6 +57,16 @@ SPEC_COUNTERS = ("steps", "mixed_steps", "spec_steps", "drafted",
                  "chunks", "admitted")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = dataclasses.replace(jax_smoke("phi4-mini-3.8b"),

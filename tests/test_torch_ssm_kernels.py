@@ -28,6 +28,16 @@ from repro_torch.models import ssm
 F32_CHUNKED, F32_SEQ = 1e-5, 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_err(out, expected):
     out = np.asarray(out, np.float32)
     expected = np.asarray(expected, np.float32)

@@ -39,6 +39,16 @@ ATOL, RTOL, ROW_TOL = 4e-3, 1e-2, 1e-2     # chip_smoke.py's bf16 bars
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tests run small tensors, and the test
+    runner's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(out, expected):
     out = np.asarray(out, np.float64)
     expected = np.asarray(expected, np.float64)

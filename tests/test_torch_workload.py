@@ -29,6 +29,9 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke
 from repro_torch.launch import serve as serve_cli
 from repro_torch.serve import Tier, WorkloadRequest, WorkloadSpec, generate
+from repro_torch.serve.config import (ChunkingConfig, EngineConfig,
+                                      PagingConfig, SchedulerConfig)
+from repro_torch.serve.engine import Engine
 
 ARCH = "phi4-mini-3.8b"
 #: the flags both CLIs get (the port's also ``--device cpu``)
@@ -192,6 +195,31 @@ def test_dense_flag_serves_without_paging(weights, capsys):
                for r in eng.finished.values())
     assert eng.stats["prefills"] == 12
     assert "dense per-slot cache" in capsys.readouterr().out
+
+
+def test_wall_clock_arrival_after_the_admission_read(weights):
+    """An injected clock that passes the first arrival between the
+    admission's read and the idle check: the engine waits a step and
+    admits it, where reading the clock again made it raise that the
+    queue can never be admitted."""
+    _, tcfg, _, tp = weights
+    t = [0.0]
+
+    class Stepping(Engine):
+        def _admit(self):
+            super()._admit()
+            t[0] += 0.3             # the wall clock runs on after the read
+
+    eng = Stepping(tcfg, tp, EngineConfig(
+        max_batch=2, max_len=64, device="cpu",
+        scheduler=SchedulerConfig(clock=lambda: t[0]),
+        paging=PagingConfig(page_size=16, device_pages=24),
+        chunking=ChunkingConfig(chunk_tokens=16)))
+    for i in range(3):
+        eng.submit(np.arange(5 + i), max_new_tokens=3, arrival_t=0.5 + i)
+    out = eng.run()
+    assert sorted(out) == [0, 1, 2]
+    assert all(len(v) == 3 for v in out.values())
 
 
 # ---------------------------------------------------------------------------
