@@ -339,6 +339,29 @@ run's.
    the plain f32 run as the plain bf16 runs, controls with the carry
    lost (zeroed between chunks; kernel 10's dropped in the dense run)
    farther.  Tokens across runs are printed, not gated.
+12. serves the same on ``seamless-m4t-medium`` at full width and depth
+   (12 encoder and 12 decoder layers, d_model 1024, 16 / 16 heads of
+   64, vocab 256206; 1.82 GiB of bf16 weights drawn on the card), each
+   request with a source of as many frame embeddings from a seeded numpy
+   generator: (a) the chunk queue on 448 frames of 786,432 B, where four
+   half-prefilled requests are preempted and their encoder, run again at
+   the resume, writes their first run's cross rows bitwise; (b) a roomy
+   pool, (a)'s tokens required (every source is padded to ``max_len``
+   there, so no slot keeps an earlier occupant's rows); (c) the dense
+   prefill; (d) no pool; (e) 256 frames, where a running slot is
+   preempted too and its whole cross state (104,857,604 B a residue)
+   comes back bitwise; kernels 1, 2, 4 (the encoder, and a launch a
+   live chunk row for its cross attention) and 5 (the decode's cross
+   attention, once a layer a step) counted exactly in each.  12s: on the
+   card, the encoder layer's attention and output, the decode's cross
+   attention on kernel 5 at 8 slots x 2048 rows with zeros and an
+   earlier occupant's rows past each bucket, and a chunk's cross
+   attention on kernel 4 a row, against plain within phase 2's bars; a
+   1000-token prompt over 1000 frames in 256-token chunks and dense,
+   each with one decode step: in f32 on kernels 4 and 5 against the
+   plain dense run within the bars; in bf16 at most twice the plain bf16
+   run's distance from plain f32, a control with the encoder's output
+   zeroed farther.
 Each engine run prints tok/s, mean TTFT, steps, chunks, dense prefills,
 peak memory and a sha256 of its tokens.
 
@@ -346,8 +369,9 @@ It prints the card's name and power limit first, then the lines of each
 phase, then ``{"kernels": [...]}`` (the bf16 paged decode, paged
 prefill, dense flash, row gather, wkv6 and ssd rows also carry
 ``engine_launches``, their launches in each engine run of phases 8, 8
-(a), 8 (b), 8w, 9 (a), (b), (c), 10 and 11 (a)–(e); the bf16 wkv6 and
-ssd rows' ``launches`` are phase 10's and 11 (a)'s, phase 6's kept as
+(a), 8 (b), 8w, 9 (a), (b), (c), 10, 11 (a)–(e) and 12 (a)–(e), and so
+does the bf16 dense decode's; the bf16 wkv6, ssd and dense decode rows'
+``launches`` are phase 10's, 11 (a)'s and 12 (a)'s, phase 6's kept as
 ``entry_point_launches``) and, last, ``{"ok":
 true, "device": ...}``.  Without a CUDA device it exits non-zero before any result.
 
@@ -493,6 +517,20 @@ DEPTH_FACTOR, SSM_DROP_AT = 2.0, 768
 #: phase 11 (e): a pool on which the chunk queue also preempts a running
 #: slot (CPU rehearsal: tests/test_torch_hybrid.py)
 ZAMBA2_TIGHT_PAGES = 300
+#: phase 12: the encoder-decoder family at full width and depth, its page
+#: frame (16 positions x 12 decoder layers x K and V x 16 x 64 x 2 B)
+ENCDEC_ARCH, ENCDEC_FRAME = "seamless-m4t-medium", 786_432
+#: phase 12 (e): a pool on which the chunk queue also preempts a running
+#: slot, whose cross state then rides the residue
+ENCDEC_TIGHT_PAGES = 256
+#: phase 12 (a)'s and (e)'s scheduler counts on phase 3's settings, which
+#: the card run repeats (CPU rehearsal at the smoke width with the full
+#: width's page bytes: tests/test_torch_encdec.py)
+ENCDEC_COUNTS = {
+    "12a": {"preemptions": 4, "resumes": 4, "prefill_preempts": 4,
+            "chunks": 56, "mixed_steps": 31, "steps": 97},
+    "12e": {"preemptions": 5, "resumes": 5, "prefill_preempts": 4,
+            "chunks": 56, "mixed_steps": 31, "steps": 148}}
 #: phase 3w: the workload CLI's trace (``--workload``, its default rate
 #: and spec at ``max_len`` 2048) on phase 3's engine settings
 WORKLOAD_REQUESTS = 32
@@ -2354,8 +2392,11 @@ GATHER_BF16 = moe_gather.KERNELS[torch.bfloat16]
 #: Mamba2's ssd)
 WKV6_BF16, SSD_BF16 = rwkv6.KERNELS[torch.bfloat16], \
     mamba2.KERNELS[torch.bfloat16]
+#: (and, since phase 12, the bf16 dense decode attention (kernel 5): the
+#: enc-dec decode's cross attention)
+DECODE_BF16 = dec_mod.DENSE_KERNELS[torch.bfloat16]
 ENGINE_KERNELS = (*ops.KERNELS, FLASH_BF16, GATHER_BF16, WKV6_BF16,
-                  SSD_BF16)
+                  SSD_BF16, DECODE_BF16)
 
 
 def big_params(arch: str, dev, tag: str, layers: int = 0):
@@ -2382,21 +2423,23 @@ def free_params() -> None:
     torch.cuda.empty_cache()
 
 
-def run_engine(tag: str, cfg, params, econf, ps, hook=None):
-    """Serve ``ps`` (``NEW_TOKENS`` each) on an engine of ``econf``, the
-    launch counts of :data:`ENGINE_KERNELS` set to 0 just before and read
-    just after; ``hook(engine)`` runs before the first submit.  Prints
-    tok/s, mean TTFT, steps, chunks, dense prefills, peak memory and a
-    sha256 of the tokens; every request must finish with its count.
-    Returns (engine, outputs, launches by kernel name)."""
+def run_engine(tag: str, cfg, params, econf, ps, hook=None, srcs=None):
+    """Serve ``ps`` (``NEW_TOKENS`` each; an enc-dec request with its
+    source of ``srcs``) on an engine of ``econf``, the launch counts of
+    :data:`ENGINE_KERNELS` set to 0 just before and read just after;
+    ``hook(engine)`` runs before the first submit.  Prints tok/s, mean
+    TTFT, steps, chunks, dense prefills, peak memory and a sha256 of the
+    tokens; every request must finish with its count.  Returns (engine,
+    outputs, launches by kernel name)."""
     reset_peak()
     for k in ENGINE_KERNELS:
         k.launches = 0
     eng = Engine(cfg, params, econf)
     if hook is not None:
         hook(eng)
-    for p in ps:
-        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    for i, p in enumerate(ps):
+        eng.submit(p, max_new_tokens=NEW_TOKENS,
+                   src_embeds=None if srcs is None else srcs[i])
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
@@ -3311,6 +3354,428 @@ def check_zamba2_chunks(cfg, params, dev) -> None:
           f"{_layer_rel(pcarry.S, pdcache.ssm.S[:, :1]):.3e}")
 
 
+def encdec_requests(d_model: int):
+    """Phase 12's requests: phase 3's prompts (drawn over phi4-mini's
+    vocabulary, which seamless's holds), each with a source of as many
+    frame embeddings (the stub frontend's), a standard normal draw in
+    f32 from a generator of its own seed, in host memory."""
+    ps = prompts(get_config(ARCH).vocab_size)
+    rng = np.random.default_rng(SEED + 12)
+    return ps, [rng.standard_normal((len(p), d_model)).astype(np.float32)
+                for p in ps]
+
+
+def watch_cross(eng, seen: dict) -> None:
+    """Phase 12 (a), (e): every cross state the engine lets go is copied
+    on the device as the park starts and held, bitwise, against what
+    replaces it.  A running slot's (K/V of every decoder layer and the
+    encoder output, all ``max_len`` rows) rides the residue: held against
+    the rows :func:`insert_aux_slot` puts back at its resume, and the
+    residue's bytes summed.  A half-prefilled request's rows leave with
+    its slot: its resume runs the encoder again, held against the rows
+    of its source (``[0, src_len)``) that run writes into the new slot.
+    ``seen``: ``slot`` and ``encoded_again`` (the resumes held so),
+    ``residue_bytes``, ``encodes`` (every encoder run)."""
+    copies = {}
+    park, park_pre = eng._park, eng._park_prefilling
+    resume, install = eng._try_finish_resumes, eng._install_cross
+    seen.update(slot=0, encoded_again=0, residue_bytes=0, encodes=0)
+
+    def rows_of(req, n):
+        return {k: t.narrow(1 if k in ("k", "v") else 0, req.slot, 1)
+                .narrow(2 if k in ("k", "v") else 1, 0, n).clone()
+                for k, t in eng.cache.cross.items()}
+
+    def parked(req):
+        copies[req.rid] = rows_of(req, eng.max_len)
+        park(req)
+        seen["residue_bytes"] += sum(
+            t.numel() * t.element_size() for t in
+            (*req.residue["cross"].values(), req.residue["pos"]))
+
+    def parked_prefilling(req):
+        copies[req.rid] = rows_of(req, req.src_len)
+        park_pre(req)
+
+    def resumed():
+        waiting = {rid: r for rid, r in eng._resuming.items()
+                   if not r.mid_prefill}
+        resume()
+        for rid, req in waiting.items():
+            if rid in eng._resuming:
+                continue
+            now = rows_of(req, eng.max_len)
+            require(all(torch.equal(t, now[k])
+                        for k, t in copies.pop(rid).items()),
+                    f"seamless: rid {rid}'s slot resumed with other cross "
+                    "rows than the ones parked")
+            seen["slot"] += 1
+
+    def installed(req):
+        install(req)
+        seen["encodes"] += 1
+        if req.rid in copies:
+            now = rows_of(req, req.src_len)
+            require(all(torch.equal(t, now[k])
+                        for k, t in copies.pop(req.rid).items()),
+                    f"seamless: rid {req.rid}'s encoder, run again at its "
+                    "resume, wrote other cross rows than its first run")
+            seen["encoded_again"] += 1
+    eng._park, eng._park_prefilling = parked, parked_prefilling
+    eng._try_finish_resumes, eng._install_cross = resumed, installed
+
+
+def serve_seamless(dev) -> dict:
+    """Phase 12: seamless-m4t-medium at full width and depth (12 encoder
+    and 12 decoder layers, d_model 1024, 16 / 16 heads of 64, d_ff 4096,
+    vocab 256206 padded to 256256, an untied head; random bf16 weights
+    drawn on the card) on phase 3's requests and settings, each request
+    with a source of as many frame embeddings: (a) the chunk queue on
+    448 frames of 786,432 B, which preempts half-prefilled requests,
+    each one's encoder run again at its resume and its cross rows held
+    bitwise to its first run's; (b) a roomy pool, which must give (a)'s
+    tokens; (c) the dense prefill (``chunk_tokens`` unset, the buckets
+    of phase 8); (d) paging off; (e) as (a) on ``ENCDEC_TIGHT_PAGES``
+    frames, where a running slot is preempted too and its cross state
+    (every ``max_len`` row) rides the residue, back bitwise at its
+    resume, the bytes parked printed.  Kernel 5 (the dense decode: the
+    decode's cross attention over every ``max_len`` row) launches once a
+    layer a step in every run; kernel 4 (bf16) runs the encoder (once an
+    encoder layer an encoder run) and each live chunk row's cross
+    attention (once a decoder layer a row), or, in (c) and (d), the
+    dense prefill's encoder, self and cross attention; kernels 1 and 2
+    the paged self-attention.  Each run prints its launches of kernels
+    1, 2, 4 and 5; (c)'s, (d)'s and (e)'s tokens are printed beside
+    (a)'s, not gated ((c) and (d) pad sources to other buckets, and the
+    decode reads the rows past a bucket, as in the reference; in (e) a
+    resumed request comes back to another slot).  Then phase 12s.
+    Returns the launch counts by run."""
+    cfg, params = big_params(ENCDEC_ARCH, dev, "seamless")
+    weights = torch.cuda.memory_allocated() / 2**30
+    ps, srcs = encdec_requests(cfg.d_model)
+    frame = 2 * kv_layers(cfg) * PAGE * cfg.num_kv_heads * cfg.head_dim * 2
+    require(frame == ENCDEC_FRAME, f"seamless: frame of {frame} B")
+    L, E, N = cfg.num_layers, cfg.encoder_layers, N_REQUESTS
+    pps = ENGINE["max_len"] // ENGINE["page_size"]
+    runs, outs = {}, {}
+    for tag, econf in (
+            ("12a", engine_config("cuda", ENGINE["device_pages"],
+                                  time.perf_counter)),
+            ("12b", engine_config("cuda", ENGINE["max_batch"] * pps,
+                                  time.perf_counter)),
+            ("12c", dense_config("cuda", clock=time.perf_counter)),
+            ("12d", dense_config("cuda", paging=False,
+                                 clock=time.perf_counter)),
+            ("12e", engine_config("cuda", ENCDEC_TIGHT_PAGES,
+                                  time.perf_counter))):
+        seen = {}
+        eng, outs[tag], launches = run_engine(
+            f"seamless:{tag}", cfg, params, econf, ps, srcs=srcs,
+            hook=(lambda e: watch_cross(e, seen))
+            if tag in ENCDEC_COUNTS else None)
+        st = eng.stats
+        k1, k2, k4, k5 = (launches[k.name] for k in (
+            dec_mod.KERNEL, pre_mod.KERNEL, FLASH_BF16, DECODE_BF16))
+        require(k5 == L * st["steps"], f"seamless {tag}: kernel 5 launched "
+                f"{k5} times in {st['steps']} steps of {L} layers")
+        if st["chunks"]:
+            encodes = N + st["prefill_preempts"]
+            want = (L * st["steps"], L * st["mixed_steps"],
+                    E * encodes + L * st["chunks"])
+        else:
+            require(st["prefills"] == N, f"seamless {tag}: "
+                    f"{st['prefills']} dense prefills")
+            want = (L * st["steps"] if eng.paging else 0, 0, N * (E + 2 * L))
+        require((k1, k2, k4) == want, f"seamless {tag}: kernels 1 / 2 / 4 "
+                f"launched {(k1, k2, k4)} times, not {want}")
+        if seen:
+            running = st["preemptions"] - st["prefill_preempts"]
+            counts = {k: st[k] for k in ENCDEC_COUNTS[tag]}
+            require(counts == ENCDEC_COUNTS[tag], f"seamless {tag}: counts "
+                    f"{counts}, the CPU rehearsal's {ENCDEC_COUNTS[tag]}")
+            require(eng.pager.page_nbytes == frame
+                    and seen["slot"] == running
+                    and seen["encoded_again"] == st["prefill_preempts"]
+                    and seen["encodes"] == N + st["prefill_preempts"],
+                    f"seamless {tag}: {seen} for {running} running slots "
+                    f"and {st['prefill_preempts']} half-prefilled requests "
+                    "preempted")
+            require(tag != "12e" or running > 0, "seamless (e): no running "
+                    "slot was preempted")
+            ps_ = eng.pager.stats
+            each = seen["residue_bytes"] // running if running else 0
+            print(f"[seamless:{tag}] parked: {running} running slots (cross "
+                  f"state of {ENGINE['max_len']} rows, a residue of {each} "
+                  f"B each, {seen['residue_bytes']} B in all), back bitwise; "
+                  f"{st['prefill_preempts']} half-prefilled requests, their "
+                  f"encoder run again bitwise; {ps_['writeback']} pages "
+                  f"written back ({ps_['bytes_moved_bulk']} B); encoder "
+                  f"runs {seen['encodes']}")
+        if tag == "12b":
+            same_tokens("seamless:12b", outs[tag], outs["12a"], "run (a)'s")
+        elif tag != "12a":
+            same_tokens(f"seamless:{tag}", outs[tag], outs["12a"],
+                        "run (a)'s", required=False)
+        print(f"[seamless:{tag}] launches of kernels 1 / 2 / 4 / 5: {k1} / "
+              f"{k2} / {k4} / {k5}; preemptions {st['preemptions']} "
+              f"({st['prefill_preempts']} mid-prefill)")
+        runs[tag] = launches
+        del eng
+    print(f"[seamless] weights {weights:.2f} GiB")
+    check_seamless(cfg, params, dev)
+    return runs
+
+
+@contextlib.contextmanager
+def silenced_encoder():
+    """The control of phase 12s's depth gates: the encoder's output
+    zeroed, so every cross K/V the model computes from it is zero (the
+    projections have no bias) and the decoder sees no source."""
+    inner = model_mod._encode
+
+    def zero(*args, **kw):
+        return torch.zeros_like(inner(*args, **kw))
+    model_mod._encode = zero
+    try:
+        yield
+    finally:
+        model_mod._encode = inner
+
+
+@contextlib.contextmanager
+def plain_paged():
+    """The paged attention ops on their plain versions whatever ``impl``
+    the caller passes (they have no f32 instance): an f32 run with
+    ``impl="auto"`` then takes kernels 4 and 5's f32 instances with the
+    paged attention plain."""
+    saved = ops.paged_prefill_attention, ops.paged_decode_attention
+
+    def plain(inner):
+        return lambda *a, impl="auto", **kw: inner(*a, impl="torch", **kw)
+    ops.paged_prefill_attention, ops.paged_decode_attention = (
+        plain(f) for f in saved)
+    try:
+        yield
+    finally:
+        ops.paged_prefill_attention, ops.paged_decode_attention = saved
+
+
+def check_seamless(cfg, params, dev) -> None:
+    """Phase 12s.  On the card, against their plain versions within
+    phase 2's bars: (1) encoder layer 0 over a 1000-frame source, its
+    attention on kernel 4 not causal and the layer's output (the row
+    bar); (2) the decode's cross attention on kernel 5 at the engine's
+    shape (8 slots, 2048 cross rows, 16 heads of 64), each slot with a
+    bucket of rows of its own, past it zeros (4 slots) or an earlier
+    occupant's rows (4 slots), read unmasked; (3) a chunk's cross
+    attention per row on kernel 4, two rows of 256 queries on slots of
+    1536 and 512 source rows.  Then one 1000-token prompt with its
+    1000-frame source, through ``prefill_chunk`` in 256-token chunks
+    (the cross state from ``encode_cross``) and through the dense
+    ``prefill``, each followed by one ``decode_step``: logits at the
+    prompt's last token and the step's.  In f32 compute (the weights
+    widened; kernels 4 and 5's f32 instances, the paged attention plain)
+    the chunked and the dense run on the kernels hold against the plain
+    dense run within the bars.  In bf16, rounding grows over 24 layers
+    of random weights, so :func:`depth_gate` holds each run on the
+    kernels (kernels 1, 2, 4 and 5, or 4 and 5) to at most twice the
+    plain bf16 run's distance from the plain f32 dense run, and a
+    control with the encoder's output zeroed (the cross K/V zero) must
+    stand farther: the gate sees the cross attention."""
+    n, c = SSM_CHECK_TOKENS, SSM_CHECK_CHUNK
+    L, E = cfg.num_layers, cfg.encoder_layers
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cdt = torch.bfloat16
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n + 1))
+                            .astype(np.int32)).to(dev)
+    src = torch.from_numpy(rng.standard_normal((1, n, cfg.d_model))
+                           .astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
+    lines = []
+    with torch.no_grad():
+        # (1) encoder layer 0
+        lp = model_mod._layer(params["encoder"], 0)
+        x = src.to(cdt)
+        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(lp["attn"], cfg, h, cdt)
+        pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+        q, k = attn_mod._position_encode(cfg, q, k, pos)
+
+        def enc_attn(impl):
+            return ops.flash_attention(q, k, v, causal=False, impl=impl)
+
+        def enc_layer(impl):
+            y = x + attn_mod.attention_block(lp["attn"], cfg, h, pos,
+                                             causal=False, compute_dtype=cdt,
+                                             impl=impl)[0]
+            return y + swiglu(lp["mlp"], rms_norm(lp["mlp_norm"], y,
+                                                  cfg.norm_eps), cdt)
+        err, row = agree("12s: kernel 4 in encoder layer 0, not causal",
+                         enc_attn("cuda"), enc_attn("torch"))
+        o, r = enc_layer("cuda").float(), enc_layer("torch").float()
+        lrow = float(((o - r).norm(dim=-1) / r.norm(dim=-1)).max())
+        require(lrow <= ROW_TOL, f"12s: encoder layer 0's output, row "
+                f"error {lrow}")
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        lines.append(
+            f"encoder layer 0 ({n} frames): kernel 4 vs plain max_abs_err "
+            f"{err:.3e} row_err {row:.3e}, kernel_ms "
+            f"{time_ms(lambda: enc_attn('cuda')):.4f} plain_ms "
+            f"{time_ms(lambda: enc_attn('torch'), reps=3, warmup=1):.4f} "
+            f"sdpa_ms {time_ms(sdpa):.4f}; the layer's output row_err "
+            f"{lrow:.3e}")
+        # (2) the decode's cross attention on kernel 5
+        B, S = ENGINE["max_batch"], ENGINE["max_len"]
+        kc, vc = randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
+        q1 = randn(B, 1, H, Dh)
+        buckets = DENSE_BUCKETS * (B // len(DENSE_BUCKETS))
+        for b, bucket in enumerate(buckets[:B // 2]):
+            kc[b, bucket:] = 0
+            vc[b, bucket:] = 0
+
+        def dec(impl):
+            return attn_mod.cross_decode_attention(q1, kc, vc, impl=impl)
+        DECODE_BF16.launches = 0
+        out = dec("cuda")
+        require(DECODE_BF16.launches == 1, "12s: kernel 5 did not launch")
+        err, row = agree("12s: the decode's cross attention, kernel 5",
+                         out, dec("torch"))
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q1.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))
+        lines.append(
+            f"decode cross attention ({B} slots x {S} rows, buckets "
+            f"{buckets}, zeros past the bucket in slots 0-{B // 2 - 1}, "
+            f"an earlier occupant's rows in the rest): kernel 5 vs plain "
+            f"max_abs_err {err:.3e} row_err {row:.3e}, kernel_ms "
+            f"{time_ms(lambda: dec('cuda')):.4f} plain_ms "
+            f"{time_ms(lambda: dec('torch')):.4f} sdpa_ms "
+            f"{time_ms(sdpa):.4f}")
+        # (3) a chunk's cross attention, a launch of kernel 4 a row
+        T = ENGINE["chunk_tokens"]
+        rows = [(5, 1536, T), (2, 512, 100)]
+        qc = randn(len(rows), T, H, Dh)
+
+        def chunk_cross(impl):
+            return attn_mod.cross_chunk_attention(qc, kc, vc, rows,
+                                                  impl=impl)
+        FLASH_BF16.launches = 0
+        out = chunk_cross("cuda")
+        require(FLASH_BF16.launches == len(rows),
+                f"12s: kernel 4 launched {FLASH_BF16.launches} times for "
+                f"{len(rows)} chunk rows")
+        err, row = agree("12s: a chunk's cross attention, kernel 4 a row",
+                         out, chunk_cross("torch"))
+        lines.append(
+            f"chunk cross attention (rows {rows}: slot, source rows, "
+            f"length): kernel 4 vs plain max_abs_err {err:.3e} row_err "
+            f"{row:.3e}, kernel_ms {time_ms(lambda: chunk_cross('cuda')):.4f}"
+            f" plain_ms {time_ms(lambda: chunk_cross('torch')):.4f}")
+
+    pages = pages_for(n + 1, PAGE)
+    prow = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    spans = [(lo, min(lo + c, n)) for lo in range(0, n, c)]
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    def chunked(p, cfg, impl, f32_pool=False):
+        """Logits (2, V): the chunks' at the prompt's last token, then
+        one decode step's."""
+        cache = init_paged_cache(cfg, 1, pages * PAGE, pages + 1, PAGE,
+                                 device=dev, src_len=n)
+        if f32_pool:
+            cache = cache._replace(kv=dict(
+                cache.kv, k_pages=cache.kv["k_pages"].float(),
+                v_pages=cache.kv["v_pages"].float()))
+        with torch.no_grad():
+            cross = model_mod.encode_cross(p, cfg, src, impl=impl)
+            for key, t in cache.cross.items():
+                t.copy_(cross[key])
+            for lo, hi in spans:
+                logits, cache, _ = prefill_chunk(p, cfg, cache, {
+                    "tokens": toks[:, lo:hi], "offset": one(lo),
+                    "length": one(hi - lo), "page_rows": prow,
+                    "slots": one(0), "src_len": one(n)}, impl=impl)
+            cache.kv["page_table"].copy_(prow)
+            step, _ = decode_step(p, cfg, cache._replace(pos=one(n)),
+                                  toks[:, n:], impl=impl)
+        return torch.cat([logits, step])
+
+    def dense(p, cfg, impl):
+        with torch.no_grad():
+            logits, cache = prefill(p, cfg, toks[:, :n], src_embeds=src,
+                                    impl=impl)
+            kv = {key: torch.nn.functional.pad(cache.kv[key],
+                                               (0, 0, 0, 0, 0, 1))
+                  for key in ("k", "v")}
+            step, _ = decode_step(p, cfg, cache._replace(
+                kv=dict(cache.kv, **kv)), toks[:, n:], impl=impl)
+        return torch.cat([logits, step])
+
+    counted = (dec_mod.KERNEL, pre_mod.KERNEL, FLASH_BF16, DECODE_BF16)
+    for k in counted:
+        k.launches = 0
+    kern = chunked(params, cfg, "auto")
+    launched = [k.launches for k in counted]
+    want = [L, L * len(spans), E + L * len(spans), L]
+    require(launched == want, f"12s: the chunked run launched kernels 1 / 2 "
+            f"/ 4 / 5 {launched} times, not {want}")
+    plain = chunked(params, cfg, "torch")
+    with silenced_encoder():
+        ctrl = chunked(params, cfg, "auto")
+    for k in counted:
+        k.launches = 0
+    dkern = dense(params, cfg, "auto")
+    got = [k.launches for k in counted]
+    require(got == [0, 0, E + 2 * L, L], f"12s: the dense run launched "
+            f"kernels 1 / 2 / 4 / 5 {got} times")
+    dplain = dense(params, cfg, "torch")
+    with silenced_encoder():
+        dctrl = dense(params, cfg, "auto")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = cast_params(params, torch.float32, dev)
+    truth = dense(p32, cfg32, "torch")
+    f32 = (pre_mod.DENSE_KERNELS[torch.float32],
+           dec_mod.DENSE_KERNELS[torch.float32])
+    for k in f32:
+        k.launches = 0
+    d32 = dense(p32, cfg32, "auto")
+    with plain_paged():
+        c32 = chunked(p32, cfg32, "auto", f32_pool=True)
+    got = [k.launches for k in f32]
+    want = [2 * E + 2 * L + L * len(spans), 2 * L]
+    require(got == want, f"12s: the f32 instances of kernels 4 / 5 launched "
+            f"{got} times, not {want}")
+    derr = agree("12s: f32 dense prefill + step on kernels 4 and 5 vs plain",
+                 d32, truth)
+    cerr = agree("12s: f32 chunks + step on kernels 4 and 5 vs the plain "
+                 "dense run", c32, truth)
+    del p32
+    deep = {"chunked": depth_gate("12s: bf16 chunks + step", kern, plain,
+                                  ctrl, truth),
+            "dense": depth_gate("12s: bf16 dense prefill + step", dkern,
+                                dplain, dctrl, truth)}
+    for line in lines:
+        print(f"[seamless:12s] {line}")
+    print(f"[seamless:12s] {n} tokens over {n} frames, in {len(spans)} chunks "
+          f"and dense, each + one step (the chunked run's launches of kernels "
+          f"1 / 2 / 4 / 5: {launched}); f32 vs"
+          f" the plain dense run: dense on kernels max_abs_err {derr[0]:.3e} "
+          f"row_err {derr[1]:.3e}, chunked max_abs_err {cerr[0]:.3e} row_err "
+          f"{cerr[1]:.3e}; bf16, rel err from the plain f32 run (limit "
+          f"{DEPTH_FACTOR} x plain; control: the encoder's output zeroed): "
+          + "; ".join(_depth_line(k, v) for k, v in deep.items())
+          + f"; chunked vs dense: kernels {_rel_err(kern, dkern):.3e}, "
+          f"plain {_rel_err(plain, dplain):.3e}")
+
+
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
 _ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
               "a": "int8", "f": "f32"}
@@ -3929,6 +4394,11 @@ def main(argv=None) -> int:
     free_params()
     engine_runs.update(serve_zamba2(dev))
     free_params()
+    # 12. the encoder-decoder family at full width and depth: the encoder
+    #     and the chunk's cross attention on kernel 4, the decode's on
+    #     kernel 5
+    engine_runs.update(serve_seamless(dev))
+    free_params()
 
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run
@@ -3947,16 +4417,20 @@ def main(argv=None) -> int:
     flash_row = next(r for r in dense_rows if r["name"] == FLASH_BF16.name)
     gather_row = next(r for r in gather_entries
                       if r["name"] == GATHER_BF16.name)
-    # and kernels 9 and 10 (bf16): their main path is since phases 10 and
-    # 11 an engine's, phase 6's count kept beside
-    wkv6_row, ssd_row = (next(r for r in dense_rows if r["name"] == k.name)
-                         for k in (WKV6_BF16, SSD_BF16))
-    for row, tag in ((wkv6_row, "10"), (ssd_row, "11a")):
+    # and kernels 9, 10 and 5 (bf16): their main path is since phases
+    # 10, 11 and 12 an engine's (kernel 5: the enc-dec decode's cross
+    # attention), phase 6's count kept beside
+    wkv6_row, ssd_row, decode_row = (
+        next(r for r in dense_rows if r["name"] == k.name)
+        for k in (WKV6_BF16, SSD_BF16, DECODE_BF16))
+    for row, tag in ((wkv6_row, "10"), (ssd_row, "11a"),
+                     (decode_row, "12a")):
         row["entry_point_launches"] = row["launches"]
         row["launches"] = engine_runs[tag][row["name"]]
     for row, kernel in ((rows[0], dec_mod.KERNEL), (rows[1], pre_mod.KERNEL),
                         (flash_row, FLASH_BF16), (gather_row, GATHER_BF16),
-                        (wkv6_row, WKV6_BF16), (ssd_row, SSD_BF16)):
+                        (wkv6_row, WKV6_BF16), (ssd_row, SSD_BF16),
+                        (decode_row, DECODE_BF16)):
         row["engine_launches"] = {tag: runs[kernel.name]
                                   for tag, runs in engine_runs.items()}
     print(json.dumps({"kernels": rows + dense_rows + gather_entries}))

@@ -189,14 +189,18 @@ def f32_flash_smem(head_dim: int) -> int:
 
 
 def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
-                      window: int = 0, chunk: int = 1024):
+                      window: int = 0, chunk: int = 1024,
+                      kv_valid_len=None):
     """Blockwise online-softmax attention with per-row query offsets.
 
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); ``q_offset`` (B,) is the
     absolute position of ``q[b, 0]``, which shifts the causal wedge (and
-    the SWA ``window``) per row.  The KV axis is walked in ``chunk``
-    blocks with f32 operands and f32 accumulation, as the JAX package's
-    grouped ``_chunked_core`` does.  Returns q's dtype.
+    the SWA ``window``) per row; ``kv_valid_len`` (B,), where given,
+    masks each row's KV positions at or past it (the enc-dec chunk's
+    cross attention: each row its own source length).  The KV axis is
+    walked in ``chunk`` blocks with f32 operands and f32 accumulation,
+    as the JAX package's grouped ``_chunked_core`` does.  Returns q's
+    dtype.
     """
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -226,6 +230,9 @@ def chunked_attention(q, k, v, *, q_offset, causal: bool = True,
             mask = mask & (q_pos[..., None] >= kv_pos[None, None, :])
         if window:
             mask = mask & (kv_pos[None, None, :] > q_pos[..., None] - window)
+        if kv_valid_len is not None:
+            mask = mask & (kv_pos[None, None, :]
+                           < kv_valid_len.reshape(-1, 1, 1))
         s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])

@@ -5,10 +5,11 @@ requests.
       --requests 8 --max-new 12 --chunk-tokens 256 --device cuda
 
 ``--arch`` takes every registered architecture
-(:data:`repro_torch.configs.ARCH_IDS`: phi4-mini-3.8b, olmoe-1b-7b,
-mistral-nemo-12b, h2o-danube-1.8b, command-r-plus-104b, qwen2-vl-72b,
-llama4-maverick-400b-a17b, rwkv6-7b, zamba2-1.2b; rwkv6-7b, which has
-no attention KV, is served without a page pool).
+(:data:`repro_torch.configs.ARCH_IDS`: rwkv6-7b, seamless-m4t-medium,
+qwen2-vl-72b, mistral-nemo-12b, command-r-plus-104b, h2o-danube-1.8b,
+phi4-mini-3.8b, olmoe-1b-7b, llama4-maverick-400b-a17b, zamba2-1.2b;
+rwkv6-7b, which has no attention KV, is served without a page pool, and
+seamless-m4t-medium's requests carry random source frame embeddings).
 Every engine flag is auto-generated from the
 :class:`repro_torch.serve.config.EngineConfig` dataclass fields (one flag
 per knob, help text included), including ``--device {cuda,cpu}``
@@ -77,8 +78,16 @@ def submit_requests(eng, args, cfg, econf, rng) -> None:
     prompt is ``--shared-prefix`` tokens, then a unique tail — 4 to 31
     tokens, or with ``--workload`` the trace's prompt length (cut so
     that the prompt and its outputs fit ``max_len``), submitted with the
-    trace's output length, tier, SLOs and arrival time."""
+    trace's output length, tier, SLOs and arrival time.  An enc-dec
+    request's source is a standard normal draw of frame embeddings, as
+    many as the whole prompt with ``--workload`` and as the unique tail
+    without, as the reference draws them."""
     shared = rng.integers(0, cfg.vocab_size, args.shared_prefix)
+    encdec = cfg.family == "encdec"
+
+    def source(n):
+        return ({"src_embeds": rng.standard_normal(
+            (n, cfg.d_model)).astype(np.float32)} if encdec else {})
     if args.workload:
         spec = WorkloadSpec(rate=args.workload_rate,
                             max_prompt=max(4, econf.max_len // 2))
@@ -88,13 +97,14 @@ def submit_requests(eng, args, cfg, econf, rng) -> None:
                 [shared, rng.integers(0, cfg.vocab_size, max(1, plen))])
             eng.submit(prompt, max_new_tokens=wr.output_len,
                        tier=wr.tier, ttft_slo=wr.ttft_slo,
-                       tpot_slo=wr.tpot_slo, arrival_t=wr.arrival_t)
+                       tpot_slo=wr.tpot_slo, arrival_t=wr.arrival_t,
+                       **source(len(prompt)))
         return
     for _ in range(args.requests):
         plen = int(rng.integers(4, min(32, econf.max_len // 2)))
         prompt = np.concatenate(
             [shared, rng.integers(0, cfg.vocab_size, plen)])
-        eng.submit(prompt, max_new_tokens=args.max_new)
+        eng.submit(prompt, max_new_tokens=args.max_new, **source(plen))
 
 
 def _sync(device) -> None:
@@ -128,6 +138,12 @@ def _report(eng, econf, out, wall) -> None:
         state = sum(t.numel() * t.element_size() for t in eng.cache.ssm)
         print(f"[serve] recurrent state: {state // econf.max_batch} B a "
               f"slot ({', '.join(str(tuple(t.shape)) for t in eng.cache.ssm)})")
+    cross = getattr(eng.cache, "cross", {})
+    if cross:
+        nbytes = sum(t.numel() * t.element_size() for t in cross.values())
+        print(f"[serve] cross state (encoder K/V and output): "
+              f"{nbytes // econf.max_batch} B a slot "
+              f"({', '.join(str(tuple(t.shape)) for t in cross.values())})")
     print(f"[serve] chunked prefill: {eng.stats['chunks']} chunks of "
           f"<= {eng.chunk_tokens} tok across "
           f"{eng.stats['mixed_steps']} mixed steps; dense prefills "

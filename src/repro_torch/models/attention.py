@@ -27,13 +27,23 @@ The dense layout serves the whole-prompt prefill and the non-paged
 engine: :func:`attention_block` attends a whole (padded) prompt through
 ``ops.flash_attention`` (the dense flash attention kernel on the card,
 causal, the SWA ``window``; its plain version :func:`chunked_attention`
-on the CPU, the reference's dense-prefill arithmetic), and
+on the CPU, the reference's dense-prefill arithmetic; not causal for
+the encoder, or cross attention to the encoder's output), and
 :func:`decode_attention_block` decodes one token against the per-slot
 cache of :func:`init_kv_cache` (an SWA ring of ``min(max_len, window)``
 slots).  That block keeps the plain :func:`one_token_attention`, as the
 reference does: the dense decode kernel (``ops.decode_attention``), like
 the TPU kernel it ports, takes one valid length for the whole batch,
 and a batch of slots at different depths needs one per row.
+
+The encoder-decoder's decode and prompt chunks attend cached cross K/V
+(:func:`cross_block`): one token a slot over every row of its cross
+cache through ``ops.decode_attention`` (:func:`cross_decode_attention`:
+the dense decode kernel on the card, whose one valid length holds for
+the batch, since the reference reads every row), a chunk row over its
+slot's first ``src_len`` rows through ``ops.flash_attention``
+(:func:`cross_chunk_attention`: a launch a live row, since the kernel
+takes one valid length a call).
 
 With ``cfg.mrope_sections`` (qwen2-vl) positions are (3, B, S) t / h / w
 ids; the engine carries text, so every block broadcasts its (B, S)
@@ -48,13 +58,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import resolve_impl
 from repro_torch.kernels.decode_attention import NEG_INF, one_token_attention
 from repro_torch.kernels.flash_attention import chunked_attention
 from repro_torch.kernels.kv_quant import (KVQuantConfig, quant_scatter_multi,
                                           quant_scatter_token)
 from repro_torch.models.layers import dense, mrope, rms_norm, rope
 
-__all__ = ["attention_block", "init_kv_cache", "decode_attention_block",
+__all__ = ["attention_block", "cross_block", "cross_decode_attention",
+           "cross_chunk_attention", "init_kv_cache", "decode_attention_block",
            "init_paged_kv_cache", "paged_decode_attention_block",
            "paged_verify_block", "paged_prefill_block", "one_token_attention",
            "chunked_attention", "NEG_INF"]
@@ -99,23 +111,96 @@ def _window(cfg: ModelConfig) -> int:
 
 
 def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, compute_dtype,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    kv: Optional[torch.Tensor] = None, compute_dtype,
                     impl: str = "auto"
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                    torch.Tensor]]:
-    """Whole-sequence causal self-attention (the dense prefill): x (B, S,
-    d), positions (B, S) or (3, B, S).  Attention is
-    ``ops.flash_attention`` with the SWA window: on a CUDA tensor the
-    dense flash kernel, or an error; on the CPU its plain version.
-    Returns (out (B, S, d), (k, v)), k / v (B, S, Hkv, D) RoPE'd, for the
-    prefill to cache."""
+    """Whole-sequence attention (the dense prefill, the encoder): x (B,
+    S, d), positions (B, S) or (3, B, S).  Self-attention, causal or not
+    (the encoder), projects q, k and v from x and RoPEs q and k; cross
+    attention (``kv`` (B, Skv, d), the encoder's output) projects q from
+    x and k, v from ``kv``, with no RoPE and no causal wedge, as the
+    reference does.  Attention is ``ops.flash_attention`` with the SWA
+    window: on a CUDA tensor the dense flash kernel, or an error; on the
+    CPU its plain version.  Returns (out (B, S, d), (k, v)), k / v (B,
+    Skv, Hkv, D), for the prefill to cache."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, compute_dtype)
-    q, k = _position_encode(cfg, q, k, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=_window(cfg),
-                              impl=impl)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    hd = cfg.head_dim
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, compute_dtype)
+        q, k = _position_encode(cfg, q, k, positions)
+    else:
+        Skv = kv.shape[1]
+        q = dense(p["q"], x, compute_dtype).reshape(B, S, cfg.num_heads, hd)
+        k = dense(p["k"], kv, compute_dtype).reshape(B, Skv,
+                                                     cfg.num_kv_heads, hd)
+        v = dense(p["v"], kv, compute_dtype).reshape(B, Skv,
+                                                     cfg.num_kv_heads, hd)
+    out = ops.flash_attention(q, k, v, causal=causal and kv is None,
+                              window=_window(cfg), impl=impl)
+    out = out.reshape(B, S, cfg.num_heads * hd)
     return dense(p["o"], out, compute_dtype), (k, v)
+
+
+def cross_block(p: Params, cfg: ModelConfig, x: torch.Tensor, attend, *,
+                compute_dtype) -> torch.Tensor:
+    """Cross attention against cached rows (the enc-dec decode and
+    prompt chunk): q projected from the pre-normed ``x`` (B, S, d), no
+    RoPE, ``attend(q)`` (B, S, H, D) against the cross K/V that
+    :func:`~repro_torch.models.model.encode_cross` projected, projected
+    out.  Returns (B, S, d)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = dense(p["q"], x, compute_dtype).reshape(B, S, cfg.num_heads, hd)
+    out = attend(q).reshape(B, S, cfg.num_heads * hd)
+    return dense(p["o"], out.to(compute_dtype), compute_dtype)
+
+
+def cross_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           impl: str = "auto") -> torch.Tensor:
+    """One decode token a slot against every row of its cross K/V: q (B,
+    1, H, D); k / v (B, Ssrc, Hkv, D), the slots' rows of the layer's
+    cross cache.  The reference reads all Ssrc rows unmasked (its
+    one-token decode passes no source length), so one valid length,
+    Ssrc, holds for the whole batch: on a CUDA tensor the dense decode
+    kernel (``ops.decode_attention``, ``valid_len`` = Ssrc), or an
+    error; on the CPU the reference's arithmetic, :func:`chunked_
+    attention` not causal.  Returns q's shape and dtype."""
+    if resolve_impl(impl, q) == "torch":
+        zero = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+        return chunked_attention(q, k, v, q_offset=zero, causal=False)
+    return ops.decode_attention(q[:, 0], k, v, valid_len=k.shape[1],
+                                impl="cuda")[:, None]
+
+
+def cross_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          rows, *, impl: str = "auto") -> torch.Tensor:
+    """A prompt chunk's cross attention, not causal: q (C, T, H, D); k /
+    v (B, Ssrc, Hkv, D), the layer's cross cache; ``rows`` one host
+    ``(slot, src_len, length)`` a chunk row: row c attends the first
+    ``src_len`` rows of its slot's cross K/V.  On the CPU the
+    reference's arithmetic: the rows gathered by slot and
+    :func:`chunked_attention` with each row's ``kv_valid_len``.  On a
+    CUDA tensor the dense flash kernel (``ops.flash_attention``), which
+    takes one valid length a call: one launch per live row (``length``
+    > 0) on its slot's ``[:src_len]`` rows, which are contiguous; an
+    inert row's output is zeros, where the plain version gives an
+    average that nothing reads.  Returns q's shape and dtype."""
+    if resolve_impl(impl, q) == "torch":
+        slots, src_len, _ = (torch.tensor(col, device=q.device)
+                             for col in zip(*rows))
+        zero = torch.zeros_like(src_len)
+        return chunked_attention(q, k[slots], v[slots], q_offset=zero,
+                                 causal=False, kv_valid_len=src_len)
+    out = torch.zeros_like(q)
+    for c, (slot, n, live) in enumerate(rows):
+        if live:
+            out[c:c + 1] = ops.flash_attention(
+                q[c:c + 1], k[slot:slot + 1, :n], v[slot:slot + 1, :n],
+                causal=False, impl="cuda")
+    return out
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM and hybrid decoders: the serving subset of
-``repro.models.model``.
+"""Dense, MoE, SSM, hybrid and encoder-decoder models: the serving
+subset of ``repro.models.model``.
 
 Two layouts of the attention KV: the paged pool (:class:`PagedCache`:
 one-token decode, speculative verify and chunked prefill compute on it
@@ -30,12 +30,21 @@ recurrence kernels (``ops.wkv6``, ``ops.ssd``) with the state carried in
 and out; a prompt served in chunks carries it from chunk to chunk
 (:func:`prefill_chunk`'s carry), and the one-token step continues it.
 
+The encoder-decoder family (seamless) runs a bidirectional encoder over
+the stub frontend's frame embeddings (``src_embeds``) and a decoder
+whose layers add cross attention to the encoder's output: the dense
+prefill computes it whole, the chunk queue's admission once
+(:func:`encode_cross`), and its K/V and output ride in the caches'
+``cross`` tree (:func:`init_cross`), which every chunk (each row its
+slot's first ``src_len`` rows) and decode token (every row) reads.
+
 Parameters are a nested dict of tensors with the JAX package's path
 names, the layer stack stacked on axis 0 (``params["layers"]["attn"]
 ["q"]["w"]`` is (L, d, H * D); grouped: ``params["groups"]["dense"]``
 (G, moe_every - 1, ...) and ``["moe"]`` (G, ...)), so
 :func:`repro_torch.bridge.params_from_numpy` moves JAX weights over by
-name.  The layer loop is a
+name (the encoder-decoder's ``params["encoder"]`` /
+``params["decoder"]``).  The layer loop is a
 Python loop that hands each layer its ``(N, page, Hkv, D)`` view of the
 stacked pool; the attention blocks update those views in place.
 """
@@ -47,13 +56,15 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (attention_block,
+from repro_torch.models.attention import (attention_block, cross_block,
+                                          cross_chunk_attention,
+                                          cross_decode_attention,
                                           decode_attention_block,
                                           init_kv_cache, init_paged_kv_cache,
                                           paged_decode_attention_block,
                                           paged_prefill_block,
                                           paged_verify_block, text_positions)
-from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
+from repro_torch.models.layers import dense, embed, rms_norm, swiglu, unembed
 from repro_torch.models.moe import moe_block, moe_init
 from repro_torch.models.ssm import (mamba2_seq, mamba2_state_init,
                                     mamba2_step, rwkv6_block,
@@ -62,9 +73,10 @@ from repro_torch.models.ssm import (mamba2_seq, mamba2_state_init,
 Params = Dict[str, Any]
 
 __all__ = ["init_params", "cast_params", "Cache", "PagedCache", "init_cache",
-           "init_paged_cache", "init_ssm_state", "prefill", "decode_step",
-           "verify_step", "prefill_chunk", "torch_dtype", "family_ported",
-           "layer_params", "hybrid_layout", "kv_layers"]
+           "init_paged_cache", "init_ssm_state", "init_cross", "prefill",
+           "decode_step", "verify_step", "prefill_chunk", "encode_cross",
+           "torch_dtype", "family_ported", "layer_params", "hybrid_layout",
+           "kv_layers"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -75,9 +87,10 @@ def family_ported(cfg: ModelConfig) -> bool:
     """A dense decoder, or an MoE one: an expert block on every layer
     (olmoe) or on every ``moe_every``-th, with or without a shared expert
     (llama4's grouped stack, whose groups must tile the layers); or the
-    SSM (RWKV6) or the hybrid (Mamba2 + shared attention) family.  The
-    encoder-decoder family is not ported yet."""
-    if cfg.family in ("ssm", "hybrid"):
+    SSM (RWKV6), the hybrid (Mamba2 + shared attention) or the
+    encoder-decoder family.  Not yet: a dense config with experts, which
+    the reference serves as MoE."""
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         return True
     if cfg.family == "dense":
         return not cfg.num_experts
@@ -91,7 +104,8 @@ def _check_family(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} (experts={cfg.num_experts}, moe_every="
             f"{cfg.moe_every}, layers={cfg.num_layers}) is not ported yet; "
             "the port serves dense decoders, MoE ones whose expert layers "
-            "tile the stack, and the SSM and hybrid families")
+            "tile the stack, and the SSM, hybrid and encoder-decoder "
+            "families")
 
 
 def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -138,7 +152,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     The layer stack is ``params["layers"]`` (L, ...), or, for the grouped
     MoE stack, ``params["groups"]`` with ``"dense"`` (G, moe_every - 1,
     ...) and ``"moe"`` (G, ...), G = L // moe_every, as in the
-    reference."""
+    reference; the encoder-decoder's is ``params["encoder"]`` (E dense
+    layers) and ``params["decoder"]`` (L layers of ``self_*``,
+    ``cross_*`` and ``mlp*``) with ``params["enc_norm"]``."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     L, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
@@ -176,7 +192,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def full(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "encdec":
+        E = cfg.encoder_layers
+        params = {"embed": {"table": normal((V, d), 0.02)},
+                  "final_norm": ones(d)}
+        params["encoder"] = stack((E,), attn((E,)), mlp((E,), False))
+        params["decoder"] = {
+            "self_norm": ones(L, d), "self_attn": attn((L,)),
+            "cross_norm": ones(L, d), "cross_attn": attn((L,)),
+            "mlp_norm": ones(L, d), "mlp": mlp((L,), False)}
+        params["enc_norm"] = ones(d)
+    elif cfg.family in ("ssm", "hybrid"):
         params = {"embed": {"table": normal((V, d), 0.02)},
                   "final_norm": ones(d)}
         if cfg.family == "ssm":
@@ -310,7 +336,8 @@ class Cache(NamedTuple):
     :class:`~repro_torch.models.ssm.RWKVState` or
     :class:`~repro_torch.models.ssm.MambaState` with leaves (L, B, ...),
     ``()`` for the dense and MoE families), ``cross`` the
-    cross-attention state (``{}``), ``pos`` (B,) each row's next absolute
+    encoder-decoder's cross-attention state (:func:`init_cross`; ``{}``
+    for the other families), ``pos`` (B,) each row's next absolute
     position.  :func:`prefill` returns one, the non-paged engine decodes
     on one of ``max_batch`` rows, and the engine's
     :meth:`~repro_torch.serve.engine.Engine.fetch_finished` returns one
@@ -341,17 +368,34 @@ def _stack_states(states):
     return type(states[0])(*(torch.stack(t) for t in zip(*states)))
 
 
+def init_cross(cfg: ModelConfig, batch: int, src_len: int, *,
+               device) -> Dict[str, torch.Tensor]:
+    """The encoder-decoder's zero cross-attention state of ``batch``
+    rows, in the compute dtype, as the reference lays it out: ``k`` /
+    ``v`` (L, batch, src_len, Hkv, D), the decoder layers' cross K/V, and
+    ``enc_out`` (batch, src_len, d); ``{}`` for the other families."""
+    if cfg.family != "encdec":
+        return {}
+    dt = torch_dtype(cfg.compute_dtype)
+    shape = (cfg.num_layers, batch, src_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "enc_out": torch.zeros((batch, src_len, cfg.d_model), dtype=dt,
+                                   device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device) -> Cache:
     """A zero dense :class:`Cache` of ``batch`` rows (an SWA ring of
-    ``min(max_len, window)`` slots; :func:`kv_layers` layers of KV),
-    positions 0."""
+    ``min(max_len, window)`` slots; :func:`kv_layers` layers of KV; the
+    enc-dec cross state of ``max_len`` rows, the engine's), positions
+    0."""
     _check_family(cfg)
     n_kv = kv_layers(cfg)
     kv = (init_kv_cache(cfg, batch, max_len, device=device, n_layers=n_kv)
           if n_kv else {})
     return Cache(kv=kv, ssm=init_ssm_state(cfg, batch, device=device),
-                 cross={},
+                 cross=init_cross(cfg, batch, max_len, device=device),
                  pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
@@ -361,23 +405,26 @@ class PagedCache(NamedTuple):
     per-slot ``page_table`` (B, pages_per_seq) int32 and, for an int8 /
     fp8 pool only, ``k_scales``/``v_scales`` (L, n_frames, Hkv) f32;
     ``pos`` (B,) int32 is each slot's next absolute position; ``ssm`` the
-    hybrid family's recurrent state in the dense per-slot layout (tiny
-    beside the KV, never paged), ``()`` for the others."""
+    hybrid family's recurrent state and ``cross`` the encoder-decoder's
+    cross-attention state (:func:`init_cross`), both in the dense
+    per-slot layout and never paged, ``()`` and ``{}`` for the others."""
 
     kv: Dict[str, torch.Tensor]
     pos: torch.Tensor
     ssm: Any = ()
+    cross: Dict[str, torch.Tensor] = {}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      n_frames: int, page_size: int, *, device,
-                     quant=None) -> PagedCache:
+                     quant=None, src_len: Optional[int] = None) -> PagedCache:
     """Frame ``n_frames - 1`` is the trash frame: unmapped page-table
     entries (and every entry of an empty decode slot) point there.
     ``quant`` (a :class:`~repro_torch.kernels.kv_quant.KVQuantConfig` or
     mode name) makes the pool int8 / fp8 with scales beside it;
-    ``None``/"none" keeps the bf16 pool with no scale keys.  ValueError
-    for the SSM family, which has no KV."""
+    ``None``/"none" keeps the bf16 pool with no scale keys.  The enc-dec
+    cross state has ``src_len`` rows a slot (default ``max_len``).
+    ValueError for the SSM family, which has no KV."""
     _check_family(cfg)
     if not kv_layers(cfg):
         raise ValueError(f"family {cfg.family!r} has no KV to page")
@@ -386,7 +433,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                              quant=quant)
     return PagedCache(kv=kv, pos=torch.zeros((batch,), dtype=torch.int32,
                                              device=device),
-                      ssm=init_ssm_state(cfg, batch, device=device))
+                      ssm=init_ssm_state(cfg, batch, device=device),
+                      cross=init_cross(cfg, batch, src_len or max_len,
+                                       device=device))
 
 
 def _layer_attn(cache, attn: Callable) -> Callable:
@@ -443,6 +492,68 @@ def _hybrid_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+def _encdec_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  attn: Callable, cross: Callable, cdt) -> torch.Tensor:
+    """The decoder's layer walk of the encoder-decoder family, shared by
+    the prefill, the one-token step and the chunk (the reference's
+    ``_prefill_encdec`` / ``_decode_encdec``): layer l's causal
+    self-attention through ``attn(p, h, l)`` on KV layer l, its cross
+    attention through ``cross(p, h, l)`` (``p`` the layer's
+    ``cross_attn``, ``h`` the pre-normed hidden; projected out), then
+    the SwiGLU MLP."""
+    eps = cfg.norm_eps
+    for l in range(cfg.num_layers):
+        lp = _layer(params["decoder"], l)
+        x = x + attn(lp["self_attn"], rms_norm(lp["self_norm"], x, eps), l)
+        x = x + cross(lp["cross_attn"], rms_norm(lp["cross_norm"], x, eps),
+                      l)
+        x = x + swiglu(lp["mlp"], rms_norm(lp["mlp_norm"], x, eps), cdt)
+    return x
+
+
+def _encode(params: Params, cfg: ModelConfig, src_embeds: torch.Tensor, *,
+            impl: str = "auto") -> torch.Tensor:
+    """The bidirectional encoder over the stub frontend's embeddings (B,
+    S, d): dense layers whose self-attention is not causal, RoPE'd at
+    positions 0..S-1 (the dense flash kernel on the card), then
+    ``enc_norm``.  Returns (B, S, d) in the compute dtype."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = src_embeds.to(cdt)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    for l in range(cfg.encoder_layers):
+        lp = _layer(params["encoder"], l)
+        x = x + attention_block(lp["attn"], cfg,
+                                rms_norm(lp["attn_norm"], x, cfg.norm_eps),
+                                positions, causal=False, compute_dtype=cdt,
+                                impl=impl)[0]
+        x = x + swiglu(lp["mlp"], rms_norm(lp["mlp_norm"], x, cfg.norm_eps),
+                       cdt)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def encode_cross(params: Params, cfg: ModelConfig, src_embeds: torch.Tensor,
+                 *, impl: str = "auto") -> Dict[str, torch.Tensor]:
+    """Run the encoder once and project every decoder layer's cross K/V:
+    the chunk queue's admission of an enc-dec request (the rows go into
+    the slot's ``cache.cross`` and every later chunk and decode token
+    reads them there).  The projections are the ones the dense prefill's
+    cross attention computes.  Returns ``{"k", "v"}`` (L, B, S, Hkv, D)
+    and ``"enc_out"`` (B, S, d), the :func:`init_cross` layout."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    enc_out = _encode(params, cfg, src_embeds, impl=impl)
+    B, S, _ = enc_out.shape
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = torch.empty(shape, dtype=cdt, device=enc_out.device)
+    v = torch.empty_like(k)
+    for l in range(cfg.num_layers):
+        p = _layer(params["decoder"], l)["cross_attn"]
+        k[l] = dense(p["k"], enc_out, cdt).reshape(shape[1:])
+        v[l] = dense(p["v"], enc_out, cdt).reshape(shape[1:])
+    return {"k": k, "v": v, "enc_out": enc_out}
+
+
 def _state_of(st, l: int):
     """Layer ``l``'s view of a state stacked over layers."""
     return type(st)(*(a[l] for a in st))
@@ -483,8 +594,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     into ``cache.ssm`` in place, and returns (logits (B, V) f32, cache
     with ``pos + 1``).  The dense cache's attention is the plain
     one-token attention, as in the reference; ``impl`` then reaches only
-    an MoE layer's gathers.  The SSM family decodes on a dense cache
-    only (it has no KV to page)."""
+    an MoE layer's gathers and the enc-dec cross attention, which reads
+    every row of each slot's ``cache.cross`` (the dense decode kernel on
+    the card).  The SSM family decodes on a dense cache only (it has no
+    KV to page)."""
     cdt = torch_dtype(cfg.compute_dtype)
     pos = cache.pos
     x = embed(params["embed"], tokens, cdt)
@@ -515,6 +628,14 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens: torch.Tensor,
             _write_state(st, l, new)
             return x
         x = _hybrid_stack(params, cfg, x, mamba, _layer_attn(cache, attn),
+                          cdt)
+    elif cfg.family == "encdec":
+        ck, cv = cache.cross["k"], cache.cross["v"]
+
+        def cross(p, h, l):
+            return cross_block(p, cfg, h, lambda q: cross_decode_attention(
+                q, ck[l], cv[l], impl=impl), compute_dtype=cdt)
+        x = _encdec_stack(params, cfg, x, _layer_attn(cache, attn), cross,
                           cdt)
     else:
         x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
@@ -568,7 +689,10 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
     the hybrid family also ``ssm``, the rows' recurrent state so far (a
     :class:`~repro_torch.models.ssm.MambaState` with leaves (L, C, ...)),
     and every row holds T real tokens (pad tokens would enter the
-    state).  Returns (logits (C, V) f32 at each row's last valid token,
+    state); for the encoder-decoder also ``slots`` and ``src_len`` (C,):
+    row c's cross attention reads the first ``src_len[c]`` rows of slot
+    ``slots[c]``'s ``cache.cross``, which admission filled.  Returns
+    (logits (C, V) f32 at each row's last valid token,
     cache, carry): the pool frames are updated in place, and the carry is
     the rows' state after the chunk for their next chunk (hybrid; else
     None).  ValueError for the SSM family, which has no KV to page.
@@ -601,6 +725,16 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: PagedCache,
         x = _hybrid_stack(params, cfg, x, mamba, _layer_attn(cache, attn),
                           cdt)
         carry = _stack_states(states)
+    elif cfg.family == "encdec":
+        rows = torch.stack((chunk["slots"], chunk["src_len"],
+                            length)).T.tolist()
+        ck, cv = cache.cross["k"], cache.cross["v"]
+
+        def cross(p, h, l):
+            return cross_block(p, cfg, h, lambda q: cross_chunk_attention(
+                q, ck[l], cv[l], rows, impl=impl), compute_dtype=cdt)
+        x = _encdec_stack(params, cfg, x, _layer_attn(cache, attn), cross,
+                          cdt)
     else:
         x = _decode_families(params, cfg, x, cache, attn, cdt, impl)
     idx = torch.clamp(length - 1, 0, T - 1).long()
@@ -624,6 +758,7 @@ def _cache_fit(k: torch.Tensor, v: torch.Tensor, slots: int):
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
             last_pos: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None,
             impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
     """Whole-prompt prefill: tokens (B, S) int, the prompt padded to its
     bucket (the SSM and hybrid families take it at its exact length: pad
@@ -635,7 +770,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     window)`` slots is shorter, its last ``slots``, rolled
     (:func:`_cache_fit`).  The recurrent layers run their full-sequence
     forms from a zero state (the recurrence kernels on the card) and
-    leave their final state in ``cache.ssm``.  ``last_pos`` (B,) picks
+    leave their final state in ``cache.ssm``.  The encoder-decoder runs
+    its encoder over ``src_embeds`` (B, Ssrc, d) first (not causal, on
+    the dense flash kernel), and each decoder layer's cross attention
+    attends all Ssrc rows (that kernel again); its K/V and the cross
+    state (:func:`init_cross`, Ssrc rows) stay in the compute dtype, as
+    in the reference.  ``last_pos`` (B,) picks
     the position whose logits are returned (default S - 1): the engine
     passes the prompt's last real token, so the padded tail never
     reaches a sampled token.  Returns (logits (B, V) f32, cache with
@@ -644,6 +784,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cdt = torch_dtype(cfg.compute_dtype)
     B, S = tokens.shape
     dev = tokens.device
+    encdec = cfg.family == "encdec"
+    if encdec and src_embeds is None:
+        raise ValueError("the encoder-decoder's prefill needs src_embeds")
     kv, n_kv = {}, kv_layers(cfg)
     x = embed(params["embed"], tokens, cdt)
     if n_kv:
@@ -652,7 +795,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         kc = kv["k"]
         slots = kc.shape[2]
         k_all = torch.empty((n_kv, B, min(S, slots)) + tuple(kc.shape[3:]),
-                            dtype=kc.dtype, device=dev)
+                            dtype=cdt if encdec else kc.dtype, device=dev)
         v_all = torch.empty_like(k_all)
         positions = text_positions(cfg, torch.arange(
             S, dtype=torch.int32, device=dev).expand(B, S))
@@ -663,8 +806,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             k_all[l], v_all[l] = _cache_fit(k, v, slots)
             return a
         kv = dict(kv, k=k_all, v=v_all)
-    ssm, states = (), []
-    if cfg.family == "ssm":
+    ssm, states, cross = (), [], {}
+    if encdec:
+        enc_out = _encode(params, cfg, src_embeds, impl=impl)
+        cross = init_cross(cfg, B, enc_out.shape[1], device=dev)
+        cross["enc_out"] = enc_out
+
+        def cross_attn(p, h, l):
+            a, (cross["k"][l], cross["v"][l]) = attention_block(
+                p, cfg, h, positions, kv=enc_out, compute_dtype=cdt,
+                impl=impl)
+            return a
+        x = _encdec_stack(params, cfg, x, attn, cross_attn, cdt)
+    elif cfg.family == "ssm":
         for l in range(cfg.num_layers):
             x, st = rwkv6_block(_layer(params["layers"], l), cfg, x,
                                 return_state=True, compute_dtype=cdt,
@@ -691,5 +845,5 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x_last = x[torch.arange(B, device=dev), idx][:, None]
     logits = _logits(params, cfg, x_last, cdt)[:, 0]
     return logits, Cache(
-        kv=kv, ssm=ssm, cross={},
+        kv=kv, ssm=ssm, cross=cross,
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))

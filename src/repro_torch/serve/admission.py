@@ -13,9 +13,11 @@ tier.  A handoff admission is deliberately *not* a new code path: it
 rebuilds the request parked (pages registered PARKED against the shared
 tier's entries, residue fetched fault-safe) and lets the ordinary resume
 machinery in :class:`~repro_torch.serve.transfer.TransferMixin` slot it
-in.  It is the JAX package's ``serve/admission.py`` for the dense, MoE,
-SSM and hybrid families (the last two prefill at the prompt's exact
-length and install the prefill's recurrent state beside its KV).  The
+in.  It is the JAX package's ``serve/admission.py`` for every family
+(the SSM and hybrid families prefill at the prompt's exact length and
+install the prefill's recurrent state beside its KV; the
+encoder-decoder runs its encoder over the request's source, cut or
+zero-padded to the prompt's bucket, and installs the cross state).  The
 mixin assumes the host class provides the engine
 state surface — ``serve/engine.py`` assembles it.
 """
@@ -27,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.model import Cache, prefill
+from repro_torch.models.model import Cache, encode_cross, prefill
 from repro_torch.paging import EventKind, PageState, PagingError, pages_for
 from repro_torch.serve.config import EngineRole, Tier
 from repro_torch.serve.disagg import HandoffRecord
@@ -61,14 +63,17 @@ class AdmissionMixin:
     def _prefill_one(self, req: Request):
         """Prefill the request's whole prompt, padded to its bucket, in
         one dense prefill (one launch of the dense flash attention kernel
-        a layer on the card).  Returns (logits (1, V) at the prompt's
-        last real token, the single-sequence dense cache with ``pos`` =
-        the prompt length)."""
+        a layer on the card; the encoder-decoder's encoder and cross
+        attention too, over its source padded to the same bucket).
+        Returns (logits (1, V) at the prompt's last real token, the
+        single-sequence dense cache with ``pos`` = the prompt length)."""
         plen = len(req.prompt)
         bucket = self._bucket(plen)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :plen] = req.prompt
         dev = self.device
+        src = self._source(req, bucket) if self.cfg.family == "encdec" \
+            else None
         with torch.no_grad():
             # logits from the prompt's true last token (plen - 1), never
             # the padded tail: the chunk queue, which never sees the pad,
@@ -77,17 +82,49 @@ class AdmissionMixin:
                 self.params, self.cfg, torch.from_numpy(toks).to(dev),
                 max_len=self.max_len,
                 last_pos=torch.full((1,), plen - 1, dtype=torch.int32,
-                                    device=dev))
+                                    device=dev), src_embeds=src)
         self.stats["prefills"] += 1
         return logits, single._replace(
             pos=torch.full((1,), plen, dtype=torch.int32, device=dev))
+
+    def _source(self, req: Request, bucket: int) -> torch.Tensor:
+        """An enc-dec request's source as the encoder takes it: its
+        ``src_embeds`` (zeros when None) cut or zero-padded to ``bucket``
+        rows, (1, bucket, d_model) f32 on the engine's device."""
+        src = np.zeros((1, bucket, self.cfg.d_model), np.float32)
+        if req.src_embeds is not None:
+            se = np.asarray(req.src_embeds, np.float32)[:bucket]
+            src[0, :se.shape[0]] = se
+        return torch.from_numpy(src).to(self.device)
+
+    def _install_cross(self, req: Request) -> None:
+        """Enc-dec chunk-queue admission: run the encoder once over the
+        source (padded to the prompt's bucket) and put its cross K/V and
+        output in rows ``[0, bucket)`` of the slot's ``cache.cross``;
+        every later chunk (``src_len`` = bucket rows) and decode token
+        (all ``max_len`` rows, unmasked, as in the reference: the rows
+        past the bucket keep zeros or an earlier occupant's) reads them
+        there.  The projections are the dense prefill's, so the two
+        admissions agree.  The slot axis is picked by leaf name (k / v
+        (L, B, Ssrc, ...), ``enc_out`` (B, Ssrc, d)): a shape rule
+        misfires when Ssrc equals ``max_batch``."""
+        bucket = self._bucket(len(req.prompt))
+        with torch.no_grad():
+            cross = encode_cross(self.params, self.cfg,
+                                 self._source(req, bucket))
+        for name, dst in self.cache.cross.items():
+            axis = 1 if name in ("k", "v") else 0
+            dst.narrow(axis, req.slot, 1).narrow(axis + 1, 0, bucket).copy_(
+                cross[name])
+        req.src_len = bucket
 
     def _install_sequence(self, req: Request, single: Cache) -> None:
         """Dense-prefill admission on the paged layout: scatter the
         prompt's K/V pages into the frames :meth:`_alloc_pinned` just
         mapped (the bucket tail past them is never attended) and install
-        the rest of the prefill's state in the slot: its position and the
-        hybrid family's recurrent state."""
+        the rest of the prefill's state in the slot: its position, the
+        hybrid family's recurrent state and the enc-dec cross state (the
+        bucket's rows, from row 0)."""
         slot = req.slot
         kv = self.cache.kv
         n_pg = pages_for(min(len(req.prompt), self.slot_tokens),
@@ -236,6 +273,8 @@ class AdmissionMixin:
                                  np.int32)
         if self.cfg.family == "hybrid":
             req.chunk_ssm = self._zero_chunk_ssm     # read, never written
+        if self.cfg.family == "encdec":
+            self._install_cross(req)
         # prefix hits already mapped: pin them for the slot and point the
         # chunk row at the shared frames
         for logical in range(self.page_table.n_pages(req.rid)):
@@ -285,7 +324,7 @@ class AdmissionMixin:
             # both engines' clocks share an origin, so the prefill-side
             # arrival/first-token instants stay meaningful here
             arrival_t=rec.arrival_t if arrival_t is None else arrival_t,
-            submitted_t=rec.submitted_t)
+            submitted_t=rec.submitted_t, src_len=rec.src_len)
         req.generated = list(rec.generated)
         req.token_ts = list(rec.token_ts)
         req.first_token_t = rec.first_token_t

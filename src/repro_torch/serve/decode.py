@@ -106,22 +106,31 @@ class DecodeMixin:
         rows of T = ``chunk_tokens``, unused rows inert with length 0 /
         trash page rows), as int32 tensors on the engine's device.  The
         hybrid family's T is the picks' one exact length, and its rows'
-        carries (zero for the unused rows) go in as ``ssm``."""
+        carries (zero for the unused rows) go in as ``ssm``; the
+        encoder-decoder's rows name their slots and source lengths
+        (``slots``, ``src_len``), whose cross rows they attend."""
         C = self.chunk_slots
         hybrid = self.cfg.family == "hybrid"
         T = picks[0][2] - picks[0][1] if hybrid else self.chunk_tokens
         tokens = np.zeros((C, T), np.int32)
         offset = np.zeros((C,), np.int32)
         length = np.zeros((C,), np.int32)
+        slots = np.zeros((C,), np.int32)
+        src_len = np.zeros((C,), np.int32)
         rows = np.full((C, self.pages_per_seq), self.trash_frame, np.int32)
         for i, (req, start, end) in enumerate(picks):
             tokens[i, :end - start] = req.prompt[start:end]
             offset[i] = start
             length[i] = end - start
+            slots[i] = req.slot
+            src_len[i] = req.src_len
             rows[i] = req.chunk_rows
+        named = [("tokens", tokens), ("offset", offset), ("length", length),
+                 ("page_rows", rows)]
+        if self.cfg.family == "encdec":
+            named += [("slots", slots), ("src_len", src_len)]
         chunk = {name: torch.from_numpy(a).to(self.device)
-                 for name, a in (("tokens", tokens), ("offset", offset),
-                                 ("length", length), ("page_rows", rows))}
+                 for name, a in named}
         if hybrid:
             trees = [r.chunk_ssm for r, _, _ in picks]
             trees += [self._zero_chunk_ssm] * (C - len(picks))

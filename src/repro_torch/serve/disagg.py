@@ -87,6 +87,7 @@ class HandoffRecord:
     submitted_t: float = 0.0
     first_token_t: float = 0.0
     done: bool = False                   # done under fused semantics already
+    src_len: int = 0                     # encdec: rows of its cross state
 
 
 class HandoffBoard:

@@ -58,7 +58,14 @@ pages the KV of its shared attention block, and its recurrent state rides
 beside it: a whole-prompt prefill at the prompt's exact length (pad
 tokens would enter the state), chunks of one exact shape that carry the
 state from chunk to chunk, and the state in every park, offload and
-handoff residue.  The encoder-decoder family (and an MoE stack whose
+handoff residue.  The encoder-decoder family (seamless) runs its encoder
+at admission over the request's ``src_embeds`` (the stub frontend's
+frame embeddings, cut or zero-padded to the prompt's bucket) and keeps
+each slot's cross K/V in ``cache.cross`` beside the pool: the dense
+prefill computes it with the prompt, the chunk queue with
+:func:`~repro_torch.models.model.encode_cross` before the first chunk
+(again at a mid-prefill resume), and a park, offload or handoff carries
+it in the residue.  A dense config with experts (and an MoE stack whose
 groups do not tile the layers) raises ``NotImplementedError``.
 
 With ``paging.kv_quant`` int8 or fp8 the pool's frames are quantized with
@@ -398,14 +405,17 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
     # -- public API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
                eos_id: Optional[int] = None,
+               src_embeds: Optional[np.ndarray] = None,
                tier: Tier = Tier.INTERACTIVE,
                ttft_slo: Optional[float] = None,
                tpot_slo: Optional[float] = None,
                arrival_t: Optional[float] = None) -> int:
-        """Queue one request.  ``tier`` picks the priority class,
-        ``ttft_slo``/``tpot_slo`` override the :class:`SchedulerConfig`
-        defaults, and ``arrival_t`` places the request on the clock's
-        time axis (the engine admits nothing before its arrival)."""
+        """Queue one request.  ``src_embeds`` (S, d_model) is an enc-dec
+        request's source, its frame embeddings (zeros when None), ``tier``
+        picks the priority class, ``ttft_slo``/``tpot_slo`` override the
+        :class:`SchedulerConfig` defaults, and ``arrival_t`` places the
+        request on the clock's time axis (the engine admits nothing
+        before its arrival)."""
         prompt = np.asarray(prompt, np.int32)
         if not 0 < len(prompt) <= self.max_len:
             raise NotImplementedError(
@@ -438,7 +448,8 @@ class Engine(AdmissionMixin, TransferMixin, DecodeMixin):
         now = self.clock()
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      submitted_t=now, tier=Tier(tier),
+                      src_embeds=src_embeds, submitted_t=now,
+                      tier=Tier(tier),
                       ttft_slo=(ttft_slo if ttft_slo is not None
                                 else self.sched_cfg.ttft_slo),
                       tpot_slo=(tpot_slo if tpot_slo is not None

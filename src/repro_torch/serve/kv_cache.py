@@ -98,6 +98,20 @@ def _slot_axis(leaf: torch.Tensor, n_slots: int) -> Optional[int]:
     return None
 
 
+def _fill_slot(dst: torch.Tensor, src: torch.Tensor, axis: int,
+               slot: int) -> None:
+    """Copy ``src`` (batch dim 1 on ``axis``) into ``slot`` of ``dst``, in
+    place.  Along any other axis where ``src`` is shorter (a prefill
+    bucket below ``max_len``) the slot fills from position 0, as the
+    reference's ``dynamic_update_slice`` does; the rest of the slot keeps
+    what it held."""
+    view = dst.narrow(axis, slot, 1)
+    for ax, n in enumerate(src.shape):
+        if ax != axis and n != view.shape[ax]:
+            view = view.narrow(ax, 0, n)
+    view.copy_(src)
+
+
 def extract_slot(cache: Cache, slot: int, n_slots: int) -> Cache:
     """Copy one sequence's state out of the batched dense cache, batch
     dim kept at 1 (shared leaves, such as the ``pos``/``slots`` scalars
@@ -114,16 +128,13 @@ def insert_slot(cache: Cache, single: Cache, slot: int, n_slots: int
     batched dense cache, in place, and return the cache.  A leaf shorter
     than the slot's (a prefill bucket below ``max_len``) fills the slot
     from position 0, as the reference's ``dynamic_update_slice`` does;
-    the rest of the slot keeps what it held, never attended."""
+    the rest of the slot keeps what it held: KV never attended, and the
+    enc-dec cross rows past the bucket, which the one-token decode reads
+    unmasked, as in the reference."""
     def ins(dst, src):
         axis = _slot_axis(dst, n_slots)
-        if axis is None:
-            return
-        view = dst.narrow(axis, slot, 1)
-        for ax, n in enumerate(src.shape):
-            if ax != axis and n != view.shape[ax]:
-                view = view.narrow(ax, 0, n)
-        view.copy_(src)
+        if axis is not None:
+            _fill_slot(dst, src, axis, slot)
     tree_map(ins, cache, single)
     return cache
 
@@ -135,7 +146,10 @@ def extract_aux_slot(cache, slot: int, n_slots: int) -> Dict[str, Any]:
     frames, so a park, a finished-sequence offload and a handoff all
     carry only this remainder.  For the dense and MoE families the
     residue is ``{"ssm": (), "cross": {}, "pos": (1,) int32}``; for the
-    hybrid family ``ssm`` is the slot's MambaState, leaves (L, 1, ...)."""
+    hybrid family ``ssm`` is the slot's MambaState, leaves (L, 1, ...);
+    for the encoder-decoder ``cross`` is the slot's whole cross state,
+    every one of its ``max_len`` rows (k / v (L, 1, max_len, Hkv, D),
+    ``enc_out`` (1, max_len, d)), the reference's policy."""
     def ex(leaf):
         axis = _slot_axis(leaf, n_slots)
         if axis is not None:
@@ -148,12 +162,15 @@ def extract_aux_slot(cache, slot: int, n_slots: int) -> Dict[str, Any]:
 
 def insert_aux_slot(cache, aux: Dict[str, Any], slot: int, n_slots: int):
     """Write an :func:`extract_aux_slot` payload back into ``slot`` of
-    ``cache``, in place, and return the cache.  The payload is only
-    read: a residue that lives in the far tier may be shared."""
+    ``cache``, in place, and return the cache; a leaf shorter than the
+    slot's (a dense prefill's cross state of its bucket's rows) fills
+    the slot from row 0, the rest kept, as :func:`insert_slot` does.
+    The payload is only read: a residue that lives in the far tier may
+    be shared."""
     def ins(dst, src):
         axis = _slot_axis(dst, n_slots)
         if axis is not None:
-            dst.narrow(axis, slot, 1).copy_(src)
+            _fill_slot(dst, src, axis, slot)
     for name in ("ssm", "cross"):
         if hasattr(cache, name):
             tree_map(ins, getattr(cache, name), aux[name])

@@ -39,6 +39,7 @@ class Request:
     prompt: np.ndarray                  # (plen,) int32
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    src_embeds: Optional[np.ndarray] = None   # encdec frontend stub
     # SLO contract (production traffic model; see repro.serve.workload):
     tier: Tier = Tier.INTERACTIVE
     ttft_slo: Optional[float] = None    # time-to-first-token budget
@@ -61,6 +62,7 @@ class Request:
     target_len: int = 0                 # tokens the chunk path must cover
     chunk_rows: Any = None              # host page-table row while prefilling
     chunk_ssm: Any = None               # hybrid: SSM carry between chunks
+    src_len: int = 0                    # encdec: rows of its cross state
 
     @property
     def done(self) -> bool:

@@ -316,7 +316,9 @@ class TransferMixin:
         frames and restore the residue.  A request parked *mid-prefill*
         re-enters the chunk queue instead of the decode batch: its device
         page-table row stays on the trash frame and its completed-chunk
-        frames go back into ``chunk_rows``.  A request admitted straight
+        frames go back into ``chunk_rows`` (an enc-dec request runs its
+        encoder again into the new slot's cross rows: they left with the
+        old slot, as in the reference).  A request admitted straight
         onto far-tier prefix pages, or handed off by a PREFILL engine,
         arrives here having never run: that counts as an admission, not
         a resume."""
@@ -343,7 +345,9 @@ class TransferMixin:
             req.admit_seq = next(self._admits)
             if req.mid_prefill:
                 req.chunk_rows = rows
-                self.prefilling[slot] = req
+                if self.cfg.family == "encdec":
+                    self._install_cross(req)   # the cross rows left with
+                self.prefilling[slot] = req    # the slot: encode again
             else:
                 self._ensure_private_tail(req)
                 rows = np.full((self.pages_per_seq,), self.trash_frame,
@@ -499,7 +503,8 @@ class TransferMixin:
             generated=list(req.generated), token_ts=list(req.token_ts),
             tier=req.tier, ttft_slo=req.ttft_slo, tpot_slo=req.tpot_slo,
             arrival_t=req.arrival_t, submitted_t=req.submitted_t,
-            first_token_t=req.first_token_t, done=req.done)
+            first_token_t=req.first_token_t, done=req.done,
+            src_len=req.src_len)
         self.handoff.publish(rec)
         self.stats["handoffs"] += 1
         if self.tracer.enabled:

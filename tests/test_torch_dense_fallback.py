@@ -287,8 +287,11 @@ def test_serve_cli_dense_prefill_and_new_archs(capsys):
     assert len(out) == 3 and all(len(v) == 4 for v in out.values())
     text = capsys.readouterr().out
     assert "dense prefills 3 (buckets (8, 16))" in text
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--arch", "seamless-m4t-medium", "--smoke"])
+    out = serve_cli.main(["--arch", "seamless-m4t-medium", "--smoke",
+                          "--device", "cpu", "--requests", "3",
+                          "--max-new", "4"])
+    assert len(out) == 3 and all(len(v) == 4 for v in out.values())
+    assert "cross state" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

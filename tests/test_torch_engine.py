@@ -121,21 +121,21 @@ def test_random_init_serves_smoke_config():
     assert eng.stats["preemptions"] > 0
 
 
-#: a family the port still refuses for each case: the dense smoke config
-#: with experts, the enc-dec family
+#: the one family the port still refuses, for each case: the dense smoke
+#: config with experts (the enc-dec family is served)
 _DENSE_WITH_EXPERTS = {"num_experts": 4, "experts_per_token": 2}
-_ENCDEC = {"family": "encdec"}
 
 
 @pytest.mark.parametrize("change", [
     ({"role": "prefill",
-      "chunking": tconf.ChunkingConfig(chunk_tokens=None)}, _ENCDEC),
+      "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
+     _DENSE_WITH_EXPERTS),
     ({"role": "decode",
       "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
      _DENSE_WITH_EXPERTS),
     ({"chunking": tconf.ChunkingConfig(chunk_tokens=None)},
      _DENSE_WITH_EXPERTS),
-    ({"paging": tconf.PagingConfig(enabled=False)}, _ENCDEC),
+    ({"paging": tconf.PagingConfig(enabled=False)}, _DENSE_WITH_EXPERTS),
     ({"paging": tconf.PagingConfig(offload_finished=True),
       "chunking": tconf.ChunkingConfig(chunk_tokens=None)},
      _DENSE_WITH_EXPERTS),
@@ -143,8 +143,8 @@ _ENCDEC = {"family": "encdec"}
 def test_unported_options_raise(change):
     """Every engine option the JAX engine accepts is served (the roles,
     offload, unset ``chunk_tokens``, ``paging.enabled=False``); each case
-    pairs one with a model family the port still refuses — dense with
-    experts, enc-dec — which raises ``NotImplementedError`` whatever the
+    pairs one with the model family the port still refuses — dense with
+    experts — which raises ``NotImplementedError`` whatever the
     options."""
     econf_change, cfg_change = change
     cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"), **cfg_change)

@@ -287,11 +287,11 @@ def test_random_init_serves_smoke_config():
 
 
 @pytest.mark.parametrize("change", [dict(num_layers=3),
-                                    dict(family="encdec")])
+                                    dict(family="dense")])
 def test_engine_refuses_unported_layouts(change):
     """Groups must tile the stack (3 layers of moe_every 2 do not, and
-    the reference's reshape would fail), and the enc-dec family is not
-    ported."""
+    the reference's reshape would fail), and a dense config with experts
+    (the reference serves it as MoE) is not ported."""
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
     with pytest.raises(NotImplementedError):
         Engine(cfg, {}, _econf(tconf, device="cpu"))

@@ -418,12 +418,12 @@ def test_speculation_and_quant_pool_serve_moe(setup, engines, kv_quant,
     assert eng.cache.kv["k_pages"].dtype == want
 
 
-#: the families the port still refuses: enc-dec (with each option that
-#: was refused until the grouped MoE stack was ported), and the dense
-#: family with experts
-@pytest.mark.parametrize("change", [dict(moe_every=2, family="encdec"),
+#: the family the port still refuses: dense with experts (with each
+#: option that was refused until the grouped MoE stack was ported, and
+#: alone)
+@pytest.mark.parametrize("change", [dict(moe_every=2, family="dense"),
                                     dict(shared_expert=True,
-                                         family="encdec"),
+                                         family="dense"),
                                     dict(family="dense")])
 def test_engine_refuses_unported_moe(change):
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
