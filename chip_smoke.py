@@ -362,6 +362,21 @@ run's.
    plain dense run within the bars; in bf16 at most twice the plain bf16
    run's distance from plain f32, a control with the encoder's output
    zeroed farther.
+13. trains the dense family through the train CLI's path
+   (``launch.train.run``: the AMU loader on a side stream, the train
+   step, AdamW, checkpoints, recovery), no kernel of ``ops`` launching:
+   (a) h2o-danube-1.8b at full width and depth (1.83 B f32 parameters,
+   bf16 compute), sequence 4096, batch 4 in 2 microbatches, remat
+   ``block``, 12 steps: every loss finite, the mean of the last three
+   ``TRAIN_MARGIN`` nats under the first; ms a step, tok/s, peak memory
+   and the loader's AMU counts printed; (b) the width cut to 2 layers,
+   sequence 1024: 8 steps, then 8 with a checkpoint every 4 and a
+   failure at 6, the recovered losses bitwise the uninterrupted run's
+   under deterministic algorithms, the checkpoint's bytes and seconds
+   printed; (c) one f32 step of (b)'s width at sequence 256 on the card
+   and on the CPU, the hidden states, loss and gradient norm within
+   ``CARD_CPU_*_TOL``; (d) the train_lm example, 200 steps, its loss
+   falling.
 Each engine run prints tok/s, mean TTFT, steps, chunks, dense prefills,
 peak memory and a sha256 of its tokens.
 
@@ -402,7 +417,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from importlib import import_module
 from pathlib import Path
 
@@ -421,6 +438,13 @@ from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.kv_quant import KVQuantConfig, quantize  # noqa: E402
 from repro_torch.launch import far_memory_stream  # noqa: E402
 from repro_torch.launch import quickstart, serve_engine  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch import train_lm  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
+from repro_torch.steps import make_train_step  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -3776,6 +3800,217 @@ def check_seamless(cfg, params, dev) -> None:
           f"plain {_rel_err(plain, dplain):.3e}")
 
 
+# ---------------------------------------------------------------------------
+# 13. training of the dense family
+# ---------------------------------------------------------------------------
+
+#: phase 13 (a): h2o-danube-1.8b at full width and depth through the
+#: train CLI's path, at the reference's train_4k sequence length, a
+#: global batch of 4 in 2 microbatches, each layer recomputed in the
+#: backward; f32 weights, bf16 compute
+TRAIN_ARGS = ("--arch", DANUBE_ARCH, "--steps", "12", "--batch", "4",
+              "--seq", "4096", "--microbatches", "2", "--remat", "block",
+              "--log-every", "1")
+#: (a)'s gate: the mean of the last three losses at least this many nats
+#: under the first
+TRAIN_MARGIN = 0.5
+#: (b), (c): the same width cut to 2 of 24 layers
+TRAIN_CUT_LAYERS = 2
+#: (b): 8 steps at sequence 1024, batch 4; then again with a checkpoint
+#: every 4 steps and a failure injected at step 6
+RESUME_ARGS = ("--steps", "8", "--batch", "4", "--seq", "1024",
+               "--log-every", "100")
+RESUME_CKPT_EVERY, RESUME_FAIL_AT = 4, 6
+#: (c): one step, sequence 256, batch 1, f32 compute, on the card and on
+#: the CPU.  The hidden states of ``forward`` are all-f32 products: other
+#: summation orders give ~1e-6 of their magnitude, TF32 ~1e-3.  The loss
+#: and the gradient norm also carry the LM head's bf16 product, whose
+#: roundings other orders may flip
+CARD_CPU_SEQ = 256
+CARD_CPU_HIDDEN_TOL = 1e-4       # max |err| / max |cpu|
+CARD_CPU_LOSS_TOL = 1e-4         # relative
+CARD_CPU_GNORM_TOL = 1e-3        # relative
+#: (d): the train_lm example's steps
+TRAIN_LM_STEPS = 200
+
+
+def all_kernels():
+    return (*ops.KERNELS, *ops.DENSE_KERNELS, *ops.SSM_KERNELS,
+            *ops.GATHER_KERNELS)
+
+
+def train_run(tag: str, argv) -> dict:
+    """One run of the train CLI's path (``launch.train.run``) on the
+    card; prints its losses, the median step's ms and tok/s (the first
+    step, with the allocator's and cuBLAS's warm-up, apart), the peak
+    memory and the loader's AMU counts.  Returns the run's dict with
+    ``ms``, ``tok_s`` and ``peak_gib`` added."""
+    args = train_cli.parse(list(argv))
+    reset_peak()
+    out = train_cli.run(args)
+    torch.cuda.synchronize()
+    losses = out["losses"]
+    steady = out["step_s"][1:] or out["step_s"]
+    med = statistics.median(steady)
+    out.update(ms=med * 1e3, tok_s=args.batch * args.seq / med,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{tag}] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[{tag}] {len(losses)} steps of {args.batch} x {args.seq} tokens: "
+          f"first step {out['step_s'][0] * 1e3:.1f} ms, then median "
+          f"{out['ms']:.1f} ms/step ({out['tok_s']:.1f} tok/s), peak memory "
+          f"{out['peak_gib']:.2f} GiB; loader AMU {out['loader']}")
+    require(all(np.isfinite(losses)), f"{tag}: a loss is not finite")
+    return out
+
+
+def train_danube() -> dict:
+    """13 (a): full width and depth; every loss finite, the mean of the
+    last three :data:`TRAIN_MARGIN` nats under the first."""
+    cfg = get_config(DANUBE_ARCH)
+    print(f"[train:a] {DANUBE_ARCH}: {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters in f32, bf16 compute, "
+          f"plain chunked attention under autograd")
+    out = train_run("train:a", TRAIN_ARGS)
+    losses = out["losses"]
+    tail = statistics.mean(losses[-3:])
+    print(f"[train:a] first loss {losses[0]:.4f}, mean of the last three "
+          f"{tail:.4f} (gate: {TRAIN_MARGIN} under the first)")
+    require(tail < losses[0] - TRAIN_MARGIN,
+            f"train:a: the loss fell {losses[0] - tail:.4f}, under "
+            f"{TRAIN_MARGIN}")
+    return {k: out[k] for k in ("ms", "tok_s", "peak_gib", "loader")}
+
+
+def cut_config(**fields):
+    """h2o-danube-1.8b's full width cut to :data:`TRAIN_CUT_LAYERS`
+    layers, under a name of its own."""
+    return dataclasses.replace(get_config(DANUBE_ARCH),
+                               name=f"{DANUBE_ARCH}-{TRAIN_CUT_LAYERS}l",
+                               num_layers=TRAIN_CUT_LAYERS, **fields)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (the embedding's gradient adds
+    its rows in a fixed order); ops without such an implementation warn
+    rather than raise, and their warnings are printed once at the end."""
+    was, warn_only = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+    seen = sorted({str(w.message).splitlines()[0][:120] for w in caught})
+    print(f"[train:b] warnings under deterministic algorithms: "
+          f"{seen or 'none'}")
+
+
+def train_resume() -> None:
+    """13 (b): 8 uninterrupted steps, then 8 with a checkpoint every 4
+    and a failure at step 6; the recovered run's losses must be bitwise
+    the uninterrupted run's (steps 0-5, then 4-7 again), under
+    deterministic algorithms.  Prints the step-4 checkpoint's bytes, the
+    recovery's restore seconds and the last (synchronous) save's."""
+    with train_lm.registered(cut_config()) as arch:
+        base = ("--arch", arch, "--smoke") + RESUME_ARGS
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+        try:
+            with deterministic():
+                plain = train_run("train:b", base)["losses"]
+                out = train_run("train:b", base + (
+                    "--ckpt-dir", str(tmp), "--ckpt-every",
+                    str(RESUME_CKPT_EVERY), "--fail-at-step",
+                    str(RESUME_FAIL_AT)))
+            nbytes = sum(f.stat().st_size for f in
+                         (tmp / f"step_{RESUME_CKPT_EVERY:08d}").iterdir())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    want = plain[:RESUME_FAIL_AT] + plain[RESUME_CKPT_EVERY:]
+    diff = max(abs(a - b) for a, b in zip(out["losses"], want))
+    print(f"[train:b] checkpoint of step {RESUME_CKPT_EVERY}: {nbytes:,} B; "
+          f"the recovery's restore to the card {out['restore_s']:.3f} s, "
+          f"the last save (synchronous) {out['save_s']:.3f} s; recovered "
+          f"losses vs the uninterrupted run's: max |diff| {diff:.3e} "
+          f"(bitwise {out['losses'] == want})")
+    require(out["losses"] == want and out["steps"] == 8,
+            "train:b: the recovered run's losses are not the uninterrupted "
+            "run's")
+    require(not tmp.exists(), "train:b: the checkpoint directory is left")
+
+
+def train_card_vs_cpu(dev) -> None:
+    """13 (c): one train step of the cut config in f32 compute on the
+    card and on the CPU from the same weights and batch: the hidden
+    states, the loss and the gradient norm within the bars."""
+    cfg = cut_config(compute_dtype="float32")
+    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = next(SyntheticLM(cfg.vocab_size, CARD_CPU_SEQ, 1, seed=SEED))
+    tcfg = TrainConfig(warmup_steps=1, total_steps=10)
+    got = []
+    for where in (dev, torch.device("cpu")):
+        params = tree_map(lambda p: p.to(where, copy=True), host)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x = model_mod.forward(params, cfg, b, remat="none")[0]
+        step = make_train_step(cfg, tcfg)
+        _, _, m = step(params, adamw_init(params), b)
+        got.append((x.cpu(), float(m["loss"]), float(m["grad_norm"]),
+                    time.perf_counter() - t0))
+        del params, x
+    (xd, ld, gd, td), (xc, lc, gc, tc) = got
+    herr = float((xd - xc).abs().max() / xc.abs().max())
+    lerr, gerr = abs(ld - lc) / abs(lc), abs(gd - gc) / abs(gc)
+    print(f"[train:c] {cfg.name} f32, sequence {CARD_CPU_SEQ}: hidden "
+          f"max|err|/max {herr:.3e} (bar {CARD_CPU_HIDDEN_TOL}), loss "
+          f"{ld:.6f} / {lc:.6f} rel {lerr:.3e} (bar {CARD_CPU_LOSS_TOL}), "
+          f"grad norm {gd:.6f} / {gc:.6f} rel {gerr:.3e} (bar "
+          f"{CARD_CPU_GNORM_TOL}); card {td:.2f} s, CPU {tc:.2f} s")
+    require(herr <= CARD_CPU_HIDDEN_TOL and lerr <= CARD_CPU_LOSS_TOL
+            and gerr <= CARD_CPU_GNORM_TOL,
+            "train:c: the card's step differs from the CPU's")
+
+
+def run_train_lm() -> None:
+    """13 (d): the train_lm example on the card; it raises unless the
+    loss falls."""
+    reset_peak()
+    t0 = time.perf_counter()
+    losses = train_lm.main(["--steps", str(TRAIN_LM_STEPS)])
+    wall = time.perf_counter() - t0
+    print(f"[train:d] train_lm: {len(losses)} steps in {wall:.1f} s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(len(losses) == TRAIN_LM_STEPS and losses[-1] < losses[0],
+            "train:d: the example's loss did not fall")
+
+
+def train_phase(dev) -> dict:
+    """Phase 13: (a)-(d), the launch counts of every kernel of ``ops``
+    set to 0 before and required 0 after: training reaches no kernel,
+    as the reference's reaches no ``pallas_call``.  Returns (a)'s
+    numbers."""
+    t0 = time.perf_counter()
+    for k in all_kernels():
+        k.launches = 0
+    numbers = train_danube()
+    free_params()
+    train_resume()
+    free_params()
+    train_card_vs_cpu(dev)
+    free_params()
+    run_train_lm()
+    free_params()
+    launched = {k.name: k.launches for k in all_kernels() if k.launches}
+    print(f"[train] kernels of ops launched in phase 13: {launched or 0}; "
+          f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    require(not launched, "training launched a kernel of ops")
+    return numbers
+
+
 _ELEM = re.compile(r"kernelI(13__nv_bfloat16|13__nv_fp8_e4m3|a|f)[LE]")
 _ELEM_NAME = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8",
               "a": "int8", "f": "f32"}
@@ -4399,6 +4634,10 @@ def main(argv=None) -> int:
     #     kernel 5
     engine_runs.update(serve_seamless(dev))
     free_params()
+    # 13. training of the dense family: h2o-danube-1.8b at full width and
+    #     depth, recovery from a checkpoint, the card against the CPU and
+    #     the train_lm example; no kernel of ops on this path
+    train_phase(dev)
 
     # launches of each instance in the run that drives its path: decode
     # and prefill from the plain runs, verify from a speculative run

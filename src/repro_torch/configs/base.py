@@ -1,4 +1,7 @@
-"""Model architecture config: a copy of the JAX package's ModelConfig.
+"""Config dataclasses, copies of the JAX package's: the model
+architecture (:class:`ModelConfig`), an input shape (:class:`ShapeConfig`,
+the shape suite :data:`SHAPES`) and the training loop's knobs
+(:class:`TrainConfig`).
 
 Every architecture in ``repro_torch/configs/<id>.py`` instantiates
 :class:`ModelConfig` with the exact published dimensions (``CONFIG``) plus
@@ -10,7 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -160,3 +163,48 @@ class ModelConfig:
                        + d * self.num_experts)
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return emb + active_blocks
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape suite cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop knobs.  On one device ``zero1`` and ``act_sharding``
+    have nothing to shard; they are kept so the fields stay the
+    reference's."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    microbatches: int = 1            # gradient accumulation
+    remat: str = "block"             # none | block | dots
+    zero1: bool = True               # shard optimizer state over data axis
+    grad_compression: str = "none"   # none | bf16
+    seed: int = 0
+    checkpoint_every: int = 100
+    log_every: int = 10
+    act_sharding: str = "baseline"   # baseline | optimized

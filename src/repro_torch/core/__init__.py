@@ -1,7 +1,8 @@
 """AMU core — the paper's contribution (async memory unit) as a host runtime.
 
 Layers:
-  * :mod:`repro_torch.core.amu`      — request queue, ids, getfin, config registers
+  * :mod:`repro_torch.core.amu`      — request queue, ids, getfin, config
+                                       registers, the transfer backends
   * :mod:`repro_torch.core.patterns` — access-pattern registers (stream,
                                        stride, gather, scatter)
   * :mod:`repro_torch.core.spm`      — SPM budget planner / cache-SPM split
@@ -18,6 +19,7 @@ from repro_torch.core.amu import (
     Request,
     RequestState,
     SimBackend,
+    DeviceTransferBackend,
     FAILURE_CODE,
 )
 from repro_torch.core.offload import FarMemoryTier, StreamingPrefetcher
@@ -34,7 +36,7 @@ from repro_torch.core.spm import SPMPlan, plan_attention_blocks, plan_matmul_blo
 
 __all__ = [
     "AMU", "AccessConfig", "AMUError", "QoS", "QueueFullPolicy", "Request",
-    "RequestState", "SimBackend", "FAILURE_CODE",
+    "RequestState", "SimBackend", "DeviceTransferBackend", "FAILURE_CODE",
     "FarMemoryTier", "StreamingPrefetcher",
     "AccessPattern", "GatherPattern", "ScatterPattern", "StreamPattern",
     "StridePattern", "coalescing_ratio", "granules",

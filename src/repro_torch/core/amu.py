@@ -12,12 +12,19 @@ a scratch-pad memory (SPM).  This module implements the paper's
   * :class:`AccessConfig` — the paper's *Memory Access Configuration
     Register* (granularity, QoS class) and *Default Configuration Register*.
 
-The transfer backend on the serving engine's path is ``SimBackend``, a
-deterministic simulated-latency backend (the pager builds ``AMU()`` with
-it), so queue behaviour under 300ns–10µs far-memory latency is testable
-on the CPU.  A backend that moves real bytes between pinned host memory
-and the CUDA device (copies on a side stream, ``torch.cuda.Event.query``
-as ``getfin``) is not part of this package yet.
+Two transfer backends are provided:
+
+  * ``DeviceTransferBackend`` — real copies from pinned host memory to
+    a CUDA device, issued on a side ``torch.cuda.Stream`` and
+    observed through a ``torch.cuda.Event``: ``Event.query`` is the
+    non-blocking poll behind ``getfin``, ``Event.synchronize`` the
+    blocking wait.  The training loader (:mod:`repro_torch.data.
+    pipeline`) moves its batches through it.  On the CPU it copies
+    synchronously and every poll finds the copy done.
+  * ``SimBackend`` — deterministic simulated-latency backend, the one on
+    the serving engine's path (the pager builds ``AMU()`` with it), so
+    queue behaviour under 300ns–10µs far-memory latency is testable on
+    the CPU.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ import heapq
 import itertools
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Deque, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
+import torch
 
 from repro_torch.obs import NULL_TRACER
 
@@ -43,6 +52,7 @@ __all__ = [
     "AMUError",
     "QueueFullPolicy",
     "SimBackend",
+    "DeviceTransferBackend",
     "FAILURE_CODE",
 ]
 
@@ -189,6 +199,77 @@ class SimBackend(TransferBackend):
 
     def advance(self, dt: float) -> None:
         self.now += dt
+
+
+class _InFlight(NamedTuple):
+    """A copy the side stream has queued: its destination, the event
+    recorded after it, and the source kept alive until it lands."""
+    out: torch.Tensor
+    event: Any
+    src: torch.Tensor
+
+
+class DeviceTransferBackend(TransferBackend):
+    """Real copies of host arrays to ``device``.
+
+    An ``aload`` stages the host array in pinned memory and copies it to
+    the device with ``non_blocking=True`` on a side stream; an event
+    recorded after the copy is the request's completion: ``poll`` is
+    ``event.query()``, ``finish`` is ``event.synchronize()``.  When a
+    copy lands, the current (consuming) stream waits on its event and the
+    result is ``record_stream``-ed on that stream, so the caching
+    allocator does not hand its memory to a later copy while kernels on
+    the consuming stream may still read it.  The request's payload is
+    then the device tensor.  Only loads to the device move: a request
+    for another memory kind (an ``astore`` to ``"pinned_host"``) raises.
+
+    On a CPU ``device`` the copy is made synchronously at ``start`` and
+    every poll finds it done.  The stream is made at the first copy,
+    never at construction or import.
+    """
+
+    def __init__(self, device="cuda") -> None:
+        self.device = torch.device(device)
+        self._stream = None
+
+    def start(self, req: Request) -> None:
+        src, memory_kind = req.payload
+        if memory_kind not in (None, "device"):
+            raise ValueError(f"DeviceTransferBackend loads host arrays to "
+                             f"the device; memory kind {memory_kind!r} asked")
+        src = src if isinstance(src, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(src))
+        if self.device.type != "cuda":
+            req.payload = src.to(self.device, copy=True)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        src = src.pin_memory()
+        with torch.cuda.stream(self._stream):
+            out = src.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        req.payload = _InFlight(out, event, src)
+
+    def _land(self, req: Request) -> None:
+        flight = req.payload
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(flight.event)
+        flight.out.record_stream(stream)
+        req.payload = flight.out
+
+    def poll(self, req: Request) -> bool:
+        if not isinstance(req.payload, _InFlight):
+            return True
+        if not req.payload.event.query():
+            return False
+        self._land(req)
+        return True
+
+    def finish(self, req: Request) -> None:
+        if isinstance(req.payload, _InFlight):
+            req.payload.event.synchronize()
+            self._land(req)
 
 
 # ---------------------------------------------------------------------------

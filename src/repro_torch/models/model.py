@@ -38,6 +38,17 @@ prefill computes it whole, the chunk queue's admission once
 ``cross`` tree (:func:`init_cross`), which every chunk (each row its
 slot's first ``src_len`` rows) and decode token (every row) reads.
 
+Training (the dense family without experts; the other families raise
+``NotImplementedError``): :func:`forward` runs the layer stack over a
+whole batch under autograd, :func:`chunked_cross_entropy` streams the LM
+loss over sequence chunks, and :func:`train_loss` is the reference's
+scalar loss with its metrics.  Each layer may be recomputed in the
+backward (:func:`_maybe_remat`: ``block``, or ``dots``, which keeps the
+un-batched matrix products).  Its attention is the plain
+:func:`~repro_torch.kernels.flash_attention.chunked_attention`, the
+function the reference's ``attention_block`` trains through: no kernel
+of :mod:`repro_torch.kernels.ops` has a backward.
+
 Parameters are a nested dict of tensors with the JAX package's path
 names, the layer stack stacked on axis 0 (``params["layers"]["attn"]
 ["q"]["w"]`` is (L, d, H * D); grouped: ``params["groups"]["dense"]``
@@ -51,11 +62,15 @@ stacked pool; the attention blocks update those views in place.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import chunked_attention
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import (attention_block, cross_block,
                                           cross_chunk_attention,
                                           cross_decode_attention,
@@ -76,7 +91,8 @@ __all__ = ["init_params", "cast_params", "Cache", "PagedCache", "init_cache",
            "init_paged_cache", "init_ssm_state", "init_cross", "prefill",
            "decode_step", "verify_step", "prefill_chunk", "encode_cross",
            "torch_dtype", "family_ported", "layer_params", "hybrid_layout",
-           "kv_layers"]
+           "kv_layers", "check_trainable", "forward",
+           "chunked_cross_entropy", "train_loss"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -847,3 +863,162 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, Cache(
         kv=kv, ssm=ssm, cross=cross,
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))
+
+
+# ===========================================================================
+# training: forward over a whole batch, the chunked LM loss
+# ===========================================================================
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains the dense family without experts (SWA and M-RoPE
+    included); any other family raises ``NotImplementedError``."""
+    if cfg.family == "dense" and not cfg.num_experts:
+        return
+    what = (f"dense with {cfg.num_experts} experts" if cfg.family == "dense"
+            else cfg.family)
+    raise NotImplementedError(
+        f"{cfg.name}: training of the {what} family is not ported yet "
+        "(ROADMAP.md queue 1, item 1); the port trains the dense family "
+        "without experts")
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` as it is (``none``), recomputed whole in the backward
+    (``block``: non-reentrant ``torch.utils.checkpoint``, which keeps
+    only its inputs), or recomputed except for its un-batched matrix
+    products (``dots``: selective checkpointing that saves every
+    ``aten.mm`` output, as the reference's
+    ``dots_with_no_batch_dims_saveable`` saves every dot without batch
+    dimensions; the attention's batched products are recomputed)."""
+    if remat == "none":
+        return fn
+    if remat == "block":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        try:
+            from torch.utils.checkpoint import (
+                CheckpointPolicy, create_selective_checkpoint_contexts)
+        except ImportError as e:    # a PyTorch without selective remat
+            raise NotImplementedError(
+                "remat='dots' needs torch.utils.checkpoint's selective "
+                "checkpointing") from e
+        saved = {torch.ops.aten.mm.default}
+
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          policy))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _per_layer(tree: Params) -> List[Params]:
+    """Layer views of the stacked layer params: each leaf ``unbind``-ed
+    once, so that autograd stacks each leaf's gradient once (indexing
+    layer by layer would make a full-size gradient for every layer)."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    parts = {k: _per_layer(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+
+
+def _train_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, cdt) -> torch.Tensor:
+    """Causal self-attention over the whole sequence for training: the
+    projections and RoPE of :func:`~repro_torch.models.attention.
+    attention_block`, then the plain ``chunked_attention`` (f32
+    operands, the SWA window) under autograd, as the reference's
+    ``attention_block`` trains.  Not ``ops.flash_attention``: on the
+    card that is the dense flash kernel, which has no backward."""
+    B, S, _ = x.shape
+    q, k, v = attn_mod._project_qkv(p, cfg, x, cdt)
+    q, k = attn_mod._position_encode(cfg, q, k, positions)
+    zero = torch.zeros((B,), dtype=torch.int64, device=x.device)
+    out = chunked_attention(q, k, v, q_offset=zero, causal=True,
+                            window=attn_mod._window(cfg))
+    return dense(p["o"], out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                 cdt)
+
+
+def _train_layer(lp: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                 cfg: ModelConfig, cdt) -> torch.Tensor:
+    x = x + _train_attention(lp["attn"], cfg,
+                             rms_norm(lp["attn_norm"], x, cfg.norm_eps),
+                             positions, cdt)
+    return x + swiglu(lp["mlp"], rms_norm(lp["mlp_norm"], x, cfg.norm_eps),
+                      cdt)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward to the final hidden states, differentiable:
+    ``batch["tokens"]`` (B, S) int; for M-RoPE ``batch["positions"]``
+    (3, B, S) where given, else three equal rows of 0..S-1.  Every layer
+    goes through :func:`_maybe_remat`.  Returns (x (B, S, d) in the
+    compute dtype, aux), aux the f32 zero of a family without a router
+    loss."""
+    check_trainable(cfg)
+    cdt = torch_dtype(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens, cdt)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.mrope_sections:
+        positions = batch.get("positions", positions.expand(3, B, S))
+    layer = _maybe_remat(partial(_train_layer, cfg=cfg, cdt=cdt), remat)
+    for lp in _per_layer(params["layers"]):
+        x = layer(lp, x, positions)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor, *, logit_scale: float = 1.0,
+                          chunk: int = 512, z_coef: float = 0.0
+                          ) -> torch.Tensor:
+    """Mean next-token cross entropy of the hidden rows x (B, S, d)
+    against labels (B, S) int, -1 ignored, streamed over S in chunks of
+    ``chunk`` (S padded to a multiple with ignored rows), so (B, S, V)
+    logits never exist at once.  Each chunk's logits are a bf16 product
+    against the whole (padded) table, whatever the compute dtype, scaled
+    in bf16 and read in f32, as in the reference; the table is cast
+    inside each chunk, so that its gradient adds up in f32.  ``z_coef``
+    adds the z-loss, the mean squared log-partition."""
+    B, S, d = x.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = cnt = zacc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S + pad, c):
+        lb = labels[:, i:i + c]
+        logits = x[:, i:i + c].to(torch.bfloat16) \
+            @ table.to(torch.bfloat16).T
+        logits = (logits * logit_scale).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lb.clamp(min=0).long()[..., None])[..., 0]
+        valid = (lb >= 0).float()
+        tot = tot + torch.sum((lse - gold) * valid)
+        zacc = zacc + torch.sum(torch.square(lse) * valid)
+        cnt = cnt + valid.sum()
+    cnt = torch.clamp(cnt, min=1.0)
+    return tot / cnt + z_coef * zacc / cnt
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], *, remat: str = "block",
+               z_coef: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(scalar loss, {"loss", "xent", "aux"}): the chunked cross entropy
+    of :func:`forward`'s hidden states against ``batch["labels"]``
+    through the LM head (the embedding table when tied), plus aux."""
+    x, aux = forward(params, cfg, batch, remat=remat)
+    table = params["embed"]["table"] if cfg.tie_embeddings else \
+        params["lm_head"]["table"]
+    xent = chunked_cross_entropy(x, table, batch["labels"],
+                                 logit_scale=cfg.logit_scale, z_coef=z_coef)
+    loss = xent + aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux}
